@@ -1,0 +1,347 @@
+"""Typed hyperparameters with a bijective codec to the unit hypercube.
+
+Mirrors the capability of the external ``ConfigSpace`` library that the
+reference depends on (SURVEY.md §2 "Config / flag system": typed
+hyperparameters, conditions, forbiddens), re-designed so every parameter maps
+to exactly one dimension of a dense ``float`` vector that the device kernels consume:
+
+* continuous / integer parameters  -> a value in ``[0, 1]``  (vartype ``'c'``)
+* categorical parameters           -> the choice index as a float (``'u'``)
+* ordinal parameters               -> the level index as a float (``'o'``)
+
+This vector layout is the same one the reference's BOHB config generator
+feeds to ``statsmodels.KDEMultivariate`` (SURVEY.md §2 "BOHB config
+generator"), so the KDE semantics carry over unchanged.
+
+Ported from ``hpbandster_tpu/space/hyperparameters.py``: a numpy-only copy, so the
+PyTorch package never imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Hashable, Optional, Sequence
+
+import numpy as np
+
+__all__ = [
+    "Hyperparameter",
+    "UniformFloatHyperparameter",
+    "UniformIntegerHyperparameter",
+    "CategoricalHyperparameter",
+    "OrdinalHyperparameter",
+    "Constant",
+]
+
+
+def _clamp(value, lower, upper):
+    """Scalar clamp. Replaces np.clip on the hot per-config codec paths —
+    numpy's scalar clip routes through array coercion and dominated
+    fused-replay profiles. NaN propagates (value is max's first arg),
+    matching np.clip."""
+    return min(max(value, lower), upper)
+
+
+class Hyperparameter:
+    """Base class. One hyperparameter == one dimension of the config vector."""
+
+    #: statsmodels-style vartype code: 'c' continuous, 'u' unordered, 'o' ordered
+    vartype: str = "c"
+    #: number of discrete choices (0 for continuous)
+    num_choices: int = 0
+
+    def __init__(self, name: str, default_value: Any = None):
+        if not isinstance(name, str) or not name:
+            raise ValueError("hyperparameter name must be a non-empty string")
+        self.name = name
+        self.default_value = default_value
+
+    # -- codec ------------------------------------------------------------
+    def to_unit(self, value: Any) -> float:
+        """Map a legal value to its vector representation (float)."""
+        raise NotImplementedError
+
+    def from_unit(self, u: float) -> Any:
+        """Inverse of :meth:`to_unit` (after rounding/clipping)."""
+        raise NotImplementedError
+
+    # -- sampling ---------------------------------------------------------
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        """Sample a vector-space value uniformly over the legal set."""
+        raise NotImplementedError
+
+    def sample(self, rng: np.random.Generator) -> Any:
+        return self.from_unit(self.sample_unit(rng))
+
+    def legal(self, value: Any) -> bool:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"{type(self).__name__}({self.name!r})"
+
+    def __eq__(self, other: object) -> bool:
+        return type(self) is type(other) and self.__dict__ == other.__dict__
+
+    def __hash__(self) -> int:
+        return hash((type(self).__name__, self.name))
+
+
+class UniformFloatHyperparameter(Hyperparameter):
+    """Float in ``[lower, upper]``, optionally log-scaled and/or quantized.
+
+    ``log=True`` makes the *unit* representation uniform in log-space, which is
+    what both ConfigSpace and the reference's KDE operate on.
+    """
+
+    vartype = "c"
+
+    def __init__(
+        self,
+        name: str,
+        lower: float,
+        upper: float,
+        default_value: Optional[float] = None,
+        log: bool = False,
+        q: Optional[float] = None,
+    ):
+        if not (upper > lower):
+            raise ValueError(f"{name}: need upper > lower, got [{lower}, {upper}]")
+        if log and lower <= 0:
+            raise ValueError(f"{name}: log-scale needs lower > 0, got {lower}")
+        self.lower = float(lower)
+        self.upper = float(upper)
+        self.log = bool(log)
+        self.q = float(q) if q is not None else None
+        if default_value is None:
+            default_value = (
+                math.sqrt(lower * upper) if log else 0.5 * (lower + upper)
+            )
+            if self.q is not None:
+                default_value = self._quantize(default_value)
+        super().__init__(name, float(default_value))
+        if not self.legal(self.default_value):
+            raise ValueError(f"{name}: default {default_value} out of range")
+
+    def _quantize(self, value: float) -> float:
+        if self.q is None:
+            return value
+        return float(_clamp(round(value / self.q) * self.q, self.lower, self.upper))
+
+    def to_unit(self, value: Any) -> float:
+        v = float(value)
+        if self.log:
+            u = (math.log(v) - math.log(self.lower)) / (
+                math.log(self.upper) - math.log(self.lower)
+            )
+        else:
+            u = (v - self.lower) / (self.upper - self.lower)
+        return float(_clamp(u, 0.0, 1.0))
+
+    def from_unit(self, u: float) -> float:
+        u = float(_clamp(u, 0.0, 1.0))
+        if self.log:
+            v = math.exp(
+                math.log(self.lower)
+                + u * (math.log(self.upper) - math.log(self.lower))
+            )
+        else:
+            v = self.lower + u * (self.upper - self.lower)
+        return self._quantize(float(_clamp(v, self.lower, self.upper)))
+
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        return float(rng.uniform())
+
+    def legal(self, value: Any) -> bool:
+        try:
+            v = float(value)
+        except (TypeError, ValueError):
+            return False
+        return self.lower - 1e-12 <= v <= self.upper + 1e-12
+
+
+class UniformIntegerHyperparameter(Hyperparameter):
+    """Integer in ``[lower, upper]`` (inclusive), optionally log-scaled.
+
+    Represented continuously in ``[0, 1]`` (vartype ``'c'``) with rounding on
+    decode — the same convention ConfigSpace uses, which lets the KDE treat
+    integer dims smoothly.
+    """
+
+    vartype = "c"
+
+    def __init__(
+        self,
+        name: str,
+        lower: int,
+        upper: int,
+        default_value: Optional[int] = None,
+        log: bool = False,
+    ):
+        lower, upper = int(lower), int(upper)
+        if not (upper > lower):
+            raise ValueError(f"{name}: need upper > lower, got [{lower}, {upper}]")
+        if log and lower <= 0:
+            raise ValueError(f"{name}: log-scale needs lower > 0, got {lower}")
+        self.lower = lower
+        self.upper = upper
+        self.log = bool(log)
+        if default_value is None:
+            default_value = (
+                int(round(math.sqrt(lower * upper))) if log else (lower + upper) // 2
+            )
+        super().__init__(name, int(default_value))
+        if not self.legal(self.default_value):
+            raise ValueError(f"{name}: default {default_value} out of range")
+
+    # Use the "bin-center" convention: integer i covers
+    # [ (i-lower)/(n), (i-lower+1)/(n) ) of the unit interval so that uniform
+    # unit samples decode to uniform integers.
+    @property
+    def _n(self) -> int:
+        return self.upper - self.lower + 1
+
+    def to_unit(self, value: Any) -> float:
+        v = int(round(float(value)))
+        if self.log:
+            u = (math.log(v) - math.log(self.lower - 0.4999)) / (
+                math.log(self.upper + 0.4999) - math.log(self.lower - 0.4999)
+            ) if self.lower > 1 else (
+                (math.log(v) - math.log(max(self.lower, 1) * 0.5001))
+                / (math.log(self.upper + 0.4999) - math.log(max(self.lower, 1) * 0.5001))
+            )
+            return float(_clamp(u, 0.0, 1.0))
+        return float(_clamp((v - self.lower + 0.5) / self._n, 0.0, 1.0))
+
+    def from_unit(self, u: float) -> int:
+        u = float(_clamp(u, 0.0, 1.0))
+        if self.log:
+            lo = (self.lower - 0.4999) if self.lower > 1 else max(self.lower, 1) * 0.5001
+            hi = self.upper + 0.4999
+            v = math.exp(math.log(lo) + u * (math.log(hi) - math.log(lo)))
+        else:
+            v = self.lower - 0.5 + u * self._n
+        return int(_clamp(int(round(v)), self.lower, self.upper))
+
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        return float(rng.uniform())
+
+    def legal(self, value: Any) -> bool:
+        try:
+            v = float(value)
+        except (TypeError, ValueError):
+            return False
+        return abs(v - round(v)) < 1e-9 and self.lower <= round(v) <= self.upper
+
+
+class CategoricalHyperparameter(Hyperparameter):
+    """Unordered finite choice set. Vector repr = choice index (vartype 'u')."""
+
+    vartype = "u"
+
+    def __init__(
+        self,
+        name: str,
+        choices: Sequence[Hashable],
+        default_value: Any = None,
+        weights: Optional[Sequence[float]] = None,
+    ):
+        choices = list(choices)
+        if len(choices) < 1:
+            raise ValueError(f"{name}: need at least one choice")
+        if len(set(map(repr, choices))) != len(choices):
+            raise ValueError(f"{name}: duplicate choices")
+        self.choices = choices
+        self.num_choices = len(choices)
+        if weights is not None:
+            w = np.asarray(weights, dtype=np.float64)
+            if w.shape != (len(choices),) or (w < 0).any() or w.sum() <= 0:
+                raise ValueError(f"{name}: bad weights")
+            self.probabilities = w / w.sum()
+        else:
+            self.probabilities = np.full(len(choices), 1.0 / len(choices))
+        if default_value is None:
+            default_value = choices[0]
+        super().__init__(name, default_value)
+        if not self.legal(self.default_value):
+            raise ValueError(f"{name}: default {default_value!r} not a choice")
+
+    def index(self, value: Any) -> int:
+        try:
+            return self.choices.index(value)
+        except ValueError:
+            raise ValueError(f"{self.name}: {value!r} not in choices") from None
+
+    def to_unit(self, value: Any) -> float:
+        return float(self.index(value))
+
+    def from_unit(self, u: float) -> Any:
+        idx = int(_clamp(int(round(float(u))), 0, self.num_choices - 1))
+        return self.choices[idx]
+
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        return float(rng.choice(self.num_choices, p=self.probabilities))
+
+    def legal(self, value: Any) -> bool:
+        return any(value == c for c in self.choices)
+
+
+class OrdinalHyperparameter(Hyperparameter):
+    """Ordered finite choice set. Vector repr = level index (vartype 'o')."""
+
+    vartype = "o"
+
+    def __init__(self, name: str, sequence: Sequence[Hashable], default_value: Any = None):
+        sequence = list(sequence)
+        if len(sequence) < 1:
+            raise ValueError(f"{name}: need at least one level")
+        self.sequence = sequence
+        self.num_choices = len(sequence)
+        if default_value is None:
+            default_value = sequence[0]
+        super().__init__(name, default_value)
+        if not self.legal(self.default_value):
+            raise ValueError(f"{name}: default {default_value!r} not a level")
+
+    def index(self, value: Any) -> int:
+        try:
+            return self.sequence.index(value)
+        except ValueError:
+            raise ValueError(f"{self.name}: {value!r} not in sequence") from None
+
+    def to_unit(self, value: Any) -> float:
+        return float(self.index(value))
+
+    def from_unit(self, u: float) -> Any:
+        idx = int(_clamp(int(round(float(u))), 0, self.num_choices - 1))
+        return self.sequence[idx]
+
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        return float(rng.integers(self.num_choices))
+
+    def legal(self, value: Any) -> bool:
+        return any(value == c for c in self.sequence)
+
+
+class Constant(Hyperparameter):
+    """A fixed value. Occupies one (degenerate) vector dim, always 0."""
+
+    vartype = "u"
+    num_choices = 1
+
+    def __init__(self, name: str, value: Any):
+        self.value = value
+        super().__init__(name, value)
+
+    def to_unit(self, value: Any) -> float:
+        if value != self.value:
+            raise ValueError(f"{self.name}: constant is {self.value!r}, got {value!r}")
+        return 0.0
+
+    def from_unit(self, u: float) -> Any:
+        return self.value
+
+    def sample_unit(self, rng: np.random.Generator) -> float:
+        return 0.0
+
+    def legal(self, value: Any) -> bool:
+        return value == self.value

@@ -11,7 +11,12 @@ setup(
     ),
     long_description=open("README.md").read(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["hpbandster_tpu", "hpbandster_tpu.*"]),
+    packages=find_packages(include=[
+        "hpbandster_tpu", "hpbandster_tpu.*",
+        "hpbandster_tpu_torch", "hpbandster_tpu_torch.*",
+    ]),
+    # the PyTorch port's CUDA sources, compiled with nvcc at first launch
+    package_data={"hpbandster_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -21,6 +26,7 @@ setup(
         "viz": ["matplotlib"],
         "analysis": ["pandas"],
         "test": ["pytest"],
+        "torch": ["torch"],
     },
     license="BSD-3-Clause",
 )
