@@ -4,7 +4,11 @@ This system has no weights: its state is the space codec, the fitted KDEs
 and the warm observation buffers. These functions turn the reference's
 numpy values (``np.asarray`` of its arrays) into the port's forms, so both
 sides can compute on the same state. ``FusedBOHB`` uses
-:func:`warm_obs_from_numpy` to upload its own warm observations.
+:func:`warm_obs_from_numpy` (static tier) and :func:`dynamic_obs_from_numpy`
+(dynamic-count tier) to upload its own warm observations. A fused
+checkpoint of the reference needs no conversion: its pickle holds only
+Python and numpy values, and ``FusedBOHB.load_checkpoint`` reads it as it
+is.
 """
 
 from __future__ import annotations
@@ -17,7 +21,12 @@ import torch
 from hpbandster_tpu_torch.ops.kde import KDE
 from hpbandster_tpu_torch.ops.sweep import SpaceCodec
 
-__all__ = ["codec_from_numpy", "kde_from_numpy", "warm_obs_from_numpy"]
+__all__ = [
+    "codec_from_numpy",
+    "kde_from_numpy",
+    "warm_obs_from_numpy",
+    "dynamic_obs_from_numpy",
+]
 
 
 def codec_from_numpy(kind, log, lower, upper, q, cards, vartypes, logits) -> SpaceCodec:
@@ -61,3 +70,22 @@ def warm_obs_from_numpy(
         for b in warm_v
     }
     return vs, ls
+
+
+def dynamic_obs_from_numpy(
+    warm_v_pad: Mapping[float, np.ndarray],
+    warm_l_pad: Mapping[float, np.ndarray],
+    warm_n: Mapping[float, int],
+    device: Optional[torch.device] = None,
+) -> Tuple[Dict[float, torch.Tensor], Dict[float, torch.Tensor], Dict[float, torch.Tensor]]:
+    """The dynamic-count tier's warm inputs from the reference's padded
+    buffers (budget -> full-capacity ``[cap, d]`` vectors, ``[cap]``
+    losses, and a count): float32 buffers and int32 count tensors on
+    ``device``, keyed by float budget, as ``make_fused_sweep_fn(...,
+    dynamic_counts=True)`` takes them."""
+    vs, ls = warm_obs_from_numpy(warm_v_pad, warm_l_pad, device)
+    ns = {
+        float(b): torch.as_tensor(int(warm_n[b]), dtype=torch.int32, device=device)
+        for b in warm_v_pad
+    }
+    return vs, ls, ns

@@ -1,2 +1,3 @@
 """Host bookkeeping of the port: Job, Datum/BaseIteration,
-SuccessiveHalving and Result."""
+SuccessiveHalving, Result, warm start (WarmStartIteration) and fused-tier
+checkpoints."""

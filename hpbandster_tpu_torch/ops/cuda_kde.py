@@ -1,17 +1,23 @@
-"""BOHB acquisition scorer: the hand-written CUDA kernel and its plain twin.
+"""The KDE kernels: hand-written CUDA and their plain twins.
 
-Ported from ``hpbandster_tpu/ops/pallas_kde.py``. The Pallas TPU kernel
-``_score_kernel`` becomes ``csrc/kde_score.cu`` (built by ``ops/_build.py``);
-``pallas_score_candidates_traced`` becomes :func:`score_candidates` and
-``pallas_propose_batch`` becomes :func:`propose_batch`.
+Ported from ``hpbandster_tpu/ops/pallas_kde.py``, built by ``ops/_build.py``:
 
-:func:`score_candidates` launches the kernel for CUDA tensors and runs
-:func:`score_candidates_reference`, the reference's math written as tensor
-ops, for CPU tensors. Nothing swaps one for the other on failure: a CUDA
-tensor either reaches the kernel or raises. ``LAUNCHES["kde_score"]`` counts
-kernel launches, so a run can show that its proposals went through the
-kernel; setting ``RECORD`` to a list keeps every launch's inputs, so a run
-can hold the kernel against its plain twin at the shapes it really gave it.
+* the acquisition scorer: the Pallas TPU kernel ``_score_kernel`` becomes
+  ``csrc/kde_score.cu``; ``pallas_score_candidates_traced`` becomes
+  :func:`score_candidates` and ``pallas_propose_batch`` becomes
+  :func:`propose_batch`;
+* the bandwidth fit's masked moments: ``_moments_kernel`` becomes
+  ``csrc/kde_moments.cu``; ``_masked_moments_padded`` becomes
+  :func:`masked_moments` and ``pallas_normal_reference_bandwidths`` becomes
+  :func:`moment_bandwidths`.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version (``*_reference``, the reference's math written as tensor ops) for
+CPU tensors. Nothing swaps one for the other on failure: a CUDA tensor
+either reaches the kernel or raises. ``LAUNCHES[name]`` counts kernel
+launches, so a run can show that it went through the kernels; setting
+``RECORD`` to a list keeps every launch's ``(name, inputs)``, so a run can
+hold each kernel against its plain twin at the shapes it really gave it.
 """
 
 from __future__ import annotations
@@ -23,7 +29,12 @@ from typing import Optional
 import torch
 
 from hpbandster_tpu_torch.ops._build import load_library
-from hpbandster_tpu_torch.ops.kde import KDE, LOG_PDF_FLOOR, generate_candidates
+from hpbandster_tpu_torch.ops.kde import (
+    KDE,
+    LOG_PDF_FLOOR,
+    _discrete_bw_cap,
+    generate_candidates,
+)
 
 __all__ = [
     "LAUNCHES",
@@ -32,18 +43,23 @@ __all__ = [
     "score_candidates_reference",
     "propose_from_candidates",
     "propose_batch",
+    "masked_moments",
+    "masked_moments_reference",
+    "moment_bandwidths",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 #: kernel launches per kernel name, counted where the kernel is launched
-LAUNCHES = {"kde_score": 0}
+LAUNCHES = {"kde_score": 0, "kde_moments": 0}
 
-#: when a list, each kernel launch appends its inputs
-#: ``(cands, good, bad, vartypes, cards)``
+#: when a list, each kernel launch appends ``(name, inputs)``: for
+#: ``kde_score`` ``(cands, good, bad, vartypes, cards)``, for
+#: ``kde_moments`` ``(data, masks)``
 RECORD: Optional[list] = None
 
 _LIB = None
+_MOMENTS_LIB = None
 
 
 def _kde_score_lib() -> ctypes.CDLL:
@@ -185,7 +201,7 @@ def score_candidates(
         raise RuntimeError(f"kde_score launch failed: CUDA error {rc} ({msg})")
     LAUNCHES["kde_score"] += 1
     if RECORD is not None:
-        RECORD.append((cands, good, bad, vt, cd))
+        RECORD.append(("kde_score", (cands, good, bad, vt, cd)))
     return out
 
 
@@ -221,3 +237,153 @@ def propose_batch(
         bandwidth_factor, min_bandwidth,
     )
     return propose_from_candidates(cands, good, bad, vartypes, cards, n)
+
+
+# ------------------------------------------------------------ bandwidth fit
+def _kde_moments_lib() -> ctypes.CDLL:
+    """The built masked-moments library with its C signatures declared
+    (first call builds it)."""
+    global _MOMENTS_LIB
+    if _MOMENTS_LIB is None:
+        lib = load_library("kde_moments")
+        lib.kde_moments_row_blocks.argtypes = [ctypes.c_int]
+        lib.kde_moments_row_blocks.restype = ctypes.c_int
+        lib.kde_moments_launch.argtypes = (
+            [ctypes.c_void_p] * 4   # data, masks, partial scratch, output
+            + [ctypes.c_int] * 3    # C, d, sides
+            + [ctypes.c_void_p]     # stream
+        )
+        lib.kde_moments_launch.restype = ctypes.c_int
+        lib.kde_moments_error_string.argtypes = [ctypes.c_int]
+        lib.kde_moments_error_string.restype = ctypes.c_char_p
+        _MOMENTS_LIB = lib
+    return _MOMENTS_LIB
+
+
+#: rows of one reference grid step, and of one sequential block inside it
+_MOMENT_TILE_ROWS = 512
+_MOMENT_BLOCK_ROWS = 32
+
+
+def _ordered_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x [S, C_pad, d]`` over rows in the reference's order:
+    512-row tiles accumulated in turn (the Pallas grid), each tile summed
+    in sequential 32-row blocks, the blocks then summed in turn (the order
+    XLA's CPU backend gives ``jnp.sum`` over a tile's rows). Float32 all
+    the way, so on the CPU the sums equal the reference's bit for bit; the
+    one-pass variance downstream turns a last-bit difference in a sum into
+    a visible difference in a bandwidth."""
+    s, c_pad, d = x.shape
+    blocks = x.reshape(s, c_pad // _MOMENT_BLOCK_ROWS, _MOMENT_BLOCK_ROWS, d)
+    acc = blocks[:, :, 0]
+    for r in range(1, _MOMENT_BLOCK_ROWS):
+        acc = acc + blocks[:, :, r]
+    per_tile = _MOMENT_TILE_ROWS // _MOMENT_BLOCK_ROWS
+    acc = acc.reshape(s, c_pad // _MOMENT_TILE_ROWS, per_tile, d)
+    tiles = acc[:, :, 0]
+    for k in range(1, per_tile):
+        tiles = tiles + acc[:, :, k]
+    total = tiles[:, 0]
+    for t in range(1, tiles.shape[1]):
+        total = total + tiles[:, t]
+    return total
+
+
+def masked_moments_reference(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch masked moments: for ``data f32[C, d]`` and ``masks
+    f32[S, C]``, ``f32[S, 3, d]`` holding per side the masked sum, the
+    masked sum of squares (``(x * m) * x``, as the reference forms it) and
+    the mask's sum (repeated over the dims, as the reference's lanes hold
+    it), summed in the reference's order (:func:`_ordered_row_sum`)."""
+    data = data.to(torch.float32)
+    masks = masks.to(torch.float32)
+    c, d = data.shape
+    pad = -c % _MOMENT_TILE_ROWS
+    data = torch.nn.functional.pad(data, (0, 0, 0, pad))
+    masks = torch.nn.functional.pad(masks, (0, pad))
+    dm = masks[:, :, None] * data[None]
+    return torch.stack([
+        _ordered_row_sum(dm),
+        _ordered_row_sum(dm * data[None]),
+        _ordered_row_sum(masks[:, :, None].expand_as(dm)),
+    ], dim=1)
+
+
+def masked_moments(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Masked moments ``f32[S, 3, d]`` of ``data f32[C, d]`` under ``masks
+    f32[S, C]`` (S = 1 or 2 sides), as :func:`masked_moments_reference`.
+
+    CUDA tensors launch ``csrc/kde_moments.cu`` (two passes, no atomics:
+    the same inputs give the same bits on every run); CPU tensors take the
+    plain version. Any other device raises.
+    """
+    dev = data.device
+    if dev.type == "cpu":
+        return masked_moments_reference(data, masks)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_moments runs on cuda or cpu, not {dev}")
+    if data.dim() != 2 or masks.dim() != 2 or masks.shape[1] != data.shape[0]:
+        raise ValueError(
+            f"data must be [C, d] and masks [S, C], got {tuple(data.shape)} "
+            f"and {tuple(masks.shape)}"
+        )
+    c, d = data.shape
+    sides = masks.shape[0]
+    if sides not in (1, 2):
+        raise ValueError(f"masked_moments takes 1 or 2 masks, got {sides}")
+    if masks.device != dev:
+        raise ValueError(f"masks on {masks.device}, data on {dev}")
+    data = data.to(torch.float32).contiguous()
+    masks = masks.to(torch.float32).contiguous()
+    if c == 0 or d == 0:
+        return torch.zeros((sides, 3, d), dtype=torch.float32, device=dev)
+    lib = _kde_moments_lib()
+    partial = torch.empty(
+        (lib.kde_moments_row_blocks(c), sides, 3, d), dtype=torch.float32,
+        device=dev,
+    )
+    out = torch.empty((sides, 3, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kde_moments_launch(
+            data.data_ptr(), masks.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), c, d, sides, stream,
+        )
+    if rc != 0:
+        msg = lib.kde_moments_error_string(rc).decode()
+        raise RuntimeError(f"kde_moments launch failed: CUDA error {rc} ({msg})")
+    LAUNCHES["kde_moments"] += 1
+    if RECORD is not None:
+        RECORD.append(("kde_moments", (data, masks)))
+    return out
+
+
+def moment_bandwidths(
+    data: torch.Tensor,
+    masks: torch.Tensor,
+    cards: torch.Tensor,
+    min_bandwidth: float = 1e-3,
+) -> torch.Tensor:
+    """Normal-reference bandwidths from one masked-moment pass: the port of
+    ``pallas_normal_reference_bandwidths``. ``masks`` is ``f32[C]`` (returns
+    ``f32[d]``) or ``f32[S, C]`` (returns ``f32[S, d]``, all sides from one
+    launch).
+
+    One-pass variance ``max(s2/n - mean^2, 0)`` with ``n = max(count, 1)``,
+    then ``1.06 * sigma * n^(-1/(4+d))`` clipped to ``[min_bandwidth,
+    (k-1)/k]``: a distinct numeric consumer from the two-pass
+    ``ops.kde.normal_reference_bandwidths``, exactly as in the reference.
+    """
+    one_side = masks.dim() == 1
+    mom = masked_moments(data, masks[None] if one_side else masks)
+    s1, s2, cnt = mom[:, 0], mom[:, 1], mom[:, 2]
+    d = data.shape[-1]
+    n = torch.clamp(cnt, min=1.0)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - torch.square(mean), min=0.0)
+    bw = 1.06 * torch.sqrt(var) * n ** (-1.0 / (4.0 + d))
+    bw = torch.minimum(
+        torch.clamp(bw, min=min_bandwidth),
+        _discrete_bw_cap(torch.as_tensor(cards, device=data.device)),
+    )
+    return bw[0] if one_side else bw

@@ -2,16 +2,20 @@
 
 Ported from ``hpbandster_tpu/ops/sweep.py``: the space codec
 (``SpaceCodec``, ``build_space_codec``, ``quantize_unit``, ``random_unit``),
-``plan_additions``, ``_fit_kde_pair_device`` and the static tier of
-``make_fused_sweep_fn`` (``init_obs_state``, ``trained_split``,
-``run_bracket`` and the unrolled ``sweep``).
+``pow2_capacities``, ``plan_additions``, ``_fit_kde_pair_device`` and the
+static and dynamic-count tiers of ``make_fused_sweep_fn``
+(``init_obs_state``, ``trained_split``, ``dynamic_gate``,
+``dynamic_proposals``, ``run_bracket`` and the unrolled ``sweep``).
 
 The static tier keeps every observation count a Python int, so the model
 gate, the good/bad split sizes and the choice of the largest trained budget
-are decided on the host with no device round trip; only data lives on the
-device. PyTorch runs eagerly, so the sweep is a Python loop of device ops
-rather than one compiled program, and it synchronises once, when the caller
-reads the outputs.
+are decided on the host with no device round trip. The dynamic-count tier
+keeps the counts on the device as int32 tensors over full-capacity buffers:
+the gate, the split and the budget choice are tensor arithmetic, every
+bracket fits and proposes, and ``torch.where`` keeps or discards the model's
+picks, so nothing inside a sweep waits on the host for a count. PyTorch runs
+eagerly, so the sweep is a Python loop of device ops rather than one
+compiled program, and it synchronises when the caller reads the outputs.
 
 Random numbers enter through a draw seam (:class:`GeneratorDraws`): each
 bracket asks it for its uniform stage-0 vectors, its candidate set and its
@@ -31,6 +35,7 @@ from hpbandster_tpu_torch.ops.cuda_kde import propose_from_candidates
 from hpbandster_tpu_torch.ops.fused import _pack_stages, fused_sh_bracket
 from hpbandster_tpu_torch.ops.kde import (
     KDE,
+    fit_kde_pair_masked,
     generate_candidates,
     normal_reference_bandwidths,
 )
@@ -41,6 +46,7 @@ __all__ = [
     "quantize_unit",
     "random_unit",
     "random_unit_from",
+    "pow2_capacities",
     "plan_additions",
     "GeneratorDraws",
     "SweepBracketOutput",
@@ -48,6 +54,19 @@ __all__ = [
 ]
 
 _F32 = torch.float32
+
+
+def pow2_capacities(counts: dict, floor: int = 256) -> dict:
+    """Per-budget buffer capacities of the dynamic-count tier: each count
+    rounded up to a power of two, at least ``floor``. The one definition of
+    the tier's buffer shapes: a chunked run and a run resumed from its
+    checkpoint agree on every chunk's shapes because both take them from
+    here."""
+    floor = max(int(floor), 1)
+    return {
+        float(b): 1 << max(int(n) - 1, floor - 1).bit_length()
+        for b, n in counts.items()
+    }
 
 
 def plan_additions(plans: Sequence[BracketPlan]) -> dict:
@@ -330,6 +349,8 @@ def make_fused_sweep_fn(
     min_bandwidth: float = 1e-3,
     warm_counts: Optional[dict] = None,
     dynamic_counts: bool = False,
+    capacities: Optional[dict] = None,
+    return_state: bool = False,
     resident: bool = False,
     mesh=None,
     shard_sampling: bool = False,
@@ -340,25 +361,41 @@ def make_fused_sweep_fn(
     active_mask_fn: Optional[Callable] = None,
     forbidden_fn: Optional[Callable] = None,
 ) -> Callable[..., List[SweepBracketOutput]]:
-    """Build the static-tier sweep; returns
-    ``fn(seed, warm_v=None, warm_l=None, draws=None) -> [SweepBracketOutput]``.
+    """Build the sweep; returns
+    ``fn(seed, warm_v=None, warm_l=None, warm_n=None, draws=None)``.
 
     ``eval_fn(vectors f32[n, d], budget) -> f32[n]`` is batched. Model
     bookkeeping mirrors the reference: a budget's KDE pair exists once it
     holds ``min_points_in_model + 2`` observations and both split sides
     exceed ``d``; proposals use the largest such budget, refit at every
-    bracket start from all observations so far. ``warm_counts`` (budget ->
-    n) sizes the warm observations that ``warm_v``/``warm_l`` (budget ->
-    ``[n, d]`` / ``[n]``, numpy or tensors) bring in. ``draws`` replaces the
+    bracket start from all observations so far. ``draws`` replaces the
     default :class:`GeneratorDraws` seeded with ``seed``.
 
-    The other tiers and seams of the reference (dynamic counts, resident,
-    meshes, incumbent-only, device metrics, stateful evaluation, custom
-    promotion ranks, conditions and forbiddens) are not ported yet and
-    raise ``NotImplementedError``.
+    Static tier (default): ``warm_counts`` (budget -> n) sizes the warm
+    observations that ``warm_v``/``warm_l`` (budget -> ``[n, d]`` / ``[n]``,
+    numpy or tensors) bring in; ``fn`` returns ``[SweepBracketOutput]``.
+
+    ``dynamic_counts=True``: ``warm_v[b]``/``warm_l[b]`` are full-capacity
+    buffers and ``warm_n[b]`` an int32 count tensor. The gate, the split
+    sizes and the largest-trained-budget choice are device arithmetic
+    (:func:`~hpbandster_tpu_torch.ops.kde.fit_kde_pair_masked`); every
+    bracket fits and proposes over ``capmax`` rows and ``torch.where``
+    discards the model's picks while no gate is open, so counts are never
+    read on the host. ``capacities`` (budget -> slots, covering warm plus
+    every plan's additions) pins the buffer shapes so all chunks of a run
+    agree. ``return_state=True`` makes ``fn`` return ``(outputs, (obs_v,
+    obs_l, counts))``, the end-of-sweep state the next chunk takes back as
+    its warm inputs. Where the reference donates the warm buffers to that
+    state, the port never writes to its inputs: it builds the state from
+    them once and then appends to it in place.
+
+    The other tiers and seams of the reference (resident, meshes,
+    incumbent-only, device metrics, stateful evaluation, custom promotion
+    ranks, conditions and forbiddens) are not ported yet and raise
+    ``NotImplementedError``.
     """
     unported = {
-        "dynamic_counts": dynamic_counts, "resident": resident,
+        "resident": resident,
         "mesh": mesh is not None, "shard_sampling": shard_sampling,
         "incumbent_only": incumbent_only, "device_metrics": device_metrics,
         "stateful_eval": stateful_eval is not None,
@@ -369,10 +406,15 @@ def make_fused_sweep_fn(
     for name, on in unported.items():
         if on:
             raise NotImplementedError(
-                f"{name} is not ported to the PyTorch sweep yet (static tier only)"
+                f"{name} is not ported to the PyTorch sweep yet"
             )
     if eval_fn is None:
         raise ValueError("make_fused_sweep_fn needs an eval_fn")
+    if return_state and not dynamic_counts:
+        raise ValueError(
+            "return_state=True requires dynamic_counts=True: the static "
+            "tier's counts are host ints, there is no reusable state"
+        )
     device = torch.device(device)
     d = int(codec.kind.shape[0])
     min_pts = (d + 1) if min_points_in_model is None else max(int(min_points_in_model), d + 1)
@@ -380,9 +422,18 @@ def make_fused_sweep_fn(
     warm_counts = {float(b): int(n) for b, n in (warm_counts or {}).items() if n > 0}
 
     # static per-budget observation capacities across the whole sweep
+    additions = plan_additions(plans)
     caps: Dict[float, int] = dict(warm_counts)
-    for b, k in plan_additions(plans).items():
+    for b, k in additions.items():
         caps[b] = caps.get(b, 0) + k
+    if capacities is not None:
+        for b, need in caps.items():
+            if capacities.get(float(b), 0) < need:
+                raise ValueError(
+                    f"capacities[{b}]={capacities.get(float(b))} cannot hold "
+                    f"the {need} observations this sweep accumulates there"
+                )
+        caps = {float(b): int(n) for b, n in capacities.items()}
 
     vartypes_dev = torch.as_tensor(codec.vartypes, device=device)
     cards_dev = torch.as_tensor(codec.cards, device=device)
@@ -397,72 +448,177 @@ def make_fused_sweep_fn(
             return None
         return n_good, n_bad
 
-    def init_obs_state(warm_v, warm_l):
-        """Per-budget observation buffers with the warm rows in front; NaN
-        warm losses (crashes) enter as +inf. Counts are Python ints."""
-        obs_v = {b: torch.zeros((cap, d), dtype=_F32, device=device)
-                 for b, cap in caps.items()}
-        obs_l = {b: torch.zeros(cap, dtype=_F32, device=device)
-                 for b, cap in caps.items()}
-        counts = {b: 0 for b in caps}
-        for b, n in warm_counts.items():
-            v = torch.as_tensor(warm_v[b]).to(device, _F32)
-            l = torch.as_tensor(warm_l[b]).to(device, _F32)
-            obs_v[b][:n] = v
-            obs_l[b][:n] = torch.where(torch.isnan(l), torch.full_like(l, float("inf")), l)
-            counts[b] = n
+    # dynamic-count machinery: the gate is the int32 twin of trained_split
+    # (same integer formulas, so the model opens at the same counts)
+    capmax = max(caps.values(), default=0)
+    any_trainable = any(trained_split(c) is not None for c in caps.values())
+
+    def dynamic_gate(cnt: torch.Tensor):
+        n_good = torch.clamp((top_n_percent * cnt) // 100, min=min_pts)
+        n_bad = torch.clamp(((100 - top_n_percent) * cnt) // 100, min=min_pts)
+        has = (cnt >= min_pts + 2) & (n_good > d) & (n_bad > d)
+        return has, n_good, n_bad
+
+    def dynamic_proposals(b_i, draws, obs_v, obs_l, counts, rand_vecs, n0):
+        """Largest-trained-budget choice, fit and proposal, all on the
+        device. Budget priority is a descending loop; the chosen budget's
+        buffer is widened to ``capmax`` so one fit serves whichever budget
+        wins. With no gate open the fit runs on empty buffers (finite, the
+        donor draw is :func:`~hpbandster_tpu_torch.ops.kde._masked_donors`)
+        and the mask discards every model pick, like the static tier's
+        all-random bracket."""
+        sel_v = torch.zeros((capmax, d), dtype=_F32, device=device)
+        sel_l = torch.full((capmax,), float("inf"), dtype=_F32, device=device)
+        sel_n = torch.zeros((), dtype=torch.int32, device=device)
+        any_model = torch.zeros((), dtype=torch.bool, device=device)
+        for b in sorted(caps, reverse=True):
+            has, _, _ = dynamic_gate(counts[b])
+            take = has & ~any_model
+            pad = capmax - caps[b]
+            pv = torch.nn.functional.pad(obs_v[b], (0, 0, 0, pad))
+            pl = torch.nn.functional.pad(obs_l[b], (0, pad), value=float("inf"))
+            sel_v = torch.where(take, pv, sel_v)
+            sel_l = torch.where(take, pl, sel_l)
+            sel_n = torch.where(take, counts[b], sel_n)
+            any_model = any_model | has
+        _, n_good, n_bad = dynamic_gate(sel_n)
+        good, bad = fit_kde_pair_masked(
+            sel_v, sel_l, sel_n, n_good, n_bad, cards_dev, min_bandwidth,
+        )
+        cands = draws.candidates(b_i, good, n0 * num_samples)
+        model_vecs = propose_from_candidates(
+            cands, good, bad, vartypes_dev, cards_dev, n0
+        )
+        mb_mask = any_model & draws.model_mask(b_i, n0).to(device)
+        return torch.where(mb_mask[:, None], model_vecs, rand_vecs), mb_mask
+
+    def init_obs_state(warm_v, warm_l, warm_n):
+        """Per-budget observation buffers. Static tier: exact-count slices
+        with the warm rows in front and Python-int counts. Dynamic tier:
+        full-capacity buffers with int32 count tensors; pad slots are
+        pinned to (0-vector, +inf loss) whatever the caller sent. NaN warm
+        losses (crashes) enter as +inf on both tiers."""
+        if not dynamic_counts:
+            obs_v = {b: torch.zeros((cap, d), dtype=_F32, device=device)
+                     for b, cap in caps.items()}
+            obs_l = {b: torch.zeros(cap, dtype=_F32, device=device)
+                     for b, cap in caps.items()}
+            counts = {b: 0 for b in caps}
+            for b, n in warm_counts.items():
+                v = torch.as_tensor(warm_v[b]).to(device, _F32)
+                l = torch.as_tensor(warm_l[b]).to(device, _F32)
+                obs_v[b][:n] = v
+                obs_l[b][:n] = torch.where(torch.isnan(l), torch.full_like(l, float("inf")), l)
+                counts[b] = n
+            return obs_v, obs_l, counts
+        obs_v, obs_l, counts = {}, {}, {}
+        for b, cap in caps.items():
+            # a budget in `capacities` but in none of the warm dicts starts
+            # empty; one in only some of them is a caller's bug
+            have = warm_n is not None and b in warm_n
+            have_v = warm_v is not None and b in warm_v
+            have_l = warm_l is not None and b in warm_l
+            if not (have == have_v == have_l):
+                raise ValueError(
+                    f"inconsistent warm inputs for budget {b}: present in "
+                    f"warm_n={have}, warm_v={have_v}, warm_l={have_l} — each "
+                    "budget must appear in all three dicts or none"
+                )
+            # each budget's additions over the whole schedule are static, so
+            # clamping the warm count to (capacity - additions) keeps every
+            # later append inside the buffer: an oversized count drops its
+            # newest warm rows instead of overrunning the appends
+            n_b = torch.clamp(
+                torch.as_tensor(warm_n[b] if have else 0, dtype=torch.int32,
+                                device=device),
+                max=cap - additions.get(b, 0),
+            )
+            live = torch.arange(cap, dtype=torch.int32, device=device) < n_b
+            if have:
+                v = torch.as_tensor(warm_v[b]).to(device, _F32)
+                l = torch.as_tensor(warm_l[b]).to(device, _F32)
+                obs_v[b] = torch.where(live[:, None], v, torch.zeros_like(v))
+                obs_l[b] = torch.where(
+                    live & ~torch.isnan(l), l, torch.full_like(l, float("inf"))
+                )
+            else:
+                obs_v[b] = torch.zeros((cap, d), dtype=_F32, device=device)
+                obs_l[b] = torch.full((cap,), float("inf"), dtype=_F32, device=device)
+            counts[b] = n_b
         return obs_v, obs_l, counts
 
     def run_bracket(b_i, plan, draws, obs_v, obs_l, counts):
         """One bracket: sample/propose -> rung ladder -> observation append.
         Updates ``obs_v``/``obs_l``/``counts`` in place."""
         n0 = plan.num_configs[0]
-        rand_vecs = draws.stage0(b_i, n0)
-        model_budget = None
-        for b in sorted(caps, reverse=True):
-            if trained_split(counts[b]) is not None:
-                model_budget = b
-                break
-        if model_budget is None:
-            proposals = rand_vecs
-            mb_mask = torch.zeros(n0, dtype=torch.bool, device=device)
+        rand_vecs = draws.stage0(b_i, n0).to(device)
+        if dynamic_counts:
+            if any_trainable:
+                proposals, mb_mask = dynamic_proposals(
+                    b_i, draws, obs_v, obs_l, counts, rand_vecs, n0
+                )
+            else:
+                # no budget's gate can open even at full capacity: no model
+                # math at all
+                proposals = rand_vecs
+                mb_mask = torch.zeros(n0, dtype=torch.bool, device=device)
         else:
-            n = counts[model_budget]
-            n_good, n_bad = trained_split(n)
-            good, bad = _fit_kde_pair_device(
-                obs_v[model_budget][:n], obs_l[model_budget][:n],
-                n_good, n_bad, cards_dev, min_bandwidth,
-            )
-            cands = draws.candidates(b_i, good, n0 * num_samples)
-            model_vecs = propose_from_candidates(
-                cands, good, bad, vartypes_dev, cards_dev, n0
-            )
-            mb_mask = draws.model_mask(b_i, n0)
-            proposals = torch.where(mb_mask[:, None], model_vecs, rand_vecs)
+            model_budget = None
+            for b in sorted(caps, reverse=True):
+                if trained_split(counts[b]) is not None:
+                    model_budget = b
+                    break
+            if model_budget is None:
+                proposals = rand_vecs
+                mb_mask = torch.zeros(n0, dtype=torch.bool, device=device)
+            else:
+                n = counts[model_budget]
+                n_good, n_bad = trained_split(n)
+                good, bad = _fit_kde_pair_device(
+                    obs_v[model_budget][:n], obs_l[model_budget][:n],
+                    n_good, n_bad, cards_dev, min_bandwidth,
+                )
+                cands = draws.candidates(b_i, good, n0 * num_samples)
+                model_vecs = propose_from_candidates(
+                    cands, good, bad, vartypes_dev, cards_dev, n0
+                )
+                mb_mask = draws.model_mask(b_i, n0).to(device)
+                proposals = torch.where(mb_mask[:, None], model_vecs, rand_vecs)
 
         vectors = quantize_unit(codec, proposals)
         stages = fused_sh_bracket(eval_fn, vectors, plan.num_configs, plan.budgets)
         for (idx_s, losses_s), k_s, budget in zip(stages, plan.num_configs, plan.budgets):
             b = float(budget)
             c = counts[b]
-            obs_v[b][c:c + k_s] = vectors[idx_s]
-            obs_l[b][c:c + k_s] = torch.where(
+            upd_l = torch.where(
                 torch.isnan(losses_s), torch.full_like(losses_s, float("inf")), losses_s
             )
+            if dynamic_counts:
+                # append at the device offset c: the init clamp keeps
+                # c + k_s inside the buffer
+                rows = c + torch.arange(k_s, device=device)
+                obs_v[b].index_copy_(0, rows, vectors[idx_s])
+                obs_l[b].index_copy_(0, rows, upd_l)
+            else:
+                obs_v[b][c:c + k_s] = vectors[idx_s]
+                obs_l[b][c:c + k_s] = upd_l
             counts[b] = c + k_s
         idx_packed, loss_packed = _pack_stages(stages)
         return SweepBracketOutput(vectors[:n0], mb_mask, idx_packed, loss_packed)
 
-    def sweep(seed, warm_v=None, warm_l=None, draws=None) -> List[SweepBracketOutput]:
+    def sweep(seed, warm_v=None, warm_l=None, warm_n=None, draws=None):
         if draws is None:
             draws = GeneratorDraws(
                 codec, int(seed), device, random_fraction, bandwidth_factor,
                 min_bandwidth,
             )
-        obs_v, obs_l, counts = init_obs_state(warm_v, warm_l)
-        return [
+        obs_v, obs_l, counts = init_obs_state(warm_v, warm_l, warm_n)
+        outputs = [
             run_bracket(b_i, plan, draws, obs_v, obs_l, counts)
             for b_i, plan in enumerate(plans)
         ]
+        if return_state:
+            return outputs, (obs_v, obs_l, counts)
+        return outputs
 
     return sweep

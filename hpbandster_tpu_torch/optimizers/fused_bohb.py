@@ -1,16 +1,16 @@
 """FusedBOHB: the whole-sweep optimizer driver, on PyTorch.
 
 Ported from ``hpbandster_tpu/optimizers/fused_bohb.py``: ``FusedBOHB``
-(``__init__``, ``_plan``, the unchunked static-tier ``run``,
+(``__init__`` with ``previous_result=``, ``_plan``, the chunked ``run`` on
+the static and dynamic-count tiers, ``save_checkpoint``/``load_checkpoint``,
 ``_accumulate_obs``, ``_replay_bracket``) and ``_ReplayIteration``. The sweep
-runs on the device (``ops/sweep.py``); afterwards the host replays every
-bracket into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
+runs on the device (``ops/sweep.py``); after each chunk the host replays its
+brackets into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
 bookkeeping, so analysis code sees the structures the reference produces.
 
-Not ported yet: chunked and checkpointed runs, the dynamic-count and
-resident tiers, meshes, stateful evaluation, warm start from a previous
-``Result``, conditional spaces and forbidden clauses, and the
-observability events.
+Not ported yet: the resident tier, meshes and multiprocess runs, streamed
+warm uploads, stateful evaluation, conditional spaces and forbidden
+clauses, the device-metrics plane and the observability events.
 """
 
 from __future__ import annotations
@@ -22,10 +22,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from hpbandster_tpu_torch.convert import warm_obs_from_numpy
+from hpbandster_tpu_torch.convert import dynamic_obs_from_numpy, warm_obs_from_numpy
+from hpbandster_tpu_torch.core.checkpoint import (
+    load_fused_checkpoint,
+    save_fused_checkpoint,
+)
 from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.core.result import Result
 from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
+from hpbandster_tpu_torch.core.warmstart import WarmStartIteration
 from hpbandster_tpu_torch.device import resolve_device
 from hpbandster_tpu_torch.ops.bracket import (
     budget_ladder,
@@ -33,7 +38,12 @@ from hpbandster_tpu_torch.ops.bracket import (
     max_sh_iterations,
 )
 from hpbandster_tpu_torch.ops.fused import _unpack_stages
-from hpbandster_tpu_torch.ops.sweep import build_space_codec, make_fused_sweep_fn
+from hpbandster_tpu_torch.ops.sweep import (
+    build_space_codec,
+    make_fused_sweep_fn,
+    plan_additions,
+    pow2_capacities,
+)
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
 __all__ = ["FusedBOHB"]
@@ -63,6 +73,9 @@ class FusedBOHB:
     unit-hypercube configuration vectors at a Python-float budget.
     ``device=None`` means ``cuda`` and raises where CUDA is absent; pass
     ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    ``previous_result`` (a ``Result``) warm-starts the model with its
+    observations, which ride into every later ``Result`` under negative
+    iteration ids.
     """
 
     def __init__(
@@ -83,6 +96,7 @@ class FusedBOHB:
         result_logger=None,
         working_directory: str = ".",
         logger: Optional[logging.Logger] = None,
+        previous_result: Optional[Result] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -144,11 +158,48 @@ class FusedBOHB:
             "min_bandwidth": min_bandwidth,
         }
         self.total_evaluated = 0
-        #: one row per run() call: brackets, evaluations, sweep seconds
+        #: one row per device chunk: chunk index, brackets, evaluations,
+        #: execute+fetch seconds, tier and warm-upload bytes
         self.run_stats: List[Dict[str, Any]] = []
-        #: observations of earlier run() calls, fed to later ones as warm data
+        #: on-device promotion scorer; None is the plain top-k by loss (the
+        #: checkpoint records it, as the reference's does)
+        self.promotion_rank_fn = None
+        #: observations of earlier chunks and run() calls, fed to later ones
+        #: as warm data
         self._warm_v: Dict[float, np.ndarray] = {}
         self._warm_l: Dict[float, np.ndarray] = {}
+        self.warmstart_iteration: List[Any] = []
+        if previous_result is not None:
+            self._ingest_previous_result(previous_result)
+
+    def _ingest_previous_result(self, previous_result: Result) -> None:
+        """Seed the warm observations with a previous run's (config,
+        budget, loss) data; crashed runs enter as +inf."""
+        per_budget_v: Dict[float, List[np.ndarray]] = {}
+        per_budget_l: Dict[float, List[float]] = {}
+        id2conf = previous_result.get_id2config_mapping()
+        for run in previous_result.get_all_runs(only_largest_budget=False):
+            cfg = id2conf[run.config_id]["config"]
+            # the device fit does not impute, so NaNs (inactive dims of a
+            # foreign result) must not reach it
+            vec = np.nan_to_num(
+                self.configspace.to_vector(cfg).astype(np.float32), nan=0.0
+            )
+            b = float(run.budget)
+            loss = np.inf if run.loss is None else float(run.loss)
+            per_budget_v.setdefault(b, []).append(vec)
+            per_budget_l.setdefault(b, []).append(loss)
+        for b in per_budget_v:
+            self._warm_v[b] = np.stack(per_budget_v[b])
+            self._warm_l[b] = np.asarray(per_budget_l[b], np.float32)
+
+        class _NoOpGenerator:
+            def new_result(self, job, update_model=True):
+                pass
+
+        self.warmstart_iteration = [
+            WarmStartIteration(previous_result, _NoOpGenerator())
+        ]
 
     def _plan(self, iteration: int):
         """Bracket shape for global iteration ``iteration``."""
@@ -166,34 +217,76 @@ class FusedBOHB:
         resident: bool = False,
     ) -> Result:
         """Run the remaining brackets up to ``n_iterations`` (a total that
-        counts earlier ``run()`` calls, which feed this one as warm data) as
-        one static-tier sweep on the device, then replay them into a
-        ``Result``.
+        counts earlier ``run()`` calls, which feed this one as warm data) on
+        the device, then replay them into a ``Result``.
 
-        ``chunk_brackets``, ``checkpoint_path``, ``dynamic_counts=True`` and
-        ``resident`` select tiers that are not ported yet and raise.
+        ``chunk_brackets=None`` runs the remaining schedule as one sweep.
+        ``chunk_brackets=K`` runs it in chunks of K brackets, each chunk
+        taking all earlier observations as warm data: results stream into
+        ``self.iterations`` (and the ``result_logger``) chunk by chunk, and a
+        chunk that fails leaves every completed chunk in place. The host
+        replays each chunk right after it, before the next one starts.
+
+        ``checkpoint_path`` writes a checkpoint after every chunk; a fresh
+        optimizer with the same settings resumes from it with
+        :meth:`load_checkpoint` and completes with the results of an
+        uninterrupted run.
+
+        ``dynamic_counts=None`` takes the tier from ``chunk_brackets``: set,
+        the dynamic-count tier (counts on the device over pow2-bucketed
+        buffers, ``ops/sweep.py``); unset, the static tier. True or False
+        forces either. The two tiers draw from the same proposal
+        distribution but are distinct consumers of random numbers. Between
+        dynamic chunks the observation state stays on the device while the
+        buffer capacities are unchanged, and is uploaded from the host's
+        copy when they grow. ``resident`` is not ported yet and raises.
         """
         del min_n_workers  # API symmetry with Master.run; no worker pool here
-        for name, on in (
-            ("chunk_brackets", chunk_brackets is not None),
-            ("checkpoint_path", checkpoint_path is not None),
-            ("dynamic_counts", bool(dynamic_counts)),
-            ("resident", resident),
-        ):
-            if on:
-                raise NotImplementedError(
-                    f"{name} is not ported to the PyTorch FusedBOHB yet "
-                    "(unchunked static tier only)"
-                )
+        if resident:
+            raise NotImplementedError(
+                "resident is not ported to the PyTorch FusedBOHB yet"
+            )
         first = len(self.iterations)
         plans = [self._plan(i) for i in range(first, int(n_iterations))]
         if self.config["time_ref"] is None:
             self.config["time_ref"] = time.time()
-        if plans:
+        chunk = len(plans) if chunk_brackets is None else max(int(chunk_brackets), 1)
+        # only the caller's knobs choose the tier, never how many brackets
+        # remain: a run cut after its first chunk and a longer uninterrupted
+        # run must execute identical first chunks for a resume to match
+        dynamic = (
+            (chunk_brackets is not None)
+            if dynamic_counts is None else bool(dynamic_counts)
+        )
+        d = int(self.codec.kind.shape[0])
+        done = first
+        #: device observation state returned by the previous dynamic chunk
+        #: and the capacities it was built for
+        dev_state = dev_caps = None
+        while plans:
+            chunk_plans, plans = plans[:chunk], plans[chunk:]
             seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
             warm_counts = {b: len(l) for b, l in self._warm_l.items()}
+            run_caps = None
+            if dynamic:
+                # past-only capacities: warm counts at this boundary plus
+                # this chunk's additions, pow2-bucketed, so two runs that
+                # agree on history agree on every chunk's buffer shapes
+                run_caps = dict(warm_counts)
+                for b, k in plan_additions(chunk_plans).items():
+                    run_caps[b] = run_caps.get(b, 0) + k
+                run_caps = pow2_capacities(run_caps)
+                if dev_state is not None and run_caps == dev_caps:
+                    warm, upload_bytes = dev_state, 0
+                else:
+                    warm, upload_bytes = self._dynamic_warm(run_caps, d)
+            else:
+                warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
+                upload_bytes = sum(
+                    v.nbytes + self._warm_l[b].nbytes for b, v in self._warm_v.items()
+                )
             sweep = make_fused_sweep_fn(
-                self.eval_fn, plans, self.codec,
+                self.eval_fn, chunk_plans, self.codec,
                 device=self.device,
                 num_samples=self.num_samples,
                 random_fraction=self.random_fraction,
@@ -202,35 +295,83 @@ class FusedBOHB:
                 bandwidth_factor=self.bandwidth_factor,
                 min_bandwidth=self.min_bandwidth,
                 warm_counts=warm_counts,
-            )
-            warm_v, warm_l = warm_obs_from_numpy(
-                self._warm_v, self._warm_l, self.device
+                dynamic_counts=dynamic,
+                capacities=run_caps,
+                return_state=dynamic,
             )
             t0 = time.perf_counter()
-            outputs = [
-                type(o)(*(t.cpu().numpy() for t in o))
-                for o in sweep(seed, warm_v, warm_l)
-            ]
-            sweep_s = time.perf_counter() - t0
-            self.run_stats.append({
-                "brackets": list(range(first, first + len(plans))),
-                "evaluations": int(sum(sum(p.num_configs) for p in plans)),
-                "sweep_s": sweep_s,
-            })
+            raw = sweep(seed, *warm)
+            if dynamic:
+                raw, dev_state = raw
+                dev_caps = run_caps
+            outputs = [type(o)(*(t.cpu().numpy() for t in o)) for o in raw]
+            execute_s = time.perf_counter() - t0
+            stat = {
+                "chunk_index": len(self.run_stats),
+                "brackets": list(range(done, done + len(chunk_plans))),
+                "evaluations": int(sum(sum(p.num_configs) for p in chunk_plans)),
+                "execute_fetch_s": execute_s,
+                "dynamic_counts": dynamic,
+                # 0 when the previous chunk's device state carried them
+                "warm_upload_bytes": int(upload_bytes),
+            }
+            self.run_stats.append(stat)
+            job_info = {
+                "fused_chunk": stat["chunk_index"],
+                "chunk_execute_s": execute_s,
+                "chunk_evaluations": stat["evaluations"],
+            }
             staged = []
-            for b_i, (plan, out) in enumerate(zip(plans, outputs), start=first):
+            for b_i, (plan, out) in enumerate(zip(chunk_plans, outputs), start=done):
                 stages = _unpack_stages(
                     (out.idx_packed, out.loss_packed), plan.num_configs
                 )
                 staged.append((b_i, plan, out, stages))
                 self._accumulate_obs(plan, out, stages)
             for b_i, plan, out, stages in staged:
-                self._replay_bracket(b_i, plan, out, stages)
-        return Result(list(self.iterations), self.config)
+                self._replay_bracket(b_i, plan, out, stages, job_info)
+            done += len(chunk_plans)
+            if checkpoint_path is not None:
+                self.save_checkpoint(checkpoint_path)
+        return Result(list(self.iterations) + self.warmstart_iteration, self.config)
+
+    def _dynamic_warm(self, run_caps: Dict[float, int], d: int):
+        """The host fold of the warm observations as the dynamic tier's
+        full-capacity inputs on the device: ``((warm_v, warm_l, warm_n),
+        bytes uploaded)``. Pads are (0-vector, +inf loss), exactly what the
+        device appends leave in a threaded state."""
+        warm_v_pad, warm_l_pad, warm_n = {}, {}, {}
+        for b, cap in run_caps.items():
+            v = self._warm_v.get(b)
+            n = 0 if v is None else len(v)
+            buf_v = np.zeros((cap, d), np.float32)
+            buf_l = np.full(cap, np.inf, np.float32)
+            if n:
+                buf_v[:n] = v
+                buf_l[:n] = self._warm_l[b]
+            warm_v_pad[b], warm_l_pad[b], warm_n[b] = buf_v, buf_l, n
+        nbytes = sum(
+            warm_v_pad[b].nbytes + warm_l_pad[b].nbytes + 4 for b in run_caps
+        )
+        return dynamic_obs_from_numpy(warm_v_pad, warm_l_pad, warm_n, self.device), nbytes
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the fused-tier checkpoint (``core/checkpoint.py``): warm
+        observations, bracket rotation, RNG state and replayed bookkeeping
+        at the last chunk boundary."""
+        save_fused_checkpoint(self, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore into a freshly constructed optimizer (same constructor
+        settings; bracket shapes are checked). The next ``run()`` continues
+        with the remaining brackets and reproduces an uninterrupted run.
+        Reads the reference's fused checkpoints too."""
+        load_fused_checkpoint(self, path)
 
     def _accumulate_obs(self, plan, out, stages) -> None:
         """Fold one bracket's (vector, loss) observations into the warm
-        buffers so a later run()'s device model sees them."""
+        buffers, in the order the device appends them, so later chunks and
+        run() calls see them."""
         vectors = np.asarray(out.vectors)
         for (idx_s, losses_s), budget in zip(stages, plan.budgets):
             b = float(budget)
@@ -245,7 +386,9 @@ class FusedBOHB:
                 self._warm_v[b] = vecs.astype(np.float32)
                 self._warm_l[b] = losses
 
-    def _replay_bracket(self, b_i: int, plan, out, stages) -> None:
+    def _replay_bracket(
+        self, b_i: int, plan, out, stages, job_info: Optional[Dict] = None
+    ) -> None:
         vectors = np.asarray(out.vectors)
         mb_mask = np.asarray(out.model_based)
         promotion_sets = [set(int(i) for i in idx) for idx, _ in stages[1:]]
@@ -297,7 +440,7 @@ class FusedBOHB:
             # only NaN means crashed; a genuine +/-inf loss (a diverged run)
             # is a valid maximally-bad result
             if not np.isnan(loss):
-                job.result = {"loss": loss, "info": {}}
+                job.result = {"loss": loss, "info": dict(job_info or {})}
             else:
                 job.result = None
                 job.exception = f"non-finite loss {loss!r} at budget {budget}"

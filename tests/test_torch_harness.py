@@ -207,8 +207,10 @@ PORT_MODULES = [
     "hpbandster_tpu_torch",
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
+    "hpbandster_tpu_torch.core.checkpoint",
     "hpbandster_tpu_torch.core.result",
     "hpbandster_tpu_torch.core.successive_halving",
+    "hpbandster_tpu_torch.core.warmstart",
     "hpbandster_tpu_torch.ops._build",
     "hpbandster_tpu_torch.ops.cuda_kde",
     "hpbandster_tpu_torch.ops.fused",
@@ -289,13 +291,12 @@ def test_unported_tiers_raise():
     from hpbandster_tpu_torch.workloads.toys import branin, branin_space
 
     codec = build_space_codec(branin_space())
-    for kw in ({"dynamic_counts": True}, {"resident": True},
-               {"incumbent_only": True}, {"device_metrics": True}):
+    for kw in ({"resident": True}, {"incumbent_only": True},
+               {"device_metrics": True}):
         with pytest.raises(NotImplementedError):
             make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", **kw)
     opt = FusedBOHB(configspace=branin_space(seed=0), eval_fn=branin,
                     min_budget=1, max_budget=9, device="cpu")
-    for kw in ({"chunk_brackets": 2}, {"checkpoint_path": "x"},
-               {"dynamic_counts": True}, {"resident": True}):
+    for kw in ({"resident": True}, {"chunk_brackets": 2, "resident": True}):
         with pytest.raises(NotImplementedError):
             opt.run(n_iterations=2, **kw)
