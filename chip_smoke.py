@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # also profiles device time: a static
                                      # and a chunked sweep, and the moment
-                                     # kernel's passes at its scale checks
+                                     # kernel at its scale checks
 
 Phases, each fatal on failure:
 
@@ -35,16 +35,26 @@ Phases, each fatal on failure:
    checkpoint, loaded into a fresh optimizer and run to 10, must equal the
    uninterrupted chunked run exactly (configs, losses, incumbent);
 6. hold each kernel against its plain version on every input the main
-   paths gave it, and time both at the largest of those launches;
-7. print the kernels' JSON line, the card's name and power limit, and last
-   the JSON result line.
+   paths gave it, with the arguments the path passed (for the masked
+   moments also the bandwidths the kernel computes, against the plain
+   composition), time both at each path's largest launch, and take the
+   kernel's device time there from ``torch.profiler`` (the fit's call must
+   run the moments kernel once per call and nothing else);
+7. time the launch floor (an empty kernel through the same ctypes route),
+   print the kernels' JSON line (event-timed ``ms``, profiled
+   ``device_ms``, ``host_ms``, ``launch_floor_ms``, bound, plain and
+   launches), the card's name and power limit, and last the JSON result
+   line.
 
 There is no gate on the first bracket's stage 0: when the incumbent comes
 from bracket 0 it cannot fail. The random-search and model-vs-random checks
 carry the signal.
 
-Errors are max absolute differences; times are medians of CUDA-event-timed
-calls after warm-up.
+Errors are max absolute differences. ``ms`` is the median of CUDA-event-
+timed calls after warm-up (the events bracket the wrapper's host work, so a
+small launch reads as its host dispatch); ``device_ms`` is the profiler's
+device time per launch; ``host_ms`` the mean host time per call with the
+launches queued back to back.
 
 It imports nothing of jax or the JAX package, exits non-zero without a CUDA
 device, and starts no process that outlives it.
@@ -77,6 +87,22 @@ SCORE_ATOL = 1e-4
 #: kernel and the plain version add float32 in different orders)
 MOMENTS_RTOL = 1e-4
 MOMENTS_ATOL = 1e-5
+#: the fit's bandwidth floor (FusedBOHB's default min_bandwidth)
+MIN_BANDWIDTH = 1e-3
+#: fused bandwidths against the plain composition (plain moments, then the
+#: plain epilogue): the one-pass variance s2/n - mean^2 magnifies the sums'
+#: relative difference (float32 adds in another order, ~1e-7-1e-6) by up to
+#: mean^2/var, so bandwidths agree to rtol 1e-3 while mean^2/var <= 1e3 and
+#: the tolerance widens in proportion beyond that
+BW_RTOL = 1e-3
+BW_MAGNIFICATION = 1e3
+#: fused bandwidths against the plain epilogue over the kernel's own
+#: moments: the same float32 steps, so a last-bit difference of pow at most
+BW_EPILOGUE_RTOL = 1e-6
+#: kernel launches of the main paths: two static sweeps with 9 model
+#: brackets each; one fit and one scoring per bracket of the chunked sweep
+MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
+                      "chunked": {"kde_score": 10, "kde_moments": 10}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -97,6 +123,21 @@ def _median_ms(fn, torch, reps=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def _host_ms(fn, torch, reps=200, warmup=5):
+    """Mean host time of one ``fn()`` call in milliseconds: the wrapper's
+    checks, conversions and launch, without waiting for the device (the
+    launches queue up behind each other; one synchronize at the end)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def _score_inputs(torch, dev, seed, s, n_good, n_bad, vartypes, cards,
@@ -202,28 +243,78 @@ def check_kde_score(torch, dev):
                                  vartypes=[0, 1, 2, 0, 1], cards=[0, 3, 5, 0, 2],
                                  good_live=25, bad_live=0)),
     ]
-    return [hold_kde_score(torch, name, *_score_inputs(torch, dev, 100 + i, **kw), n)
-            for i, (name, n, kw) in enumerate(cases)]
+    recs = []
+    for i, (name, n, kw) in enumerate(cases):
+        inputs = _score_inputs(torch, dev, 100 + i, **kw)
+        rec = hold_kde_score(torch, name, *inputs, n)
+        rec.update(launch_device_time(torch, "kde_score", inputs))
+        print(f"kde_score {name} device time {rec['device_ms']}", flush=True)
+        recs.append(rec)
+    return recs
 
 
 def kde_moments_work(data, masks):
-    """What the masked moments need on these inputs: bytes moved (the data
-    and the masks read once, the [S, 3, d] output written once) and float32
-    operations (per side, per row and dim: the masked value, its square
-    and two additions; per side and row: the count's addition). No
-    exponentials."""
+    """What the fit's moments and bandwidths need on these inputs: bytes
+    moved (the data, the masks and the cards read once, the [S, 3, d]
+    moments and the [S, d] bandwidths written once) and float32 operations
+    (per side, per row and dim: the masked value, its square and two
+    additions; per side and row: the count's addition; the bandwidths' few
+    per (side, dim) are not counted). No exponentials."""
     c, d = data.shape
     sides = masks.shape[0]
-    bytes_moved = 4 * (c * d + sides * c + sides * 3 * d)
+    bytes_moved = 4 * (c * d + sides * c + d + sides * 3 * d + sides * d)
     return bytes_moved, sides * c * (4 * d + 1), 0
 
 
-def hold_kde_moments(torch, label, data, masks, reps=20):
-    """The masked-moment kernel against its plain version on one input:
-    counts exact, sums within ``MOMENTS_RTOL`` (fatal otherwise), median
-    times and the bound. Returns the record it prints."""
+def _fit_cards(torch, data, cards):
+    """The fit's cards as a float32 tensor on the data's device (None: all
+    continuous, as a plain-moments launch treats them)."""
+    d = data.shape[1]
+    return torch.as_tensor(np.zeros(d) if cards is None else cards,
+                           dtype=torch.float32, device=data.device)
+
+
+def hold_fused_bandwidths(torch, label, data, masks, mom, want, cards, min_bw):
+    """The kernel's bandwidths (``moment_bandwidths`` on the card) against
+    the plain epilogue over the kernel's own moments ``mom``
+    (``BW_EPILOGUE_RTOL``) and against the plain composition over the plain
+    moments ``want`` (``BW_RTOL``, widened by mean^2/var beyond
+    ``BW_MAGNIFICATION``). Fatal outside either. Returns the errors."""
     from hpbandster_tpu_torch.ops import cuda_kde
 
+    fused = cuda_kde.moment_bandwidths(data, masks, cards, min_bw)
+    epilogue = cuda_kde.bandwidths_from_moments(mom, cards, min_bw)
+    plain = cuda_kde.bandwidths_from_moments(want, cards, min_bw)
+    if not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"kde_moments {label}: non-finite bandwidths")
+    epi_rel = float(((fused - epilogue).abs() / epilogue.abs()).max())
+    if not epi_rel <= BW_EPILOGUE_RTOL:
+        raise AssertionError(
+            f"kde_moments {label}: fused bandwidths off the epilogue by {epi_rel}")
+    n = want[:, 2].clamp(min=1.0)
+    mean = want[:, 0] / n
+    var = (want[:, 1] / n - mean * mean).clamp(min=1e-30)
+    magnification = (mean * mean / var).double()
+    allowed = BW_RTOL * torch.clamp(magnification / BW_MAGNIFICATION, min=1.0)
+    rel = ((fused - plain).abs() / plain.abs()).double()
+    if not bool((rel <= allowed).all()):
+        raise AssertionError(
+            f"kde_moments {label}: fused bandwidths off the plain composition "
+            f"by {float(rel.max())} (allowed {allowed.tolist()})")
+    return dict(bw_rel_err=float(rel.max()), bw_epilogue_rel_err=epi_rel,
+                bw_widened=int((magnification > BW_MAGNIFICATION).sum()))
+
+
+def hold_kde_moments(torch, label, data, masks, cards=None, min_bw=MIN_BANDWIDTH,
+                     reps=20):
+    """The masked-moment kernel against its plain version on one fit's
+    arguments: counts exact, sums within ``MOMENTS_RTOL``, the bandwidths as
+    :func:`hold_fused_bandwidths` says (fatal otherwise), median times of
+    the fit's call (``moment_bandwidths``) and of its plain composition, and
+    the bound. Returns the record it prints."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    cards = _fit_cards(torch, data, cards)
     got = cuda_kde.masked_moments(data, masks)
     want = cuda_kde.masked_moments_reference(data, masks)
     torch.cuda.synchronize()
@@ -236,15 +327,17 @@ def hold_kde_moments(torch, label, data, masks, reps=20):
         raise AssertionError(
             f"kde_moments {label}: sums off by up to {float(diff.max())}")
     rel = diff / want.abs().clamp(min=1e-30)
-    ms = _median_ms(lambda: cuda_kde.masked_moments(data, masks), torch, reps=reps)
-    plain_ms = _median_ms(lambda: cuda_kde.masked_moments_reference(data, masks),
-                          torch, reps=reps)
+    bw = hold_fused_bandwidths(torch, label, data, masks, got, want, cards, min_bw)
+    ms = _median_ms(lambda: cuda_kde.moment_bandwidths(data, masks, cards, min_bw),
+                    torch, reps=reps)
+    plain_ms = _median_ms(lambda: cuda_kde.bandwidths_from_moments(
+        cuda_kde.masked_moments_reference(data, masks), cards, min_bw), torch, reps=reps)
     b_ms, b_by = bound_ms(*kde_moments_work(data, masks))
     rec = dict(shape=label, C=int(data.shape[0]), d=int(data.shape[1]),
                sides=int(masks.shape[0]),
                live=[int(m.sum()) for m in masks], max_abs_err=float(diff.max()),
                max_rel_err=float(rel[want != 0].max()) if bool((want != 0).any()) else 0.0,
-               ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+               **bw, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     print("kde_moments check " + json.dumps(rec), flush=True)
     return rec
 
@@ -278,24 +371,30 @@ def check_kde_moments(torch, dev):
     """Phase 2: the masked-moment kernel against its plain version at scale
     checks beyond the main path's own launches. Returns one record per
     shape."""
-    return [hold_kde_moments(torch, name, *moments_inputs(torch, dev, seed, c, cards, frac))
-            for name, seed, c, cards, frac in MOMENTS_CASES]
+    recs = []
+    for name, seed, c, cards, frac in MOMENTS_CASES:
+        inputs = moments_inputs(torch, dev, seed, c, cards, frac) + (
+            cards, MIN_BANDWIDTH)
+        rec = hold_kde_moments(torch, name, *inputs)
+        rec.update(launch_device_time(torch, "kde_moments", inputs))
+        print(f"kde_moments {name} device time (warm L2) {rec['device_ms']}", flush=True)
+        recs.append(rec)
+    return recs
 
 
 def check_recorded_launches(torch, recorded, num_samples=64):
     """Phase 6: each kernel against its plain version on every input the
-    main paths gave it (``(path, name, inputs)``), timed at each path's
-    largest launch (most rows: the kernels' time follows the buffer, not
-    the rows masked in; ties go to the most rows masked in). Returns, per
-    kernel, (the record of its largest launch over all paths, max abs err
-    over all its launches)."""
+    main paths gave it (``(path, name, inputs)``), timed (events and
+    profiler) at each path's largest launch (most buffer rows; ties go to
+    the most rows masked in). Returns, per kernel, (the record of each
+    path's largest launch, max abs err over all its launches)."""
     def size(name, inputs):
         if name == "kde_score":
             cands, good, bad = inputs[:3]
             live = int((good.mask > 0).sum() + (bad.mask > 0).sum())
             return (cands.shape[0] * (good.data.shape[0] + bad.data.shape[0]),
                     cands.shape[0] * live)
-        data, masks = inputs
+        data, masks = inputs[:2]
         return (data.shape[0] * data.shape[1] * masks.shape[0], int(masks.sum()))
 
     out = {}
@@ -307,7 +406,8 @@ def check_recorded_launches(torch, recorded, num_samples=64):
                 largest[path] = i
         shapes, max_err, recs = [], 0.0, {}
         for i, (path, inputs) in enumerate(mine):
-            reps = 20 if largest[path] == i else 3
+            is_largest = largest[path] == i
+            reps = 20 if is_largest else 3
             label = f"{path}_path_launch_{i}"
             if kernel == "kde_score":
                 n = inputs[0].shape[0] // num_samples
@@ -317,14 +417,87 @@ def check_recorded_launches(torch, recorded, num_samples=64):
             else:
                 rec = hold_kde_moments(torch, label, *inputs, reps=reps)
                 shapes.append((path, rec["C"], rec["d"], rec["live"]))
+            if is_largest:
+                rec.update(launch_device_time(torch, kernel, inputs))
+                print(f"{kernel} {label} device time " + json.dumps(
+                    {k: rec[k] for k in rec if k.startswith("device")}), flush=True)
             max_err = max(max_err, rec["max_abs_err"])
             recs[i] = dict(rec, size=list(size(kernel, inputs)))
         print(f"main path {kernel} launches: " + json.dumps(shapes), flush=True)
         per_path = {path: recs[i] for path, i in largest.items()}
         print(f"main path {kernel} largest launch per path: " + json.dumps(per_path),
               flush=True)
-        out[kernel] = (max(per_path.values(), key=lambda r: r["size"]), max_err)
+        out[kernel] = (per_path, max_err)
     return out
+
+
+def profiled_device_ms(torch, fn, reps=20):
+    """Device time of ``fn`` by kernel name: ``torch.profiler`` with CUDA
+    activity only over ``reps`` calls after one warm-up call. Returns
+    ``{kernel name: (ms per launch, launches per call)}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the profiler now and then catches no device event in a window; such a
+    # window is measured again, up to twice
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if events:
+            break
+    # per launch over the launches the profiler caught (it may miss one)
+    return {e.key[:80]: (_device_us(e) / 1e3 / max(e.count, 1), e.count / reps)
+            for e in events}
+
+
+def launch_device_time(torch, kernel, inputs, reps=20):
+    """Device time per launch of ``kernel`` on one input's arguments, from
+    the profiler, and the wrapper's host time per call. For ``kde_moments``
+    the call is the fit's ``moment_bandwidths``, which must run one moments
+    kernel per call and nothing else (fatal otherwise)."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    if kernel == "kde_score":
+        call = lambda: cuda_kde.score_candidates(*inputs)  # noqa: E731
+        by_name = profiled_device_ms(torch, call, reps)
+        return dict(device_ms=sum(ms for k, (ms, _) in by_name.items()
+                                  if "kde_score_kernel" in k),
+                    host_ms=_host_ms(call, torch))
+    data, masks, cards, min_bw = inputs
+    cards = _fit_cards(torch, data, cards)
+    call = lambda: cuda_kde.moment_bandwidths(data, masks, cards, min_bw)  # noqa: E731
+    by_name = profiled_device_ms(torch, call, reps)
+    # the profiler can miss a launch at the start of its window, so "one
+    # per call" reads as: nothing but the moments kernel, at most once per
+    # call
+    if list(by_name) == [] or any("moments_kernel" not in k or n > 1
+                                  for k, (_, n) in by_name.items()):
+        raise AssertionError(
+            "moment_bandwidths ran other device work than one moments kernel "
+            "per call: " + json.dumps(by_name))
+    return dict(device_ms=sum(ms for ms, _ in by_name.values()),
+                host_ms=_host_ms(call, torch),
+                device_kernels_per_call={k[:40]: n for k, (_, n) in by_name.items()})
+
+
+def launch_floor(torch, dev, reps=20):
+    """The least a launch costs on this card: the scorer library's empty
+    kernel through the same ctypes route, event-timed, profiled and its
+    host time per call."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    call = lambda: cuda_kde.noop_launch(dev)  # noqa: E731
+    ms = _median_ms(call, torch, reps=reps)
+    by_name = profiled_device_ms(torch, call, reps)
+    rec = dict(launch_floor_ms=ms,
+               launch_floor_device_ms=sum(v for v, _ in by_name.values()),
+               launch_floor_host_ms=_host_ms(call, torch))
+    print("launch floor " + json.dumps(rec), flush=True)
+    return rec
 
 
 def _stage0_medians(iterations):
@@ -585,11 +758,11 @@ def profile_sweeps(torch, dev):
 
 
 def profile_moments_device_time(torch, dev, reps=20):
-    """Device time per launch of each of the masked-moment kernel's two
-    passes at the scale checks (``--profile``; the CUDA events of phase 2
-    also hold the wrapper's host work). Measured twice: back to back, where
+    """Device time per call of the fit's moments and bandwidths at the
+    scale checks, by kernel (``--profile``; the CUDA events of phase 2 also
+    hold the wrapper's host work). Measured twice: back to back, where
     inputs under the card's 50 MB L2 stay cached, and with a 128 MB buffer
-    rewritten before every launch, so the inputs come from HBM as the bound
+    rewritten before every call, so the inputs come from HBM as the bound
     assumes."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -598,7 +771,8 @@ def profile_moments_device_time(torch, dev, reps=20):
     flush = torch.empty(32 << 20, dtype=torch.float32, device=dev)
     for name, seed, c, cards, frac in MOMENTS_CASES:
         data, masks = moments_inputs(torch, dev, seed, c, cards, frac)
-        cuda_kde.masked_moments(data, masks)
+        cards_t = _fit_cards(torch, data, cards)
+        cuda_kde.moment_bandwidths(data, masks, cards_t, MIN_BANDWIDTH)
         torch.cuda.synchronize(dev)
         rec = dict(shape=name)
         for l2 in ("warm_l2", "cold_l2"):
@@ -606,12 +780,13 @@ def profile_moments_device_time(torch, dev, reps=20):
                 for _ in range(reps):
                     if l2 == "cold_l2":
                         flush.zero_()
-                    cuda_kde.masked_moments(data, masks)
+                    cuda_kde.moment_bandwidths(data, masks, cards_t, MIN_BANDWIDTH)
                 torch.cuda.synchronize(dev)
-            per_launch = {e.key[:40]: _device_us(e) / 1e3 / reps
-                          for e in prof.key_averages()
-                          if e.device_type.name == "CUDA" and "moments" in e.key}
-            rec[l2] = dict(per_launch_ms=per_launch, total_ms=sum(per_launch.values()))
+            mine = [e for e in prof.key_averages()
+                    if e.device_type.name == "CUDA" and "moments" in e.key]
+            per_launch = {e.key[:60]: _device_us(e) / 1e3 / reps for e in mine}
+            rec[l2] = dict(per_launch_ms=per_launch, total_ms=sum(per_launch.values()),
+                           kernels_per_call=sum(e.count for e in mine) / reps)
         rec["bound_ms"] = bound_ms(*kde_moments_work(data, masks))[0]
         print("kde_moments device time " + json.dumps(rec), flush=True)
 
@@ -680,11 +855,11 @@ def main(argv=None) -> int:
         if path == "chunked":
             chunked_result = out[1]
     print("main path launches " + json.dumps(launches), flush=True)
-    if launches["static"]["kde_score"] < 1:
-        raise AssertionError("the static path never launched kde_score")
-    for name in KERNELS:
-        if launches["chunked"][name] < 1:
-            raise AssertionError(f"the chunked path never launched {name}")
+    if launches != MAIN_PATH_LAUNCHES:
+        raise AssertionError(
+            f"main path launches {launches} != {MAIN_PATH_LAUNCHES}: every model "
+            "bracket of the static sweeps scores once, every chunked bracket "
+            "fits and scores once")
 
     # phase 5: resume on the card equals the uninterrupted chunked run
     check_resume(torch, dev, chunked_result)
@@ -696,9 +871,12 @@ def main(argv=None) -> int:
         profile_sweeps(torch, dev)
         profile_moments_device_time(torch, dev)
 
+    floor = launch_floor(torch, dev)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        main_rec, main_err = held[name]
+        per_path, main_err = held[name]
+        path = max(per_path, key=lambda p: per_path[p]["size"])
+        main_rec = per_path[path]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launches[p][name] for p in launches),
@@ -707,6 +885,10 @@ def main(argv=None) -> int:
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=None,
+            device_ms=main_rec["device_ms"], host_ms=main_rec["host_ms"], **floor,
+            largest_launch_path=path,
+            ms_by_path={p: r["ms"] for p, r in per_path.items()},
+            device_ms_by_path={p: r["device_ms"] for p, r in per_path.items()},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(

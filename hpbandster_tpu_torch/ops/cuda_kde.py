@@ -18,13 +18,24 @@ either reaches the kernel or raises. ``LAUNCHES[name]`` counts kernel
 launches, so a run can show that it went through the kernels; setting
 ``RECORD`` to a list keeps every launch's ``(name, inputs)``, so a run can
 hold each kernel against its plain twin at the shapes it really gave it.
+
+Each kernel's launch geometry comes from shapes alone
+(:func:`kde_score_geometry`, :func:`kde_moments_geometry`): the wrappers
+pass it to the C entry points, the tests read it, and no mask or count ever
+changes it, so the same inputs give the same bits on every run. The
+wrappers keep their host work small: inputs that are already contiguous
+float32 on the launch device pass as they are, the device context is
+entered only when it is not the current one, and nothing is queried from
+the library per call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,6 +50,10 @@ from hpbandster_tpu_torch.ops.kde import (
 __all__ = [
     "LAUNCHES",
     "RECORD",
+    "ScoreGeometry",
+    "kde_score_geometry",
+    "MomentsGeometry",
+    "kde_moments_geometry",
     "score_candidates",
     "score_candidates_reference",
     "propose_from_candidates",
@@ -46,6 +61,8 @@ __all__ = [
     "masked_moments",
     "masked_moments_reference",
     "moment_bandwidths",
+    "bandwidths_from_moments",
+    "noop_launch",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -55,7 +72,8 @@ LAUNCHES = {"kde_score": 0, "kde_moments": 0}
 
 #: when a list, each kernel launch appends ``(name, inputs)``: for
 #: ``kde_score`` ``(cands, good, bad, vartypes, cards)``, for
-#: ``kde_moments`` ``(data, masks)``
+#: ``kde_moments`` ``(data, masks, cards, min_bandwidth)`` (``cards`` None
+#: for a plain-moments call)
 RECORD: Optional[list] = None
 
 _LIB = None
@@ -70,21 +88,102 @@ def _kde_score_lib() -> ctypes.CDLL:
         lib = load_library("kde_score")
         lib.kde_score_launch.argtypes = (
             [ctypes.c_void_p] * 10  # nine inputs and the output, device pointers
-            + [ctypes.c_int] * 5    # S, d, n_good, n_bad, tile rows
+            + [ctypes.c_int] * 10   # S, d, n_good, n_bad, log2 lanes, blocks,
+                                    # list rows, rows per thread, dmax, smem
             + [ctypes.c_float, ctypes.c_void_p]  # floor, stream
         )
         lib.kde_score_launch.restype = ctypes.c_int
+        lib.kde_score_noop_launch.argtypes = [ctypes.c_void_p]
+        lib.kde_score_noop_launch.restype = ctypes.c_int
         lib.kde_score_error_string.argtypes = [ctypes.c_int]
         lib.kde_score_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _tile_rows(d: int) -> int:
-    """Observation rows per shared-memory tile: 128 for the usual HPO
-    widths, fewer for very wide spaces so a block stays well inside the
-    SM's shared memory."""
-    return 128 if d <= 32 else max(16, 4096 // d)
+#: the scorer's block (``kThreads`` in ``csrc/kde_score.cu``)
+_SCORE_THREADS = 128
+#: blocks the lane count aims for: two per SM of an H100 (132 SMs)
+_SCORE_TARGET_BLOCKS = 2 * 132
+#: live-list rows a lane should walk at most, where the lanes allow it
+_SCORE_ROWS_PER_LANE = 32
+#: rows of a side one thread loads per compaction pass (``kMaxRowsPerThread``)
+_SCORE_MAX_ROWS_PER_THREAD = 2
+#: shared memory the compacted rows of one side may take
+_SCORE_ROW_BYTES = 20 * 1024
+#: register widths of the kernel's instances; wider spaces use 0 (shared)
+_REGISTER_DIMS = (8, 16, 32)
+
+
+class ScoreGeometry(NamedTuple):
+    """Launch geometry of ``csrc/kde_score.cu``."""
+
+    #: threads per candidate (K), a power of two <= 32
+    lanes: int
+    blocks: int
+    threads: int
+    #: dynamic shared memory of a block, bytes
+    smem_bytes: int
+    #: rows the compacted list holds before the block scores them
+    row_chunk: int
+    #: mask rows a thread loads per compaction pass
+    rows_per_thread: int
+    #: register width of the kernel instance (0: coordinates in shared memory)
+    dmax: int
+
+
+@functools.lru_cache(maxsize=256)
+def kde_score_geometry(s: int, d: int, n_good: int, n_bad: int) -> ScoreGeometry:
+    """The scorer's launch geometry for ``s`` candidates of ``d`` dims
+    against ``n_good`` and ``n_bad`` buffer rows: shapes only, never a mask.
+
+    Lanes per candidate: enough that ``s`` candidates fill
+    ``_SCORE_TARGET_BLOCKS`` blocks, and that a lane walks at most
+    ``_SCORE_ROWS_PER_LANE`` rows of a full buffer (at least 4 where the
+    coordinates sit in shared memory, to keep them small). Each side's
+    compacted list holds up to that side's rows, within
+    ``_SCORE_ROW_BYTES``, and at least one compaction pass."""
+    n_max = max(n_good, n_bad, 1)
+    want = max(
+        -(-_SCORE_TARGET_BLOCKS * _SCORE_THREADS // max(s, 1)),
+        -(-n_max // _SCORE_ROWS_PER_LANE),
+    )
+    dmax = next((w for w in _REGISTER_DIMS if d <= w), 0)
+    lanes = min(32, 1 << max(want - 1, 0).bit_length())
+    if dmax == 0:
+        lanes = max(lanes, 4)
+    per_block = _SCORE_THREADS // lanes
+    stride = d | 1
+    slices = -(-n_max // _SCORE_THREADS)  # 128-row slices of the larger side
+    budget = max(1, _SCORE_ROW_BYTES // (4 * stride) // _SCORE_THREADS)
+    rpt = min(_SCORE_MAX_ROWS_PER_THREAD, slices, budget)
+    cap = _SCORE_THREADS * max(rpt, min(slices, budget))
+    # code [d], two sides of [6d + 1] constants, a flag, 2 x 2 x 8 pass
+    # counters, the block's candidates (shared-memory instance only), the
+    # two lists
+    floats = 13 * d + 35 + (per_block * d if dmax == 0 else 0) + 2 * cap * stride
+    return ScoreGeometry(
+        lanes=lanes, blocks=-(-s // per_block), threads=_SCORE_THREADS,
+        smem_bytes=4 * floats, row_chunk=cap, rows_per_thread=rpt, dmax=dmax,
+    )
+
+
+def _f32_on(t, device: torch.device) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor on ``device``; a tensor that
+    already is one passes as it is (no copy, no launch)."""
+    if (
+        isinstance(t, torch.Tensor) and t.dtype == torch.float32
+        and t.device == device and t.is_contiguous()
+    ):
+        return t
+    return torch.as_tensor(t).to(device, torch.float32).contiguous()
+
+
+def _on_device(dev: torch.device):
+    """The device context a launch needs: none when ``dev`` is current."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _side_logpdf_reference(
@@ -124,18 +223,11 @@ def _side_logpdf_reference(
 
 
 def _prep(good: KDE, bad: KDE, vartypes, cards, device):
-    f32 = torch.float32
-
     def side(kde: KDE):
-        return KDE(
-            kde.data.to(device, f32).contiguous(),
-            kde.mask.to(device, f32).contiguous(),
-            kde.bw.to(device, f32).contiguous(),
-        )
+        return KDE(_f32_on(kde.data, device), _f32_on(kde.mask, device),
+                   _f32_on(kde.bw, device))
 
-    vt = torch.as_tensor(vartypes).to(device, f32).contiguous()
-    cd = torch.as_tensor(cards).to(device, f32).contiguous()
-    return side(good), side(bad), vt, cd
+    return side(good), side(bad), _f32_on(vartypes, device), _f32_on(cards, device)
 
 
 def score_candidates_reference(
@@ -169,7 +261,7 @@ def score_candidates(
         raise ValueError(f"score_candidates runs on cuda or cpu, not {dev}")
     if cands.dim() != 2:
         raise ValueError(f"cands must be [S, d], got shape {tuple(cands.shape)}")
-    cands = cands.to(torch.float32).contiguous()
+    cands = _f32_on(cands, dev)
     good, bad, vt, cd = _prep(good, bad, vartypes, cards, dev)
     s, d = cands.shape
     for name, kde in (("good", good), ("bad", bad)):
@@ -187,14 +279,16 @@ def score_candidates(
     if s == 0:
         return out
     lib = _kde_score_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ng, nb = good.data.shape[0], bad.data.shape[0]
+    geo = kde_score_geometry(s, d, ng, nb)
+    with _on_device(dev):
         rc = lib.kde_score_launch(
             cands.data_ptr(), good.data.data_ptr(), good.mask.data_ptr(),
             good.bw.data_ptr(), bad.data.data_ptr(), bad.mask.data_ptr(),
             bad.bw.data_ptr(), vt.data_ptr(), cd.data_ptr(), out.data_ptr(),
-            s, d, good.data.shape[0], bad.data.shape[0], _tile_rows(d),
-            LOG_PDF_FLOOR, stream,
+            s, d, ng, nb, geo.lanes.bit_length() - 1, geo.blocks,
+            geo.row_chunk, geo.rows_per_thread, geo.dmax, geo.smem_bytes,
+            LOG_PDF_FLOOR, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         msg = lib.kde_score_error_string(rc).decode()
@@ -203,6 +297,19 @@ def score_candidates(
     if RECORD is not None:
         RECORD.append(("kde_score", (cands, good, bad, vt, cd)))
     return out
+
+
+def noop_launch(device) -> None:
+    """Launch the scorer library's empty kernel on ``device``'s current
+    stream, through the same ctypes route as the scorer: what any launch
+    costs at least. Not counted in ``LAUNCHES``."""
+    dev = torch.device(device)
+    lib = _kde_score_lib()
+    with _on_device(dev):
+        rc = lib.kde_score_noop_launch(torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        msg = lib.kde_score_error_string(rc).decode()
+        raise RuntimeError(f"kde_score_noop launch failed: CUDA error {rc} ({msg})")
 
 
 def propose_from_candidates(
@@ -246,11 +353,12 @@ def _kde_moments_lib() -> ctypes.CDLL:
     global _MOMENTS_LIB
     if _MOMENTS_LIB is None:
         lib = load_library("kde_moments")
-        lib.kde_moments_row_blocks.argtypes = [ctypes.c_int]
-        lib.kde_moments_row_blocks.restype = ctypes.c_int
         lib.kde_moments_launch.argtypes = (
-            [ctypes.c_void_p] * 4   # data, masks, partial scratch, output
-            + [ctypes.c_int] * 3    # C, d, sides
+            [ctypes.c_void_p] * 7   # data, masks, partial, counter,
+                                    # moments, cards, bandwidths
+            + [ctypes.c_int] * 7    # C, d, sides, dmax, row blocks, dim
+                                    # chunks, 16-byte loads
+            + [ctypes.c_float] * 2  # min bandwidth, bandwidth exponent
             + [ctypes.c_void_p]     # stream
         )
         lib.kde_moments_launch.restype = ctypes.c_int
@@ -258,6 +366,58 @@ def _kde_moments_lib() -> ctypes.CDLL:
         lib.kde_moments_error_string.restype = ctypes.c_char_p
         _MOMENTS_LIB = lib
     return _MOMENTS_LIB
+
+
+#: the moments kernel's block (``kThreads`` in ``csrc/kde_moments.cu``)
+_MOMENTS_THREADS = 256
+#: row blocks at most: one wave on an H100's 132 SMs, two blocks per SM
+#: for the 8-dim instance and one for the wider ones
+_MOMENTS_MAX_ROW_BLOCKS = {8: 2 * 132, 16: 132, 32: 132}
+
+
+class MomentsGeometry(NamedTuple):
+    """Launch geometry of ``csrc/kde_moments.cu``."""
+
+    #: dims a thread holds in registers (the kernel instance: 8, 16, 32)
+    dmax: int
+    row_blocks: int
+    #: second grid axis: dim chunks of ``dmax`` (1 for d <= 32)
+    dim_chunks: int
+    threads: int
+    #: rows a thread has in flight before it adds them (``kUnroll``)
+    unroll: int
+    #: floats of the partial buffer (0: a single block needs none)
+    partial_floats: int
+
+
+@functools.lru_cache(maxsize=256)
+def kde_moments_geometry(c: int, d: int, sides: int) -> MomentsGeometry:
+    """The masked moments' launch geometry for ``c`` rows of ``d`` dims and
+    ``sides`` masks: from shapes only. Enough row blocks that each thread
+    has at least ``unroll`` rows, up to one wave of the card."""
+    dmax = next((w for w in _REGISTER_DIMS if d <= w), 8)
+    unroll = 2 if dmax == 32 else 4
+    dim_chunks = -(-d // dmax)
+    row_blocks = max(1, min(_MOMENTS_MAX_ROW_BLOCKS[dmax],
+                            -(-c // (_MOMENTS_THREADS * unroll))))
+    multi = row_blocks * dim_chunks > 1
+    return MomentsGeometry(
+        dmax=dmax, row_blocks=row_blocks, dim_chunks=dim_chunks,
+        threads=_MOMENTS_THREADS, unroll=unroll,
+        partial_floats=row_blocks * sides * 3 * d if multi else 0,
+    )
+
+
+#: per (device index, stream): the ticket counter, int32, zero between
+#: launches (the last block resets it)
+_MOMENTS_COUNTERS: dict = {}
+
+
+def _moments_counter(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _MOMENTS_COUNTERS:
+        _MOMENTS_COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _MOMENTS_COUNTERS[key]
 
 
 #: rows of one reference grid step, and of one sequential block inside it
@@ -309,19 +469,16 @@ def masked_moments_reference(data: torch.Tensor, masks: torch.Tensor) -> torch.T
     ], dim=1)
 
 
-def masked_moments(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """Masked moments ``f32[S, 3, d]`` of ``data f32[C, d]`` under ``masks
-    f32[S, C]`` (S = 1 or 2 sides), as :func:`masked_moments_reference`.
-
-    CUDA tensors launch ``csrc/kde_moments.cu`` (two passes, no atomics:
-    the same inputs give the same bits on every run); CPU tensors take the
-    plain version. Any other device raises.
-    """
+def _launch_moments(
+    data: torch.Tensor,
+    masks: torch.Tensor,
+    cards: Optional[torch.Tensor] = None,
+    min_bandwidth: float = 1e-3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/kde_moments.cu`` on CUDA tensors: the moments
+    ``f32[S, 3, d]`` and the bandwidths ``f32[S, d]`` (every dim continuous
+    when ``cards`` is None)."""
     dev = data.device
-    if dev.type == "cpu":
-        return masked_moments_reference(data, masks)
-    if dev.type != "cuda":
-        raise ValueError(f"masked_moments runs on cuda or cpu, not {dev}")
     if data.dim() != 2 or masks.dim() != 2 or masks.shape[1] != data.shape[0]:
         raise ValueError(
             f"data must be [C, d] and masks [S, C], got {tuple(data.shape)} "
@@ -333,29 +490,81 @@ def masked_moments(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"masked_moments takes 1 or 2 masks, got {sides}")
     if masks.device != dev:
         raise ValueError(f"masks on {masks.device}, data on {dev}")
-    data = data.to(torch.float32).contiguous()
-    masks = masks.to(torch.float32).contiguous()
-    if c == 0 or d == 0:
-        return torch.zeros((sides, 3, d), dtype=torch.float32, device=dev)
-    lib = _kde_moments_lib()
-    partial = torch.empty(
-        (lib.kde_moments_row_blocks(c), sides, 3, d), dtype=torch.float32,
-        device=dev,
-    )
+    data = _f32_on(data, dev)
+    masks = _f32_on(masks, dev)
     out = torch.empty((sides, 3, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    bw = torch.empty((sides, d), dtype=torch.float32, device=dev)
+    if cards is not None:
+        cards = _f32_on(cards, dev)
+        if cards.shape != (d,):
+            raise ValueError(f"cards must be [{d}], got {tuple(cards.shape)}")
+    if c == 0 or d == 0:
+        out.zero_()
+        bw.copy_(bandwidths_from_moments(
+            out, torch.zeros(d, device=dev) if cards is None else cards, min_bandwidth))
+        return out, bw
+    lib = _kde_moments_lib()
+    geo = kde_moments_geometry(c, d, sides)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    partial = counter = None
+    if geo.partial_floats:
+        # the caching allocator orders reuse of this memory after the launch
+        partial = torch.empty(geo.partial_floats, dtype=torch.float32, device=dev)
+        counter = _moments_counter(dev, stream)
+    with _on_device(dev):
         rc = lib.kde_moments_launch(
-            data.data_ptr(), masks.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), c, d, sides, stream,
+            data.data_ptr(), masks.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counter is None else counter.data_ptr(),
+            out.data_ptr(), None if cards is None else cards.data_ptr(),
+            bw.data_ptr(), c, d, sides, geo.dmax, geo.row_blocks, geo.dim_chunks,
+            int(d % 4 == 0 and data.data_ptr() % 16 == 0),
+            min_bandwidth, -1.0 / (4.0 + d), stream,
         )
     if rc != 0:
         msg = lib.kde_moments_error_string(rc).decode()
         raise RuntimeError(f"kde_moments launch failed: CUDA error {rc} ({msg})")
     LAUNCHES["kde_moments"] += 1
     if RECORD is not None:
-        RECORD.append(("kde_moments", (data, masks)))
-    return out
+        RECORD.append(("kde_moments", (data, masks, cards, min_bandwidth)))
+    return out, bw
+
+
+def masked_moments(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Masked moments ``f32[S, 3, d]`` of ``data f32[C, d]`` under ``masks
+    f32[S, C]`` (S = 1 or 2 sides), as :func:`masked_moments_reference`.
+
+    CUDA tensors launch ``csrc/kde_moments.cu`` once, the same launch as
+    :func:`moment_bandwidths` with its bandwidths unused (no float atomics:
+    the same inputs give the same bits on every run); CPU tensors take the
+    plain version. Any other device raises.
+    """
+    dev = data.device
+    if dev.type == "cpu":
+        return masked_moments_reference(data, masks)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_moments runs on cuda or cpu, not {dev}")
+    return _launch_moments(data, masks)[0]
+
+
+def bandwidths_from_moments(
+    mom: torch.Tensor, cards: torch.Tensor, min_bandwidth: float = 1e-3
+) -> torch.Tensor:
+    """Normal-reference bandwidths ``f32[S, d]`` from masked moments ``f32[S,
+    3, d]``, in plain tensor ops: one-pass variance ``max(s2/n - mean^2, 0)``
+    with ``n = max(count, 1)``, then ``1.06 * sigma * n^(-1/(4+d))``
+    clipped to ``[min_bandwidth, (k-1)/k]``. The kernel's fused epilogue
+    computes the same float32 steps."""
+    s1, s2, cnt = mom[:, 0], mom[:, 1], mom[:, 2]
+    d = mom.shape[-1]
+    n = torch.clamp(cnt, min=1.0)
+    mean = s1 / n
+    var = torch.clamp(s2 / n - torch.square(mean), min=0.0)
+    bw = 1.06 * torch.sqrt(var) * n ** (-1.0 / (4.0 + d))
+    return torch.minimum(
+        torch.clamp(bw, min=min_bandwidth),
+        _discrete_bw_cap(torch.as_tensor(cards, device=mom.device)),
+    )
 
 
 def moment_bandwidths(
@@ -369,21 +578,18 @@ def moment_bandwidths(
     ``f32[d]``) or ``f32[S, C]`` (returns ``f32[S, d]``, all sides from one
     launch).
 
-    One-pass variance ``max(s2/n - mean^2, 0)`` with ``n = max(count, 1)``,
-    then ``1.06 * sigma * n^(-1/(4+d))`` clipped to ``[min_bandwidth,
-    (k-1)/k]``: a distinct numeric consumer from the two-pass
-    ``ops.kde.normal_reference_bandwidths``, exactly as in the reference.
+    One-pass variance, a distinct numeric consumer from the two-pass
+    ``ops.kde.normal_reference_bandwidths``, exactly as in the reference
+    (:func:`bandwidths_from_moments`). On CUDA tensors the moments kernel
+    computes the bandwidths itself and nothing else runs; on CPU
+    tensors the plain moments are followed by the plain epilogue, bit for
+    bit the reference's.
     """
     one_side = masks.dim() == 1
-    mom = masked_moments(data, masks[None] if one_side else masks)
-    s1, s2, cnt = mom[:, 0], mom[:, 1], mom[:, 2]
-    d = data.shape[-1]
-    n = torch.clamp(cnt, min=1.0)
-    mean = s1 / n
-    var = torch.clamp(s2 / n - torch.square(mean), min=0.0)
-    bw = 1.06 * torch.sqrt(var) * n ** (-1.0 / (4.0 + d))
-    bw = torch.minimum(
-        torch.clamp(bw, min=min_bandwidth),
-        _discrete_bw_cap(torch.as_tensor(cards, device=data.device)),
-    )
+    masks2 = masks[None] if one_side else masks
+    dev = data.device
+    if dev.type == "cuda":
+        bw = _launch_moments(data, masks2, cards, min_bandwidth)[1]
+    else:
+        bw = bandwidths_from_moments(masked_moments(data, masks2), cards, min_bandwidth)
     return bw[0] if one_side else bw

@@ -318,8 +318,9 @@ class GeneratorDraws:
         self.min_bandwidth = float(min_bandwidth)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
-        self._vartypes = torch.as_tensor(codec.vartypes, device=self.device)
-        self._cards = torch.as_tensor(codec.cards, device=self.device)
+        # float32 once: the candidate draw reads them as floats
+        self._vartypes = _f32(codec.vartypes, self.device)
+        self._cards = _f32(codec.cards, self.device)
 
     def stage0(self, b_i: int, n0: int) -> torch.Tensor:
         return random_unit(self.codec, self.generator, n0, self.device)
@@ -435,8 +436,9 @@ def make_fused_sweep_fn(
                 )
         caps = {float(b): int(n) for b, n in capacities.items()}
 
-    vartypes_dev = torch.as_tensor(codec.vartypes, device=device)
-    cards_dev = torch.as_tensor(codec.cards, device=device)
+    # float32 once, as the kernels take them: no cast per launch
+    vartypes_dev = _f32(codec.vartypes, device)
+    cards_dev = _f32(codec.cards, device)
 
     def trained_split(n: int) -> Optional[Tuple[int, int]]:
         """Host-side gate of the KDE fit: split sizes, or None when closed."""

@@ -17,6 +17,7 @@ from here.
 from __future__ import annotations
 
 import math
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -239,10 +240,10 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """No source file of the port, and not ``chip_smoke.py``, names jax or
-    the JAX package in an import."""
+    """No source file of the port, and neither ``chip_smoke.py`` nor
+    ``compare_kernels.py``, names jax or the JAX package in an import."""
     files = sorted((REPO / "hpbandster_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
     offenders = []
     for f in files:
         for line in f.read_text().splitlines():
@@ -252,6 +253,20 @@ def test_port_sources_never_import_jax():
                 if mod.split(".")[0] in ("jax", "jaxlib", "hpbandster_tpu"):
                     offenders.append(f"{f.name}: {s}")
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("script", [["chip_smoke.py"],
+                                    ["compare_kernels.py", "--root", "."]])
+def test_card_scripts_fail_without_a_card(script):
+    """The scripts that need a CUDA card exit non-zero and print no result
+    where there is none."""
+    proc = subprocess.run(
+        [sys.executable, *script], cwd=REPO, capture_output=True, text=True,
+        timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout and "compare {" not in proc.stdout
+    assert "no CUDA device" in proc.stderr
 
 
 def test_fused_bohb_refuses_to_run_without_a_device(monkeypatch):
