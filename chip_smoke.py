@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch port (``hpbandster_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --profile  # also profiles device time: a static
-                                     # and a chunked sweep, and the moment
-                                     # kernel at its scale checks
+    python3 chip_smoke.py --profile  # also profiles device time: static
+                                     # and chunked Hartmann-6 and conditional
+                                     # sweeps, and the moment kernel at its
+                                     # scale checks
 
 Phases, each fatal on failure:
 
@@ -31,9 +32,22 @@ Phases, each fatal on failure:
    bandwidths from the masked-moment kernel), counts reset and read around
    it; the same checks, both kernels launched, and the chunk rows and the
    synchronizing CUDA calls inside each chunk printed (reported, not gated);
-5. resume on the card: the same chunked sweep cut after 4 brackets with a
-   checkpoint, loaded into a fresh optimizer and run to 10, must equal the
-   uninterrupted chunked run exactly (configs, losses, incumbent);
+   then, each with its counts reset and read the same way: the conditional
+   path, the reference's conditional space (a categorical and an ordinal
+   parent, one forbidden clause) with Branin plus its children as the
+   objective, static and chunked, gated as above plus every evaluated
+   configuration round-tripping through the host codec, respecting the
+   activity pattern and not forbidden; ``FusedH2BO`` on Hartmann-6;
+   ``FusedHyperBand`` and ``FusedRandomSearch`` on Branin (runs per budget
+   against their plans, no kernel launch); every recorded launch's inputs
+   must be finite, and the conditional paths must have scorer launches on
+   mixed vartypes and moments launches with discrete cards;
+5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
+   after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
+   to 10, must equal its uninterrupted run exactly (configs, losses,
+   incumbent); then the host and event time of the conditional path's new
+   device work (rejection resampling, activity mask, imputation), which
+   must not synchronize;
 6. hold each kernel against its plain version on every input the main
    paths gave it, with the arguments the path passed (for the masked
    moments also the bandwidths the kernel computes, against the plain
@@ -100,9 +114,17 @@ BW_MAGNIFICATION = 1e3
 #: moments: the same float32 steps, so a last-bit difference of pow at most
 BW_EPILOGUE_RTOL = 1e-6
 #: kernel launches of the main paths: two static sweeps with 9 model
-#: brackets each; one fit and one scoring per bracket of the chunked sweep
+#: brackets each; one fit and one scoring per bracket of the chunked sweep;
+#: on the conditional space one fit of two moment launches (the split sides
+#: are imputed apart) per chunked bracket; H2BO as BOHB; HyperBand and
+#: random search no model
 MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
-                      "chunked": {"kde_score": 10, "kde_moments": 10}}
+                      "chunked": {"kde_score": 10, "kde_moments": 10},
+                      "conditional_static": {"kde_score": 9, "kde_moments": 0},
+                      "conditional_chunked": {"kde_score": 10, "kde_moments": 20},
+                      "h2bo": {"kde_score": 9, "kde_moments": 0},
+                      "hyperband": {"kde_score": 0, "kde_moments": 0},
+                      "random_search": {"kde_score": 0, "kde_moments": 0}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -248,7 +270,8 @@ def check_kde_score(torch, dev):
         inputs = _score_inputs(torch, dev, 100 + i, **kw)
         rec = hold_kde_score(torch, name, *inputs, n)
         rec.update(launch_device_time(torch, "kde_score", inputs))
-        print(f"kde_score {name} device time {rec['device_ms']}", flush=True)
+        print(f"kde_score {name} device and host time " + json.dumps(
+            dict(device_ms=rec["device_ms"], host_ms=rec["host_ms"])), flush=True)
         recs.append(rec)
     return recs
 
@@ -377,7 +400,8 @@ def check_kde_moments(torch, dev):
             cards, MIN_BANDWIDTH)
         rec = hold_kde_moments(torch, name, *inputs)
         rec.update(launch_device_time(torch, "kde_moments", inputs))
-        print(f"kde_moments {name} device time (warm L2) {rec['device_ms']}", flush=True)
+        print(f"kde_moments {name} device (warm L2) and host time " + json.dumps(
+            dict(device_ms=rec["device_ms"], host_ms=rec["host_ms"])), flush=True)
         recs.append(rec)
     return recs
 
@@ -514,33 +538,69 @@ def _stage0_medians(iterations):
     return float(np.median(model)), float(np.median(rand))
 
 
-def random_search_median_best(torch, dev, fn, space, n_evals, budget):
+#: forbidden redraws the random-search baseline may need
+RANDOM_SEARCH_MAX_REDRAWS = 64
+
+
+def random_search_median_best(torch, dev, fn, opt, n_evals, budget):
     """Median over ``RANDOM_SEARCH_REPLICATES`` seeded random searches of the
     best loss among ``n_evals`` uniform configurations evaluated at
     ``budget``: the baseline a sweep of the same total budget must beat.
-    The smoke objectives' spaces are all-float, so a uniform configuration
-    is a uniform point of the unit cube."""
-    d = len(space.get_hyperparameters())
+    Configurations come through ``opt``'s space: the port's uniform draw
+    and quantization, forbidden rows redrawn until none is left, inactive
+    dims 0 as the sweep evaluates them. On an all-float space the draw is
+    a uniform point of the unit cube, the same points as a plain
+    ``torch.rand`` from the same seed."""
+    from hpbandster_tpu_torch.ops.sweep import quantize_unit, random_unit
+
+    tables = opt.codec_tables
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    v = torch.rand((RANDOM_SEARCH_REPLICATES * n_evals, d), generator=gen, device=dev)
+    n = RANDOM_SEARCH_REPLICATES * n_evals
+
+    def draw():
+        return quantize_unit(tables, random_unit(tables, gen, n))
+
+    def active(v):
+        if opt.active_mask_fn is None:
+            return torch.ones_like(v, dtype=torch.bool)
+        return opt.active_mask_fn(v)
+
+    v = draw()
+    if opt.forbidden_fn is not None:
+        for _ in range(RANDOM_SEARCH_MAX_REDRAWS):
+            bad = opt.forbidden_fn(v, active(v))
+            if not bool(bad.any()):
+                break
+            v = torch.where(bad[:, None], draw(), v)
+        else:
+            raise AssertionError("random-search baseline: forbidden rows remain")
+    v = torch.where(active(v), v, torch.zeros_like(v))
     best = fn(v, budget).reshape(RANDOM_SEARCH_REPLICATES, n_evals).min(dim=1).values
     return float(best.median())
 
 
-def check_sweep(torch, dev, name, opt, res, fn, max_budget, n_iterations):
-    """The correctness checks of one sweep: runs per budget equal the
-    HyperBand plan, all losses finite, the incumbent strictly below the
-    median best of equal-budget random searches, model-based picks better
-    than random picks. Returns the numbers it checked."""
+def plan_runs_per_budget(max_budget, n_iterations, stage0_only=False):
+    """Runs per budget of the first ``n_iterations`` HyperBand brackets at
+    ``eta = 3``, budgets 1..``max_budget``, computed here and not taken from
+    the optimizer under test. ``stage0_only``: random search's plan, each
+    bracket's first stage, all at ``max_budget``."""
     from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
 
     want = {}
     for i in range(n_iterations):
         p = hyperband_bracket(i, 1.0, max_budget, 3.0)
-        for k, b in zip(p.num_configs, p.budgets):
-            want[b] = want.get(b, 0) + k
-    total_budget = sum(k * b for b, k in want.items())
+        stages = ([(p.num_configs[0], max_budget)] if stage0_only
+                  else zip(p.num_configs, p.budgets))
+        for k, b in stages:
+            want[float(b)] = want.get(float(b), 0) + k
+    return want
+
+
+def check_runs_per_budget(name, res, max_budget, n_iterations, stage0_only=False):
+    """Runs per budget equal the HyperBand plan (:func:`plan_runs_per_budget`)
+    and every loss is finite; returns the plan."""
+    want = plan_runs_per_budget(max_budget, n_iterations, stage0_only)
     got = {}
     for r in res.get_all_runs():
         got[r.budget] = got.get(r.budget, 0) + 1
@@ -549,8 +609,19 @@ def check_sweep(torch, dev, name, opt, res, fn, max_budget, n_iterations):
     losses = np.asarray([r.loss for r in res.get_all_runs()], np.float64)
     if not np.isfinite(losses).all():
         raise AssertionError(f"{name}: non-finite losses")
+    return want
+
+
+def check_sweep(torch, dev, name, opt, res, fn, max_budget, n_iterations):
+    """The correctness checks of one sweep: runs per budget equal the
+    HyperBand plan, all losses finite, the incumbent strictly below the
+    median best of equal-budget random searches, model-based picks better
+    than random picks. Returns the numbers it checked."""
+    want = check_runs_per_budget(name, res, max_budget, n_iterations)
+    total_budget = sum(k * b for b, k in want.items())
+    losses = [r.loss for r in res.get_all_runs()]
     inc_loss = res.get_runs_by_id(res.get_incumbent_id())[-1].loss
-    rs_best = random_search_median_best(torch, dev, fn, opt.configspace,
+    rs_best = random_search_median_best(torch, dev, fn, opt,
                                         int(total_budget // max_budget), max_budget)
     if not inc_loss < rs_best:
         raise AssertionError(
@@ -620,34 +691,43 @@ def moments_fit_flag():
             os.environ["HPB_PALLAS_KDE_FIT"] = old
 
 
+def _syncs_of(torch, fn, *args, **kwargs):
+    """``(fn(...), the synchronizing CUDA calls it made)``, caught with
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [w for w in caught if "synchroniz" in str(w.message)]
+
+
 @contextlib.contextmanager
 def sync_counter(torch):
-    """Counts the synchronizing CUDA calls inside each chunk's device work
-    (``torch.cuda.set_sync_debug_mode("warn")`` around every sweep call the
-    optimizer makes; the fetch of a chunk's outputs comes after the call
-    and is not counted). Yields ``(per-chunk counts, counts by the source
-    line that made the call)``."""
+    """Counts the synchronizing CUDA calls of each chunk's sweep: its build
+    (``make_fused_sweep_fn``, which the optimizer calls per chunk) and its
+    device work, one window per chunk. The fetch of a chunk's outputs
+    comes after the call and is not counted. Yields ``(per-chunk counts,
+    counts by the source line that made the call)``."""
     from hpbandster_tpu_torch.optimizers import fused_bohb
 
     per_chunk, by_site = [], {}
     build = fused_bohb.make_fused_sweep_fn
 
+    def note(syncs):
+        for w in syncs:
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            by_site[site] = by_site.get(site, 0) + 1
+
     def counting_build(*args, **kwargs):
-        sweep = build(*args, **kwargs)
+        sweep, build_syncs = _syncs_of(torch, build, *args, **kwargs)
 
         def counted(*a, **k):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    out = sweep(*a, **k)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs = [w for w in caught if "synchroniz" in str(w.message)]
-            for w in syncs:
-                site = f"{Path(w.filename).name}:{w.lineno}"
-                by_site[site] = by_site.get(site, 0) + 1
-            per_chunk.append(len(syncs))
+            out, syncs = _syncs_of(torch, sweep, *a, **k)
+            note(build_syncs + syncs)
+            per_chunk.append(len(build_syncs) + len(syncs))
             return out
 
         return counted
@@ -668,45 +748,56 @@ def chunked_optimizer(dev, max_budget=81.0, num_samples=64):
                      num_samples=num_samples, seed=0, device=dev)
 
 
-def drive_chunked_path(torch, dev, max_budget=81.0, n_iterations=10):
-    """Phase 4: the chunked FusedBOHB.run() on Hartmann-6, dynamic-count
-    tier with the moment-kernel fit. Returns (record, result)."""
+def run_chunked(torch, dev, label, make_opt, fn, max_budget=81.0, n_iterations=10):
+    """A chunked FusedBOHB.run() (two brackets a chunk, dynamic-count tier,
+    moment-kernel fit) with its synchronizing calls counted: per chunk,
+    and once for the optimizer's construction (the codec's constants, the
+    fallback configuration and the objective's probe). Returns
+    (record, result)."""
     from hpbandster_tpu_torch.ops import cuda_kde
-    from hpbandster_tpu_torch.workloads.toys import hartmann6
 
     with moments_fit_flag(), sync_counter(torch) as (syncs, sync_sites):
         t0 = time.perf_counter()
-        opt = chunked_optimizer(dev, max_budget)
+        opt, build_syncs = _syncs_of(torch, make_opt, dev)
         res = opt.run(n_iterations=n_iterations, chunk_brackets=2)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     for row, n_sync in zip(opt.run_stats, syncs):
-        print("chunk " + json.dumps(dict(row, syncs_inside_chunk=n_sync)), flush=True)
-    rec = dict(objective="hartmann6", chunk_brackets=2, wall_s=wall,
+        print(f"{label} chunk " + json.dumps(dict(row, syncs_inside_chunk=n_sync)),
+              flush=True)
+    rec = dict(chunk_brackets=2, wall_s=wall,
                execute_fetch_s=sum(r["execute_fetch_s"] for r in opt.run_stats),
-               **check_sweep(torch, dev, "hartmann6 chunked", opt, res, hartmann6,
-                             max_budget, n_iterations),
+               **check_sweep(torch, dev, label, opt, res, fn, max_budget, n_iterations),
                kde_score_launches=cuda_kde.LAUNCHES["kde_score"],
                kde_moments_launches=cuda_kde.LAUNCHES["kde_moments"],
                syncs_inside_chunks=syncs,
+               syncs_in_constructor=len(build_syncs),
                sync_sites=dict(sorted(sync_sites.items(), key=lambda kv: -kv[1])))
     if not all(s["dynamic_counts"] for s in opt.run_stats):
-        raise AssertionError("the chunked run did not take the dynamic-count tier")
-    print("chunked path " + json.dumps(rec), flush=True)
-    return rec, res
+        raise AssertionError(f"{label}: the chunked run did not take the dynamic-count tier")
+    return rec, opt, res
 
 
-def check_resume(torch, dev, uninterrupted, n_iterations=10):
-    """Phase 5: cut the chunked sweep after 4 brackets with a checkpoint,
+def drive_chunked_path(torch, dev):
+    """Phase 4: the chunked FusedBOHB.run() on Hartmann-6, dynamic-count
+    tier with the moment-kernel fit. Returns the result."""
+    from hpbandster_tpu_torch.workloads.toys import hartmann6
+
+    rec, _, res = run_chunked(torch, dev, "hartmann6 chunked", chunked_optimizer, hartmann6)
+    print("chunked path " + json.dumps(dict(objective="hartmann6", **rec)), flush=True)
+    return res
+
+
+def check_resume(torch, dev, label, uninterrupted, make_opt, n_iterations=10):
+    """Phase 5: cut a chunked sweep after 4 brackets with a checkpoint,
     resume in a fresh optimizer, run to the end, and require the result of
     the uninterrupted run exactly."""
     ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    path = str(ckpt_dir / "chunked.ckpt")
+    path = str(ckpt_dir / f"{label}.ckpt")
     with moments_fit_flag():
-        chunked_optimizer(dev).run(n_iterations=4, chunk_brackets=2,
-                                   checkpoint_path=path)
-        resumed = chunked_optimizer(dev)
+        make_opt(dev).run(n_iterations=4, chunk_brackets=2, checkpoint_path=path)
+        resumed = make_opt(dev)
         resumed.load_checkpoint(path)
         res = resumed.run(n_iterations=n_iterations, chunk_brackets=2)
     os.unlink(path)
@@ -715,15 +806,239 @@ def check_resume(torch, dev, uninterrupted, n_iterations=10):
         return sorted((x.config_id, x.budget, x.loss) for x in r.get_all_runs())
 
     if runs(res) != runs(uninterrupted):
-        raise AssertionError("resumed chunked run differs from the uninterrupted run")
+        raise AssertionError(f"{label}: resumed chunked run differs from the uninterrupted run")
     if res.get_id2config_mapping() != uninterrupted.get_id2config_mapping():
-        raise AssertionError("resumed chunked run sampled other configurations")
+        raise AssertionError(f"{label}: resumed chunked run sampled other configurations")
     if res.get_incumbent_id() != uninterrupted.get_incumbent_id():
-        raise AssertionError("resumed chunked run has another incumbent")
-    rec = dict(brackets_before_cut=4, evaluations=len(runs(res)),
+        raise AssertionError(f"{label}: resumed chunked run has another incumbent")
+    rec = dict(path=label, brackets_before_cut=4, evaluations=len(runs(res)),
                incumbent=list(res.get_incumbent_id()), equal=True)
     print("resume " + json.dumps(rec), flush=True)
     return rec
+
+
+# ------------------------------------------------------- conditional paths
+def cond_space(seed=0):
+    """The conditional space of the reference's fused conditional test
+    (``tests/test_sweep.py``): Branin's ``x`` and ``y``; ``opt`` in {sgd,
+    adam}; ``momentum`` active when ``opt == sgd``; ``depth`` in [1, 2, 4,
+    8]; ``extra`` active when ``depth > 2``; and ``opt == adam`` with
+    ``depth == 8`` forbidden."""
+    from hpbandster_tpu_torch import space as S
+
+    cs = S.ConfigurationSpace(seed=seed)
+    x = S.UniformFloatHyperparameter("x", -5.0, 10.0)
+    y = S.UniformFloatHyperparameter("y", 0.0, 15.0)
+    opt = S.CategoricalHyperparameter("opt", ["sgd", "adam"])
+    mom = S.UniformFloatHyperparameter("momentum", 0.0, 0.99)
+    depth = S.OrdinalHyperparameter("depth", [1, 2, 4, 8])
+    extra = S.UniformFloatHyperparameter("extra", 0.0, 1.0)
+    cs.add_hyperparameters([x, y, opt, mom, depth, extra])
+    cs.add_condition(S.EqualsCondition(mom, opt, "sgd"))
+    cs.add_condition(S.GreaterThanCondition(extra, depth, 2))
+    cs.add_forbidden_clause(S.ForbiddenAndConjunction(
+        S.ForbiddenEqualsClause(opt, "adam"), S.ForbiddenEqualsClause(depth, 8)))
+    return cs
+
+
+def cond_objective(v, budget):
+    """``branin(x, y, budget) + 0.1 momentum + 0.05 extra``; inactive dims
+    arrive as 0."""
+    from hpbandster_tpu_torch.workloads.toys import branin
+
+    return branin(v[:, :2], budget) + 0.1 * v[:, 3] + 0.05 * v[:, 5]
+
+
+def cond_optimizer(dev, max_budget=81.0, num_samples=64):
+    from hpbandster_tpu_torch import FusedBOHB
+
+    return FusedBOHB(configspace=cond_space(seed=0), eval_fn=cond_objective,
+                     min_budget=1, max_budget=max_budget, eta=3,
+                     num_samples=num_samples, seed=0, device=dev)
+
+
+def check_conditional_configs(torch, label, opt, res):
+    """Every evaluated configuration round-trips through the host codec,
+    respects the activity pattern (and the device mask agrees with the
+    host's NaN pattern) and is not forbidden."""
+    cs = opt.configspace
+    host = []
+    for entry in res.get_id2config_mapping().values():
+        cfg = entry["config"]
+        vec = cs.to_vector(cfg)
+        if dict(cs.from_vector(vec)) != cfg:
+            raise AssertionError(f"{label}: {cfg} does not round-trip through the codec")
+        if (("momentum" in cfg) != (cfg["opt"] == "sgd")
+                or ("extra" in cfg) != (cfg["depth"] > 2)):
+            raise AssertionError(f"{label}: {cfg} breaks the activity pattern")
+        if cs.is_forbidden(cfg):
+            raise AssertionError(f"{label}: {cfg} is forbidden")
+        host.append(vec)
+    host = np.stack(host)
+    q = torch.as_tensor(np.nan_to_num(host, nan=0.0), dtype=torch.float32, device=opt.device)
+    if not np.array_equal(opt.active_mask_fn(q).cpu().numpy(), ~np.isnan(host)):
+        raise AssertionError(f"{label}: device activity mask differs from the host's")
+    return dict(configs=len(host), inactive_share=float(np.isnan(host).mean()))
+
+
+def drive_conditional_static(torch, dev, max_budget=81.0, n_iterations=10):
+    """The static tier's FusedBOHB.run() on the conditional space."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    t0 = time.perf_counter()
+    opt = cond_optimizer(dev, max_budget)
+    res = opt.run(n_iterations=n_iterations)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    rec = dict(objective="branin_conditional", wall_s=wall,
+               execute_fetch_s=opt.run_stats[-1]["execute_fetch_s"],
+               **check_sweep(torch, dev, "conditional static", opt, res, cond_objective,
+                             max_budget, n_iterations),
+               **check_conditional_configs(torch, "conditional static", opt, res),
+               kde_score_launches=cuda_kde.LAUNCHES["kde_score"])
+    print("conditional static path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_conditional_chunked(torch, dev):
+    """The chunked FusedBOHB.run() on the conditional space (dynamic-count
+    tier, moment-kernel fit on imputed data, one launch per split side)."""
+    rec, opt, res = run_chunked(torch, dev, "conditional chunked", cond_optimizer,
+                                cond_objective)
+    rec.update(check_conditional_configs(torch, "conditional chunked", opt, res))
+    print("conditional chunked path " + json.dumps(dict(objective="branin_conditional", **rec)),
+          flush=True)
+    return res
+
+
+def drive_h2bo(torch, dev, max_budget=81.0, n_iterations=10):
+    """FusedH2BO.run() on Hartmann-6 (static): promotions by the power-law
+    extrapolation."""
+    from hpbandster_tpu_torch import FusedH2BO
+    from hpbandster_tpu_torch.ops import cuda_kde
+    from hpbandster_tpu_torch.workloads.toys import hartmann6, hartmann6_space
+
+    t0 = time.perf_counter()
+    opt = FusedH2BO(configspace=hartmann6_space(seed=0), eval_fn=hartmann6, min_budget=1,
+                    max_budget=max_budget, eta=3, num_samples=64, seed=0, device=dev)
+    res = opt.run(n_iterations=n_iterations)
+    torch.cuda.synchronize(dev)
+    rec = dict(objective="hartmann6", wall_s=time.perf_counter() - t0,
+               runs_per_budget=check_runs_per_budget("h2bo", res, max_budget, n_iterations),
+               incumbent_loss=res.get_runs_by_id(res.get_incumbent_id())[-1].loss,
+               kde_score_launches=cuda_kde.LAUNCHES["kde_score"])
+    print("h2bo path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_model_free(torch, dev, cls_name, max_budget=81.0, n_iterations=10):
+    """FusedHyperBand or FusedRandomSearch .run() on Branin (static)."""
+    import hpbandster_tpu_torch
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    t0 = time.perf_counter()
+    opt = getattr(hpbandster_tpu_torch, cls_name)(
+        configspace=branin_space(seed=0), eval_fn=branin, min_budget=1,
+        max_budget=max_budget, eta=3, num_samples=64, seed=0, device=dev)
+    res = opt.run(n_iterations=n_iterations)
+    torch.cuda.synchronize(dev)
+    want = check_runs_per_budget(cls_name, res, max_budget, n_iterations,
+                                 stage0_only=cls_name == "FusedRandomSearch")
+    rec = dict(objective="branin", optimizer=cls_name, wall_s=time.perf_counter() - t0,
+               runs_per_budget=want,
+               incumbent_loss=res.get_runs_by_id(res.get_incumbent_id())[-1].loss)
+    print(f"{cls_name} path " + json.dumps(rec), flush=True)
+    return res
+
+
+def measure_conditional_host_work(torch, dev, n0=81, cap=256, reps=200):
+    """Host and event time per call of the conditional path's new device
+    work at the main path's shapes: the 8-pass rejection resampling of one
+    bracket's 81 proposals (its draws included), the activity mask, and
+    one side's imputation over a 256-row buffer; and the synchronizing
+    calls each makes."""
+    from hpbandster_tpu_torch.ops.kde import impute_conditional_masked
+    from hpbandster_tpu_torch.ops.sweep import quantize_unit, random_unit, resample_forbidden
+
+    opt = cond_optimizer(dev)
+    tables = opt.codec_tables
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def draw(n):
+        return quantize_unit(tables, random_unit(tables, gen, n))
+
+    vecs = draw(n0)
+    fallback = quantize_unit(tables, opt._fallback_vector)
+    buf = torch.where(opt.active_mask_fn(draw(cap)), draw(cap), float("nan"))
+    buf[cap // 3:] = float("nan")  # the non-members of one split side
+    u = torch.rand((2, cap, buf.shape[1]), generator=gen, device=dev)
+    def resample():
+        # one bracket's new work: eight passes' draws, their quantization
+        # and the closed-form selection
+        redraws = torch.stack([random_unit(tables, gen, n0) for _ in range(8)])
+        return resample_forbidden(vecs, opt.forbidden_fn, opt.active_mask_fn,
+                                  quantize_unit(tables, redraws), fallback)
+
+    calls = {
+        "resample_8_passes": resample,
+        "active_mask": lambda: opt.active_mask_fn(vecs),
+        "impute_one_side": lambda: impute_conditional_masked(buf, tables.cards, u[0], u[1]),
+    }
+    out = {}
+    for name, call in calls.items():
+        _, syncs = _syncs_of(torch, call)
+        out[name] = dict(host_ms=_host_ms(call, torch, reps=reps),
+                         event_ms=_median_ms(call, torch), syncs=len(syncs))
+    print("conditional host work " + json.dumps(out), flush=True)
+    if any(r["syncs"] for r in out.values()):
+        raise AssertionError("the conditional path's new device work synchronizes")
+    return out
+
+
+def record_facts(name, inputs):
+    """What a recorded launch's inputs (a ``cuda_kde.RECORD`` entry) were:
+    ``finite`` (no NaN or inf in any tensor input), ``mixed_vartypes`` (the
+    scorer saw a vartype other than 0, so its per-vartype branch ran) and
+    ``discrete_cards`` (a nonzero cardinality: the scorer's
+    Aitchison-Aitken and ordinal terms, or the moments' discrete bandwidth
+    cap)."""
+    import torch
+
+    if name == "kde_score":
+        cands, good, bad, vt, cards = inputs
+        tensors = [cands, *good, *bad, vt, cards]
+        mixed = bool((vt != 0).any())
+    else:
+        data, masks, cards, _ = inputs
+        tensors = [data, masks] + ([] if cards is None else [cards])
+        mixed = False
+    return dict(
+        finite=all(bool(torch.isfinite(t).all()) for t in tensors),
+        mixed_vartypes=mixed,
+        discrete_cards=cards is not None and bool((cards != 0).any()),
+    )
+
+
+def check_record_facts(recorded):
+    """Every recorded launch's inputs are finite; print, per path, how many
+    scorer launches took the mixed-vartype branch and how many launches of
+    either kernel saw discrete cards. Returns those counts."""
+    counts = {}
+    for path, name, inputs in recorded:
+        facts = record_facts(name, inputs)
+        if not facts["finite"]:
+            raise AssertionError(f"{path}: a {name} launch had a non-finite input")
+        c = counts.setdefault(path, {"kde_score_mixed_vartypes": 0,
+                                     "kde_score_discrete_cards": 0,
+                                     "kde_moments_discrete_cards": 0})
+        if name == "kde_score":
+            c["kde_score_mixed_vartypes"] += facts["mixed_vartypes"]
+            c["kde_score_discrete_cards"] += facts["discrete_cards"]
+        else:
+            c["kde_moments_discrete_cards"] += facts["discrete_cards"]
+    print("recorded launches: all inputs finite; by path " + json.dumps(counts), flush=True)
+    return counts
 
 
 def _device_us(event):
@@ -732,25 +1047,28 @@ def _device_us(event):
 
 
 def profile_sweeps(torch, dev):
-    """Device time by kernel and the device idle share over one static and
-    one chunked Hartmann-6 sweep (``--profile``)."""
+    """Device time by kernel and the device idle share over static and
+    chunked Hartmann-6 and conditional sweeps (``--profile``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for path in ("static", "chunked"):
-        opt = chunked_optimizer(dev)
+    for label, make_opt, chunk in (("static", chunked_optimizer, None),
+                                   ("chunked", chunked_optimizer, 2),
+                                   ("conditional_static", cond_optimizer, None),
+                                   ("conditional_chunked", cond_optimizer, 2)):
+        opt = make_opt(dev)
         with contextlib.ExitStack() as stack:
-            if path == "chunked":
+            if chunk:
                 stack.enter_context(moments_fit_flag())
             prof = stack.enter_context(
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             t0 = time.perf_counter()
-            opt.run(n_iterations=10, chunk_brackets=2 if path == "chunked" else None)
+            opt.run(n_iterations=10, chunk_brackets=chunk)
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
         total_us = sum(_device_us(e) for e in events)
         top = sorted(events, key=_device_us, reverse=True)[:12]
-        out = dict(path=path, wall_s=wall, device_busy_s=total_us / 1e6,
+        out = dict(path=label, wall_s=wall, device_busy_s=total_us / 1e6,
                    device_idle_share=(1.0 - total_us / 1e6 / wall) if total_us else None,
                    kernels=[dict(name=e.key[:80], count=int(e.count),
                                  device_ms=_device_us(e) / 1e3) for e in top])
@@ -843,26 +1161,43 @@ def main(argv=None) -> int:
 
     # phases 3 and 4: each main path with the counts reset just before and
     # read just after, every launch's inputs recorded
-    launches, recorded = {}, []
-    for path, drive in (("static", drive_static_path), ("chunked", drive_chunked_path)):
+    paths = {
+        "static": drive_static_path,
+        "chunked": drive_chunked_path,
+        "conditional_static": drive_conditional_static,
+        "conditional_chunked": drive_conditional_chunked,
+        "h2bo": drive_h2bo,
+        "hyperband": lambda torch, dev: drive_model_free(torch, dev, "FusedHyperBand"),
+        "random_search": lambda torch, dev: drive_model_free(torch, dev, "FusedRandomSearch"),
+    }
+    launches, recorded, results = {}, [], {}
+    for path, drive in paths.items():
         for name in cuda_kde.LAUNCHES:
             cuda_kde.LAUNCHES[name] = 0
         cuda_kde.RECORD = []
-        out = drive(torch, dev)
+        results[path] = drive(torch, dev)
         launches[path] = dict(cuda_kde.LAUNCHES)
         recorded += [(path, name, inputs) for name, inputs in cuda_kde.RECORD]
         cuda_kde.RECORD = None
-        if path == "chunked":
-            chunked_result = out[1]
     print("main path launches " + json.dumps(launches), flush=True)
     if launches != MAIN_PATH_LAUNCHES:
         raise AssertionError(
             f"main path launches {launches} != {MAIN_PATH_LAUNCHES}: every model "
             "bracket of the static sweeps scores once, every chunked bracket "
-            "fits and scores once")
+            "fits and scores once (a conditional fit runs the moments once per "
+            "split side), HyperBand and random search run no model")
+    facts = check_record_facts(recorded)
+    for path in ("conditional_static", "conditional_chunked"):
+        if not facts[path]["kde_score_mixed_vartypes"]:
+            raise AssertionError(f"{path}: no kde_score launch took the mixed-vartype branch")
+    if not facts["conditional_chunked"]["kde_moments_discrete_cards"]:
+        raise AssertionError("conditional chunked: no kde_moments launch saw discrete cards")
 
-    # phase 5: resume on the card equals the uninterrupted chunked run
-    check_resume(torch, dev, chunked_result)
+    # phase 5: resume on the card equals the uninterrupted chunked runs
+    check_resume(torch, dev, "hartmann6_chunked", results["chunked"], chunked_optimizer)
+    check_resume(torch, dev, "conditional_chunked", results["conditional_chunked"],
+                 cond_optimizer)
+    measure_conditional_host_work(torch, dev)
 
     # phase 6: kernels against plain versions on the main paths' own inputs
     held = check_recorded_launches(torch, recorded)

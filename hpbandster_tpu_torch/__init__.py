@@ -7,7 +7,13 @@ the JAX package. Its kernels are hand-written CUDA C++ under ``csrc/``,
 built with ``nvcc`` at first launch.
 """
 
-from hpbandster_tpu_torch.optimizers import FusedBOHB  # noqa: F401
+from hpbandster_tpu_torch.optimizers import (  # noqa: F401
+    FusedBOHB,
+    FusedH2BO,
+    FusedHyperBand,
+    FusedRandomSearch,
+)
 from hpbandster_tpu_torch.space import ConfigurationSpace  # noqa: F401
 
-__all__ = ["FusedBOHB", "ConfigurationSpace"]
+__all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch",
+           "ConfigurationSpace"]

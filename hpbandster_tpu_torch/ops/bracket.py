@@ -1,10 +1,10 @@
 """Successive-halving / HyperBand bracket arithmetic (host side, numpy).
 
 Ported from ``hpbandster_tpu/ops/bracket.py``: ``max_sh_iterations``,
-``budget_ladder``, ``BracketPlan``, ``hyperband_bracket`` and the host
-promotion rule ``sh_promotion_mask_np``. The schedule is plain Python, so
-the port keeps it identical; the on-device promotion lives in
-``ops/fused.py``.
+``budget_ladder``, ``BracketPlan``, ``hyperband_bracket``, the host
+promotion rule ``sh_promotion_mask_np`` and ``power_law_extrapolate`` (the
+H2BO promotion score, in tensor ops). The schedule is plain Python, so the
+port keeps it identical; the on-device promotion lives in ``ops/fused.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "max_sh_iterations",
@@ -20,6 +21,7 @@ __all__ = [
     "BracketPlan",
     "hyperband_bracket",
     "sh_promotion_mask_np",
+    "power_law_extrapolate",
 ]
 
 
@@ -83,3 +85,52 @@ def sh_promotion_mask_np(losses: np.ndarray, k) -> np.ndarray:
     clean = np.where(np.isnan(losses), np.float32(np.inf), losses)
     ranks = np.argsort(np.argsort(clean, kind="stable"), kind="stable")
     return ranks < k
+
+
+def power_law_extrapolate(
+    budgets: torch.Tensor, losses: torch.Tensor, target_budget: float,
+    floor: float = 1e-6,
+) -> torch.Tensor:
+    """Each config's power-law learning curve extrapolated to
+    ``target_budget``: ``budgets f32[s]`` (ascending), ``losses f32[n, s]``
+    -> ``f32[n]``. The twin of the host ``PowerLawModel.predict``, fitted as
+    ``loss = c + exp(intercept) * budget^slope`` by least squares in log
+    space.
+
+    Fewer than 3 points, a non-positive residual, an all-increasing curve
+    or a positive slope fall back to the last observed loss. The on-device
+    H2BO promotion (``FusedH2BO``) ranks by these scores."""
+    losses = losses.to(torch.float32)
+    last = losses[:, -1]
+    if losses.shape[1] < 3:
+        return last
+
+    y0, y1, y2 = losses[:, -3], losses[:, -2], losses[:, -1]
+    denom = y0 + y2 - 2.0 * y1
+    c_est = torch.where(
+        torch.abs(denom) > 1e-12, (y0 * y2 - y1 * y1) / denom,
+        torch.full_like(denom, -math.inf),
+    )
+    ymin = losses.min(dim=1).values
+    # scale-aware floor: a fixed 1e-12 is not representable next to
+    # float32 values of order 1
+    floor_eff = torch.clamp(torch.abs(ymin) * 1e-5, min=floor)
+    c = torch.where(
+        torch.isfinite(c_est), torch.minimum(c_est, ymin - floor_eff), ymin - floor_eff
+    )
+    resid = losses - c[:, None]
+    bad = (resid <= 0).any(dim=1) | (torch.diff(losses, dim=1) > 0).all(dim=1)
+
+    log_b = torch.log(budgets.to(torch.float32))[None, :]
+    log_r = torch.log(torch.clamp(resid, min=1e-30))
+    mb = log_b.mean(dim=1)
+    mr = log_r.mean(dim=1)
+    cov = ((log_b - mb[:, None]) * (log_r - mr[:, None])).mean(dim=1)
+    var = torch.clamp(((log_b - mb[:, None]) ** 2).mean(dim=1), min=1e-30)
+    slope = cov / var
+    intercept = mr - slope * mb
+    bad = bad | (slope > 0)
+    # the target's log in float32 on the host: a Python number, no upload
+    log_t = float(np.log(np.float32(target_budget)))
+    pred = c + torch.exp(intercept + slope * log_t)
+    return torch.where(bad, last, pred)

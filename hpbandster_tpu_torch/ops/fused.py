@@ -2,8 +2,9 @@
 promotion without leaving the device.
 
 Ported from ``hpbandster_tpu/ops/fused.py``: ``_CRASH_RANK``,
-``fused_sh_bracket`` (the stateless ``eval_fn`` seam, default promotion
-scores) and ``_pack_stages``.
+``fused_sh_bracket`` (the stateless ``eval_fn`` seam, with the default
+promotion scores or a ``rank_fn`` over the survivors' loss history) and
+``_pack_stages``.
 
 Crashed configs surface as NaN losses and rank behind every clean loss but
 ahead of padding rows. Ties keep the lower row index: the reference's
@@ -14,7 +15,7 @@ no tie order, so promotion is a stable sort of the rank keys.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ __all__ = ["fused_sh_bracket", "rank_key"]
 _CRASH_RANK = np.float32(3.0e38)
 
 EvalFn = Callable[[torch.Tensor, float], torch.Tensor]
+RankFn = Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
 
 
 def rank_key(losses: torch.Tensor, is_pad: torch.Tensor) -> torch.Tensor:
@@ -51,6 +53,7 @@ def fused_sh_bracket(
     vectors: torch.Tensor,
     num_configs: Sequence[int],
     budgets: Sequence[float],
+    rank_fn: Optional[RankFn] = None,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Run one whole bracket. Returns per-stage ``(indices, losses)`` where
     ``indices`` (int64) index the original stage-0 rows.
@@ -58,15 +61,38 @@ def fused_sh_bracket(
     ``eval_fn(vectors f32[n, d], budget) -> f32[n]`` is batched; the budget
     is a Python float. ``vectors`` may carry padding rows beyond
     ``num_configs[0]``: they are evaluated but never promoted.
+
+    ``rank_fn(budgets_so_far f32[s+1], history f32[n_cur, s+1],
+    final_budget) -> scores f32[n_cur]`` replaces the promotion scores after
+    stage ``s >= 1`` (lower is better). Default: the current stage's loss,
+    plain successive halving. Where a score is NaN (an earlier stage
+    crashed) the current loss stands in; a crash in the current stage
+    ranks as a crash whatever the score.
     """
     n0 = int(num_configs[0])
     n_rows = vectors.shape[0]
     if n_rows < n0:
         raise ValueError(f"need >= {n0} stage-0 vectors, got {n_rows}")
     dev = vectors.device
+    # filled on the device, not copied from the host: no synchronising upload
+    budgets_dev = [torch.full((1,), float(b), dtype=torch.float32, device=dev)
+                   for b in budgets] if rank_fn is not None else []
+
+    def scores_for(history: List[torch.Tensor], s: int) -> torch.Tensor:
+        """Promotion scores after stage ``s`` from the survivors' loss
+        history; crashed (NaN-loss) configs stay NaN."""
+        current = history[-1]
+        if rank_fn is None or s == 0:
+            return current
+        scores = rank_fn(torch.cat(budgets_dev[: s + 1]),
+                         torch.stack(history, dim=1), float(budgets[-1]))
+        scores = torch.where(torch.isnan(scores), current, scores)
+        return torch.where(torch.isnan(current), current, scores)
+
     losses = _eval_stage(eval_fn, vectors, float(budgets[0]))
     cur_idx = torch.arange(n_rows, device=dev)
-    cur_key = rank_key(losses, cur_idx >= n0)
+    history = [losses]  # per-stage losses of the current survivors
+    cur_key = rank_key(scores_for(history, 0), cur_idx >= n0)
     out = [(torch.arange(n0, device=dev), losses[:n0])]
     for s in range(1, len(num_configs)):
         k = int(num_configs[s])
@@ -74,7 +100,10 @@ def fused_sh_bracket(
         top = torch.sort(top).values  # keep original order among survivors
         cur_idx = cur_idx[top]
         losses = _eval_stage(eval_fn, vectors[cur_idx], float(budgets[s]))
-        cur_key = rank_key(losses, torch.zeros_like(cur_idx, dtype=torch.bool))
+        history = ([col[top] for col in history] if rank_fn is not None else []) + [losses]
+        if s + 1 < len(num_configs):
+            cur_key = rank_key(scores_for(history, s),
+                               torch.zeros_like(cur_idx, dtype=torch.bool))
         out.append((cur_idx, losses))
     return out
 

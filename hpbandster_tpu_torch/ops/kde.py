@@ -3,9 +3,10 @@
 Ported from ``hpbandster_tpu/ops/kde.py``: ``KDE``, ``LOG_PDF_FLOOR``,
 ``_discrete_bw_cap``, ``normal_reference_bandwidths`` (two-pass variance),
 ``_truncnorm_unit``, ``sample_around``, ``generate_candidates``, the
-``HPB_PALLAS_KDE_FIT`` flag reader and ``fit_kde_pair_masked`` (the
-traced-count fit of the dynamic-count tier). The acquisition scorer and the
-masked-moment bandwidth kernel live in ``ops/cuda_kde.py``.
+``HPB_PALLAS_KDE_FIT`` flag reader, ``impute_conditional_masked`` and
+``fit_kde_pair_masked`` (the traced-count fit of the dynamic-count tier).
+The acquisition scorer and the masked-moment bandwidth kernel live in
+``ops/cuda_kde.py``.
 
 Random numbers come from an explicit ``torch.Generator``. The sampling math
 is split from the draws (``candidates_from_uniforms``), so a test can feed
@@ -27,6 +28,7 @@ __all__ = [
     "sample_around",
     "candidates_from_uniforms",
     "generate_candidates",
+    "impute_conditional_masked",
     "fit_kde_pair_masked",
 ]
 
@@ -190,6 +192,36 @@ def _moments_fit_requested() -> Optional[bool]:
     return None
 
 
+def impute_conditional_masked(
+    data: torch.Tensor, cards: torch.Tensor, u: torch.Tensor, u_fb: torch.Tensor
+) -> torch.Tensor:
+    """Donor imputation of conditional data (the host model's
+    ``impute_conditional_data``): every NaN (inactive) entry of ``data
+    f32[n, d]`` takes the value of a uniformly random *active* row of its
+    column, and a column with no active row takes a random category
+    (discrete) or a uniform value (continuous).
+
+    Donors come by inverse CDF over each column's running active count
+    (``searchsorted`` per column, no ``n x n`` matrix). ``u`` and ``u_fb``
+    (``f32[n, d]`` in [0, 1)) are the donor and fallback draws, handed in by
+    the caller's draw source."""
+    n = data.shape[0]
+    isnan = torch.isnan(data)
+    cnt = torch.cumsum((~isnan).to(torch.int32), 0, dtype=torch.int32)
+    total = cnt[-1]  # [d]
+    # the r-th donor (1-indexed) of each entry; searchsorted over the
+    # column's non-decreasing count finds its row
+    r = torch.floor(u * torch.clamp(total, min=1).to(u.dtype)[None, :]).to(torch.int32) + 1
+    rows = torch.searchsorted(cnt.T.contiguous(), r.T.contiguous(), side="left").T
+    donated = torch.gather(data, 0, torch.clamp(rows, 0, n - 1))
+
+    cards_f = torch.clamp(cards.to(torch.float32), min=1.0)
+    disc = torch.minimum(torch.clamp(torch.floor(u_fb * cards_f), min=0.0), cards_f - 1.0)
+    fallback = torch.where(cards[None, :] > 0, disc, u_fb)
+    fill = torch.where((total > 0)[None, :], donated, fallback)
+    return torch.where(isnan, fill, data)
+
+
 def fit_kde_pair_masked(
     vecs: torch.Tensor,
     losses: torch.Tensor,
@@ -198,7 +230,7 @@ def fit_kde_pair_masked(
     n_bad: torch.Tensor,
     cards: torch.Tensor,
     min_bandwidth: float,
-    impute_key=None,
+    impute_draws=None,
     use_moments_kernel: Optional[bool] = None,
 ) -> Tuple[KDE, KDE]:
     """Good/bad KDE fit over a full-capacity buffer, with device counts.
@@ -211,32 +243,47 @@ def fit_kde_pair_masked(
     count``), and both KDEs keep all ``C`` rows, mask-weighted. Nothing here
     reads a count on the host.
 
+    ``impute_draws`` (conditional spaces: the good and the bad side's
+    ``(u, u_fb)`` uniforms, each ``f32[C, d]``) donor-imputes each side with
+    its non-members set to NaN, so they neither donate nor constrain; every
+    NaN is filled before a bandwidth or the scorer sees the data.
+
     ``use_moments_kernel`` (the reference's ``use_pallas_fit``; overridden
-    by ``HPB_PALLAS_KDE_FIT``) takes the bandwidths from one masked-moment
-    pass over both sides (``cuda_kde.moment_bandwidths``: one-pass
-    variance, a distinct numeric consumer) instead of the two-pass
-    :func:`normal_reference_bandwidths`. ``impute_key`` (conditional
-    spaces) is not ported yet and raises.
+    by ``HPB_PALLAS_KDE_FIT``) takes the bandwidths from masked-moment
+    passes (``cuda_kde.moment_bandwidths``: one-pass variance, a distinct
+    numeric consumer) instead of the two-pass
+    :func:`normal_reference_bandwidths`: one launch for both sides, or one
+    per side when imputation gave the sides different data.
     """
-    if impute_key is not None:
-        raise NotImplementedError(
-            "conditional-space imputation is not ported to the PyTorch fit yet"
-        )
     cap = vecs.shape[0]
     order = torch.argsort(losses, stable=True)  # +inf pads sort last
     sorted_v = vecs[order]
     rank = torch.arange(cap, dtype=torch.int32, device=vecs.device)
-    good_mask = (rank < n_good).to(torch.float32)
-    bad_mask = ((rank >= count - n_bad) & (rank < count)).to(torch.float32)
+    good_in = rank < n_good
+    bad_in = (rank >= count - n_bad) & (rank < count)
+    good_mask = good_in.to(torch.float32)
+    bad_mask = bad_in.to(torch.float32)
+    if impute_draws is not None:
+        (u_g, fb_g), (u_b, fb_b) = impute_draws
+        good_data = impute_conditional_masked(
+            torch.where(good_in[:, None], sorted_v, float("nan")), cards, u_g, fb_g)
+        bad_data = impute_conditional_masked(
+            torch.where(bad_in[:, None], sorted_v, float("nan")), cards, u_b, fb_b)
+    else:
+        good_data = bad_data = sorted_v
 
     env = _moments_fit_requested()
     if bool(use_moments_kernel) if env is None else env:
         from hpbandster_tpu_torch.ops.cuda_kde import moment_bandwidths
 
-        bw_good, bw_bad = moment_bandwidths(
-            sorted_v, torch.stack([good_mask, bad_mask]), cards, min_bandwidth
-        )
+        if impute_draws is None:
+            bw_good, bw_bad = moment_bandwidths(
+                sorted_v, torch.stack([good_mask, bad_mask]), cards, min_bandwidth
+            )
+        else:
+            bw_good = moment_bandwidths(good_data, good_mask, cards, min_bandwidth)
+            bw_bad = moment_bandwidths(bad_data, bad_mask, cards, min_bandwidth)
     else:
-        bw_good = normal_reference_bandwidths(sorted_v, good_mask, cards, min_bandwidth)
-        bw_bad = normal_reference_bandwidths(sorted_v, bad_mask, cards, min_bandwidth)
-    return KDE(sorted_v, good_mask, bw_good), KDE(sorted_v, bad_mask, bw_bad)
+        bw_good = normal_reference_bandwidths(good_data, good_mask, cards, min_bandwidth)
+        bw_bad = normal_reference_bandwidths(bad_data, bad_mask, cards, min_bandwidth)
+    return KDE(good_data, good_mask, bw_good), KDE(bad_data, bad_mask, bw_bad)

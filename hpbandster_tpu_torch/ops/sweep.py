@@ -1,11 +1,14 @@
 """Whole-sweep fusion: a multi-bracket BOHB run driven on the device.
 
 Ported from ``hpbandster_tpu/ops/sweep.py``: the space codec
-(``SpaceCodec``, ``build_space_codec``, ``quantize_unit``, ``random_unit``),
-``pow2_capacities``, ``plan_additions``, ``_fit_kde_pair_device`` and the
-static and dynamic-count tiers of ``make_fused_sweep_fn``
-(``init_obs_state``, ``trained_split``, ``dynamic_gate``,
-``dynamic_proposals``, ``run_bracket`` and the unrolled ``sweep``).
+(``SpaceCodec``, ``build_space_codec``, ``quantize_unit``, ``random_unit``,
+``_decode_values``), the compiled conditions and forbidden clauses
+(``compile_active_mask``, ``compile_forbidden_mask``, and the in-sweep
+rejection resampling as ``resample_forbidden``), ``pow2_capacities``,
+``plan_additions``, ``_fit_kde_pair_device`` and the static and
+dynamic-count tiers of ``make_fused_sweep_fn`` (``init_obs_state``,
+``trained_split``, ``dynamic_gate``, ``dynamic_proposals``, ``run_bracket``
+and the unrolled ``sweep``).
 
 The static tier keeps every observation count a Python int, so the model
 gate, the good/bad split sizes and the choice of the largest trained budget
@@ -18,13 +21,19 @@ eagerly, so the sweep is a Python loop of device ops rather than one
 compiled program, and it synchronises when the caller reads the outputs.
 
 Random numbers enter through a draw seam (:class:`GeneratorDraws`): each
-bracket asks it for its uniform stage-0 vectors, its candidate set and its
-model-based mask. The default draws from one ``torch.Generator`` seeded from
-the run seed; a test can hand in the reference's own draws instead.
+bracket asks it for its uniform stage-0 vectors, its candidate set, its
+model-based mask and, on conditional or forbidden spaces, its imputation
+uniforms and forbidden-row redraws. The default draws from one
+``torch.Generator`` seeded from the run seed; a test can hand in the
+reference's own draws instead. The codec's constants reach the device
+once per optimizer (:class:`CodecTables`, built by the optimizer and
+handed to every sweep it builds and to the compiled masks), since every
+upload from host memory is a synchronising copy.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,15 +46,21 @@ from hpbandster_tpu_torch.ops.kde import (
     KDE,
     fit_kde_pair_masked,
     generate_candidates,
+    impute_conditional_masked,
     normal_reference_bandwidths,
 )
 
 __all__ = [
     "SpaceCodec",
     "build_space_codec",
+    "CodecTables",
+    "codec_tables",
     "quantize_unit",
     "random_unit",
     "random_unit_from",
+    "compile_active_mask",
+    "compile_forbidden_mask",
+    "resample_forbidden",
     "pow2_capacities",
     "plan_additions",
     "GeneratorDraws",
@@ -167,93 +182,379 @@ def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
-def quantize_unit(codec: SpaceCodec, u: torch.Tensor) -> torch.Tensor:
-    """Snap unit-hypercube vectors ``f32[..., d]`` to representable
-    configurations: the device twin of ``to_vector(from_vector(u))``.
-    Rounding is half-to-even (``torch.round``), as in the reference."""
-    dev = u.device
-    kind = torch.as_tensor(codec.kind, device=dev)
-    is_log = torch.as_tensor(codec.log, device=dev)
+class CodecTables(NamedTuple):
+    """A codec's per-dim constants as tensors on one device, with the
+    float32 values the reference computes in its trace. Whoever owns the
+    codec builds them once (:func:`codec_tables`; ``FusedBOHB`` for all its
+    chunks) and hands them to every codec function, mask and sweep: each
+    upload from numpy is a synchronising copy."""
+
+    kind: torch.Tensor     # int32[d]
+    is_log: torch.Tensor   # bool[d]
+    lo: torch.Tensor       # f32[d]
+    hi: torch.Tensor
+    log_lo: torch.Tensor   # log(max(lo, 1e-30))
+    log_hi: torch.Tensor
+    qs: torch.Tensor       # q, 1 where there is none
+    has_q: torch.Tensor    # bool[d]
+    n_int: torch.Tensor    # max(hi - lo + 1, 1)
+    log_ilo: torch.Tensor  # log of the widened integer log bounds
+    log_ihi: torch.Tensor
+    kf: torch.Tensor       # max(cards, 1)
+    cards: torch.Tensor    # f32[d], as the kernels take them
+    vartypes: torch.Tensor  # f32[d]
+    logits: torch.Tensor   # f32[d, kmax]
+
+    @property
+    def device(self) -> torch.device:
+        return self.kind.device
+
+
+def codec_tables(codec: SpaceCodec, device) -> CodecTables:
+    """Upload ``codec``'s constants to ``device`` once."""
+    dev = torch.device(device)
+    lo, hi = _f32(codec.lower, dev), _f32(codec.upper, dev)
+    ilo_np, ihi_np = _int_log_bounds(codec)
+    cards = _f32(codec.cards, dev)
+
+    def log(x):
+        return torch.log(torch.clamp(x, min=1e-30))
+
+    return CodecTables(
+        kind=torch.as_tensor(codec.kind, device=dev),
+        is_log=torch.as_tensor(codec.log, device=dev),
+        lo=lo, hi=hi, log_lo=log(lo), log_hi=log(hi),
+        qs=_f32(np.nan_to_num(codec.q, nan=1.0), dev),
+        has_q=torch.as_tensor(np.isfinite(codec.q), device=dev),
+        n_int=torch.clamp(hi - lo + 1.0, min=1.0),
+        log_ilo=log(_f32(ilo_np, dev)), log_ihi=log(_f32(ihi_np, dev)),
+        kf=torch.clamp(cards, min=1.0), cards=cards,
+        vartypes=_f32(codec.vartypes, dev), logits=_f32(codec.logits, dev),
+    )
+
+
+def quantize_unit(t: CodecTables, u: torch.Tensor) -> torch.Tensor:
+    """Snap unit-hypercube vectors ``f32[..., d]`` (on ``t``'s device) to
+    representable configurations: the device twin of
+    ``to_vector(from_vector(u))``. Rounding is half-to-even
+    (``torch.round``), as in the reference."""
     u_raw = u.to(_F32)
     # float/int dims live in [0,1]; categorical dims hold raw choice indices
     u = torch.clamp(u_raw, 0.0, 1.0)
 
     # floats: identity unless quantized (q), then value-space snap
-    lo = _f32(codec.lower, dev)
-    hi = _f32(codec.upper, dev)
-    log_lo = torch.log(torch.clamp(lo, min=1e-30))
-    log_hi = torch.log(torch.clamp(hi, min=1e-30))
-    val_lin = lo + u * (hi - lo)
-    val_log = torch.exp(log_lo + u * (log_hi - log_lo))
-    val = torch.where(is_log, val_log, val_lin)
-    qs = _f32(np.nan_to_num(codec.q, nan=1.0), dev)
-    has_q = torch.as_tensor(np.isfinite(codec.q), device=dev)
-    val_q = torch.minimum(torch.maximum(torch.round(val / qs) * qs, lo), hi)
-    enc_lin = (val_q - lo) / torch.clamp(hi - lo, min=1e-30)
-    enc_log = (torch.log(torch.clamp(val_q, min=1e-30)) - log_lo) / torch.clamp(
-        log_hi - log_lo, min=1e-30
+    val_lin = t.lo + u * (t.hi - t.lo)
+    val_log = torch.exp(t.log_lo + u * (t.log_hi - t.log_lo))
+    val = torch.where(t.is_log, val_log, val_lin)
+    val_q = torch.minimum(torch.maximum(torch.round(val / t.qs) * t.qs, t.lo), t.hi)
+    enc_lin = (val_q - t.lo) / torch.clamp(t.hi - t.lo, min=1e-30)
+    enc_log = (torch.log(torch.clamp(val_q, min=1e-30)) - t.log_lo) / torch.clamp(
+        t.log_hi - t.log_lo, min=1e-30
     )
     u_float = torch.where(
-        has_q, torch.clamp(torch.where(is_log, enc_log, enc_lin), 0.0, 1.0), u
+        t.has_q, torch.clamp(torch.where(t.is_log, enc_log, enc_lin), 0.0, 1.0), u
     )
 
     # integers: decode (bin-center / widened-log), round, re-encode
-    ilo_np, ihi_np = _int_log_bounds(codec)
-    ilo = _f32(ilo_np, dev)
-    ihi = _f32(ihi_np, dev)
-    n_int = torch.clamp(hi - lo + 1.0, min=1.0)
-    v_lin = lo - 0.5 + u * n_int
-    log_ilo = torch.log(torch.clamp(ilo, min=1e-30))
-    log_ihi = torch.log(torch.clamp(ihi, min=1e-30))
-    v_log = torch.exp(log_ilo + u * (log_ihi - log_ilo))
+    v_lin = t.lo - 0.5 + u * t.n_int
+    v_log = torch.exp(t.log_ilo + u * (t.log_ihi - t.log_ilo))
     vi = torch.minimum(
-        torch.maximum(torch.round(torch.where(is_log, v_log, v_lin)), lo), hi
+        torch.maximum(torch.round(torch.where(t.is_log, v_log, v_lin)), t.lo), t.hi
     )
-    enc_i_lin = (vi - lo + 0.5) / n_int
+    enc_i_lin = (vi - t.lo + 0.5) / t.n_int
     enc_i_log = torch.clamp(
-        (torch.log(torch.clamp(vi, min=1e-30)) - log_ilo)
-        / torch.clamp(log_ihi - log_ilo, min=1e-30),
+        (torch.log(torch.clamp(vi, min=1e-30)) - t.log_ilo)
+        / torch.clamp(t.log_ihi - t.log_ilo, min=1e-30),
         0.0,
         1.0,
     )
-    u_int = torch.where(is_log, enc_i_log, enc_i_lin)
+    u_int = torch.where(t.is_log, enc_i_log, enc_i_lin)
 
     # categorical / ordinal: snap to the nearest index
-    kf = torch.clamp(_f32(codec.cards, dev), min=1.0)
-    u_cat = torch.minimum(torch.clamp(torch.round(u_raw), min=0.0), kf - 1.0)
+    u_cat = torch.minimum(torch.clamp(torch.round(u_raw), min=0.0), t.kf - 1.0)
 
-    out = torch.where(kind == 0, u_float, u)
-    out = torch.where(kind == 1, u_int, out)
-    out = torch.where(kind == 2, u_cat, out)
-    return torch.where(kind == 3, torch.zeros_like(out), out)
+    out = torch.where(t.kind == 0, u_float, u)
+    out = torch.where(t.kind == 1, u_int, out)
+    out = torch.where(t.kind == 2, u_cat, out)
+    return torch.where(t.kind == 3, torch.zeros_like(out), out)
 
 
 def random_unit_from(
-    codec: SpaceCodec, u: torch.Tensor, cat_idx: torch.Tensor
+    tables: CodecTables, u: torch.Tensor, cat_idx: torch.Tensor
 ) -> torch.Tensor:
     """Compose uniform configuration vectors from ``u`` (uniforms in [0, 1),
     ``f32[n, d]``) and ``cat_idx`` (per-dim categorical draws, ``[n, d]``):
     float/int dims take ``u``, categorical/ordinal dims the index, constants
     0. Un-quantized; pass through :func:`quantize_unit` before evaluating."""
-    kind = torch.as_tensor(codec.kind, device=u.device)
-    out = torch.where(kind == 2, cat_idx.to(_F32), u.to(_F32))
-    return torch.where(kind == 3, torch.zeros_like(out), out)
+    out = torch.where(tables.kind == 2, cat_idx.to(_F32), u.to(_F32))
+    return torch.where(tables.kind == 3, torch.zeros_like(out), out)
 
 
 def random_unit(
-    codec: SpaceCodec, generator: torch.Generator, n: int,
-    device: torch.device,
+    tables: CodecTables, generator: torch.Generator, n: int
 ) -> torch.Tensor:
-    """``n`` uniform configuration vectors, ``f32[n, d]``: uniform unit for
-    float/int dims, weighted categorical, uniform ordinal, 0 for constants.
-    Categorical draws use the Gumbel-max trick over the codec's logits."""
-    d = int(codec.kind.shape[0])
-    logits = _f32(codec.logits, device)  # [d, kmax], -inf padded
-    u = torch.rand((n, d), generator=generator, device=device)
-    g = torch.rand((n, d, logits.shape[1]), generator=generator, device=device)
+    """``n`` uniform configuration vectors, ``f32[n, d]``, on ``tables``'
+    device (``generator``'s): uniform unit for float/int dims, weighted
+    categorical, uniform ordinal, 0 for constants. Categorical draws use
+    the Gumbel-max trick over the codec's logits."""
+    logits = tables.logits  # [d, kmax], -inf padded
+    d, kmax = logits.shape
+    u = torch.rand((n, d), generator=generator, device=tables.device)
+    g = torch.rand((n, d, kmax), generator=generator, device=tables.device)
     gumbel = -torch.log(-torch.log(torch.clamp(g, min=1e-20)))
     idx = torch.argmax(logits[None] + gumbel, dim=-1)
-    return random_unit_from(codec, u, idx)
+    return random_unit_from(tables, u, idx)
+
+
+def _decode_values(t: CodecTables, q: torch.Tensor) -> torch.Tensor:
+    """Decode quantized unit vectors ``f32[n, d]`` to the numbers conditions
+    compare against: floats/ints to their real value, categorical/ordinal
+    dims to their choice INDEX (value-level comparisons are resolved to
+    indices at compile time), constants to 0."""
+    v_lin = t.lo + q * (t.hi - t.lo)
+    v_log = torch.exp(t.log_lo + q * (t.log_hi - t.log_lo))
+    v_float = torch.where(t.is_log, v_log, v_lin)
+    vi_lin = t.lo - 0.5 + q * t.n_int
+    vi_log = torch.exp(t.log_ilo + q * (t.log_ihi - t.log_ilo))
+    v_int = torch.minimum(
+        torch.maximum(torch.round(torch.where(t.is_log, vi_log, vi_lin)), t.lo), t.hi
+    )
+    out = torch.where(t.kind == 0, v_float, q)
+    out = torch.where(t.kind == 1, v_int, out)
+    out = torch.where(t.kind == 2, torch.round(q), out)
+    return torch.where(t.kind == 3, torch.zeros_like(out), out)
+
+
+def _all(terms: List[torch.Tensor]) -> torch.Tensor:
+    return functools.reduce(torch.logical_and, terms)
+
+
+def _any(terms: List[torch.Tensor]) -> torch.Tensor:
+    return functools.reduce(torch.logical_or, terms)
+
+
+def compile_active_mask(configspace, tables: CodecTables):
+    """Compile the space's condition DAG to a batched activity predicate.
+
+    Returns ``mask_fn(q: f32[n, d]) -> bool[n, d]`` deciding, from QUANTIZED
+    unit vectors, which dims are conditionally active: the device twin of
+    ``ConfigurationSpace._active_set`` (a child is active iff every
+    condition on it holds, and a condition on an inactive parent is false).
+    The conditions are evaluated column by column over the whole batch, in
+    topological order, so a parent's activity is decided before any of its
+    children. ``tables`` are the space's codec constants, on the device the
+    mask runs on.
+
+    Raises ``ValueError`` for condition forms without a numeric device
+    representation: an order comparison on a categorical parent, or on a
+    non-numeric or unsorted ordinal, and an unknown condition type.
+    """
+    from hpbandster_tpu_torch.space.conditions import (
+        AndConjunction,
+        EqualsCondition,
+        GreaterThanCondition,
+        InCondition,
+        LessThanCondition,
+        NotEqualsCondition,
+        OrConjunction,
+    )
+    from hpbandster_tpu_torch.space.hyperparameters import (
+        CategoricalHyperparameter,
+        OrdinalHyperparameter,
+    )
+
+    names = configspace.get_hyperparameter_names()
+    index = {n: i for i, n in enumerate(names)}
+    hp_by_name = dict(zip(names, configspace.get_hyperparameters()))
+
+    def ordinal_order_value(parent_name: str, value) -> float:
+        """Greater/Less on an ordinal compares VALUES on the host; here the
+        indices are compared, which is order-faithful only if the sequence
+        is numerically sorted."""
+        seq = hp_by_name[parent_name].sequence
+        try:
+            numeric = [float(v) for v in seq]
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"device conditions need a numeric ordinal sequence for "
+                f"order comparisons on {parent_name!r}"
+            ) from None
+        if numeric != sorted(numeric):
+            raise ValueError(
+                f"ordinal {parent_name!r} is not numerically sorted; order "
+                f"comparisons have no index representation"
+            )
+        return float(hp_by_name[parent_name].index(value))
+
+    def compile_cond(c):
+        if isinstance(c, (AndConjunction, OrConjunction)):
+            subs = [compile_cond(x) for x in c.components]
+            join = _all if isinstance(c, AndConjunction) else _any
+            return lambda dec, act: join([f(dec, act) for f in subs])
+        simple = (EqualsCondition, NotEqualsCondition, InCondition,
+                  GreaterThanCondition, LessThanCondition)
+        if not isinstance(c, simple):
+            raise ValueError(
+                f"condition type {type(c).__name__} has no device compilation"
+            )
+        j = index[c.parent_name]
+        parent_hp = hp_by_name[c.parent_name]
+        if isinstance(c, EqualsCondition):
+            v = _value_to_number(parent_hp, c.value)
+            test = lambda x: x == v  # noqa: E731
+        elif isinstance(c, NotEqualsCondition):
+            v = _value_to_number(parent_hp, c.value)
+            test = lambda x: x != v  # noqa: E731
+        elif isinstance(c, InCondition):
+            vals = [_value_to_number(parent_hp, v) for v in c.value]
+            test = lambda x: _any([x == v for v in vals])  # noqa: E731
+        else:
+            # the decoded number of a categorical dim is its choice INDEX;
+            # comparing a raw value against it would build a wrong mask
+            if isinstance(parent_hp, CategoricalHyperparameter):
+                raise ValueError(
+                    f"order condition on categorical parent "
+                    f"{c.parent_name!r} has no device representation"
+                )
+            v = (
+                ordinal_order_value(c.parent_name, c.value)
+                if isinstance(parent_hp, OrdinalHyperparameter)
+                else float(c.value)
+            )
+            if isinstance(c, GreaterThanCondition):
+                test = lambda x: x > v  # noqa: E731
+            else:
+                test = lambda x: x < v  # noqa: E731
+        return lambda dec, act: act[j] & test(dec[:, j])
+
+    topo = configspace._topological_order()
+    per_dim = [
+        (index[name], [compile_cond(c) for c in configspace.get_conditions()
+                       if c.child_name == name])
+        for name in topo
+    ]
+
+    def mask_fn(q: torch.Tensor) -> torch.Tensor:
+        dec = _decode_values(tables, q)
+        ones = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
+        act = [ones] * len(names)  # one column per dim
+        for j, conds in per_dim:
+            for fn in conds:
+                act[j] = act[j] & fn(dec, act)
+        return torch.stack(act, dim=1)
+
+    return mask_fn
+
+
+def _value_to_number(hp, value) -> float:
+    """A condition's or clause's comparison value in the decoded-number
+    domain of :func:`_decode_values` for ``hp``'s dim."""
+    from hpbandster_tpu_torch.space.hyperparameters import (
+        CategoricalHyperparameter,
+        Constant,
+        OrdinalHyperparameter,
+    )
+
+    if isinstance(hp, (CategoricalHyperparameter, OrdinalHyperparameter)):
+        return float(hp.index(value))  # compare by choice index
+    if isinstance(hp, Constant):
+        return 0.0 if value == hp.value else float("nan")  # never equal
+    return float(value)
+
+
+def compile_forbidden_mask(configspace, tables: CodecTables):
+    """Compile the space's forbidden clauses to a batched predicate.
+
+    Returns ``forbidden_fn(q: f32[n, d], act: bool[n, d]) -> bool[n]``, True
+    where a QUANTIZED vector violates any forbidden clause: the device twin
+    of ``ConfigurationSpace.is_forbidden``. A clause term on an inactive dim
+    is False (the host sees only active values). Equality on a continuous
+    dim is float32-tolerant: ``1e-5·|v|`` on log dims, ``1e-5·max(hi - lo,
+    |lo|, |hi|)`` on linear dims (the decode's error model per scale kind);
+    discrete dims compare their choice indices exactly. ``tables`` as for
+    :func:`compile_active_mask`.
+
+    Raises ``ValueError`` for a clause type without a device compilation
+    and for a clause on an unknown parameter.
+    """
+    from hpbandster_tpu_torch.space.forbidden import (
+        ForbiddenAndConjunction,
+        ForbiddenEqualsClause,
+        ForbiddenInClause,
+    )
+    from hpbandster_tpu_torch.space.hyperparameters import UniformFloatHyperparameter
+
+    names = configspace.get_hyperparameter_names()
+    index = {n: i for i, n in enumerate(names)}
+    hp_by_name = dict(zip(names, configspace.get_hyperparameters()))
+
+    def eq_term(name: str, value):
+        if name not in index:
+            raise ValueError(f"forbidden clause on unknown parameter {name!r}")
+        j = index[name]
+        hp = hp_by_name[name]
+        v = _value_to_number(hp, value)
+        if not isinstance(hp, UniformFloatHyperparameter):
+            return lambda dec, act: act[:, j] & (dec[:, j] == v)
+        lo, hi = float(hp.lower), float(hp.upper)
+        if hp.log:
+            tol = 1e-5 * max(abs(v), 1e-30)
+        else:
+            tol = 1e-5 * max(hi - lo, abs(lo), abs(hi))
+        return lambda dec, act: act[:, j] & (torch.abs(dec[:, j] - v) <= tol)
+
+    def compile_clause(c):
+        if isinstance(c, ForbiddenAndConjunction):
+            subs = [compile_clause(x) for x in c.components]
+            return lambda dec, act: _all([f(dec, act) for f in subs])
+        if isinstance(c, ForbiddenEqualsClause):
+            return eq_term(c.name, c.value)
+        if isinstance(c, ForbiddenInClause):
+            terms = [eq_term(c.name, v) for v in c.values]
+            return lambda dec, act: _any([f(dec, act) for f in terms])
+        raise ValueError(
+            f"forbidden clause type {type(c).__name__} has no device compilation"
+        )
+
+    clauses = [compile_clause(c) for c in configspace.get_forbiddens()]
+
+    def forbidden_fn(q: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        if not clauses:
+            return torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
+        dec = _decode_values(tables, q)
+        return _any([f(dec, act) for f in clauses])
+
+    return forbidden_fn
+
+
+def resample_forbidden(
+    vectors: torch.Tensor,
+    forbidden_fn: Callable,
+    active_mask_fn: Optional[Callable],
+    redraws: torch.Tensor,
+    fallback: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rejection resampling of forbidden rows, the reference's fixed passes
+    in closed form. ``redraws`` (``f32[passes, n, d]``, quantized) are the
+    uniform vectors of every pass; in pass ``t`` a row still forbidden takes
+    ``redraws[t]``, and a row forbidden after the last pass becomes
+    ``fallback`` (a host-verified valid vector, ``f32[d]``). So each row
+    ends as the first allowed vector of (its proposal, its redraws in pass
+    order), or the fallback: one batched predicate over all of them gives
+    the passes' result with no host wait and no pass-by-pass dispatch.
+    Returns the vectors and ``bool[n]``, True for every row that was redrawn
+    (its proposal was forbidden)."""
+    passes, n, d = redraws.shape
+    cands = torch.cat([vectors[None], redraws])  # [passes + 1, n, d]
+    flat = cands.reshape(-1, d)
+    active = (torch.ones_like(flat, dtype=torch.bool) if active_mask_fn is None
+              else active_mask_fn(flat))
+    allowed = ~forbidden_fn(flat, active).reshape(passes + 1, n)
+    # argmax keeps the first maximum: the first allowed candidate
+    first = torch.argmax(allowed.to(torch.uint8), dim=0)
+    chosen = cands[first, torch.arange(n, device=vectors.device)]
+    out = torch.where(allowed.any(dim=0)[:, None], chosen, fallback[None, :])
+    return out, ~allowed[0]
 
 
 def _fit_kde_pair_device(
@@ -263,13 +564,21 @@ def _fit_kde_pair_device(
     n_bad: int,
     cards: torch.Tensor,
     min_bandwidth: float,
+    impute_draws=None,
 ) -> Tuple[KDE, KDE]:
     """Stable sort by loss, top ``n_good`` / bottom ``n_bad`` rows,
-    normal-reference bandwidths (the host model's ``_fit_kde_pair``)."""
+    normal-reference bandwidths (the host model's ``_fit_kde_pair``).
+    Conditional spaces pass ``impute_draws``, the good and the bad side's
+    ``(u, u_fb)`` uniforms (each ``f32[rows, d]``): NaN (inactive) dims are
+    then donor-imputed per split side, like the host model."""
     n = vecs.shape[0]
     order = torch.argsort(losses, stable=True)
     good = vecs[order[:n_good]]
     bad = vecs[order[n - n_bad:]]
+    if impute_draws is not None:
+        (u_g, fb_g), (u_b, fb_b) = impute_draws
+        good = impute_conditional_masked(good, cards, u_g, fb_g)
+        bad = impute_conditional_masked(bad, cards, u_b, fb_b)
 
     def mk(data: torch.Tensor) -> KDE:
         mask = torch.ones(data.shape[0], dtype=_F32, device=data.device)
@@ -296,44 +605,52 @@ class GeneratorDraws:
     """The sweep's default draws, all from one ``torch.Generator`` seeded
     with the run seed and consumed in bracket order.
 
-    A draw source answers three questions per bracket ``b_i``: the uniform
+    A draw source answers these questions per bracket ``b_i``: the uniform
     stage-0 vectors (:meth:`stage0`), the candidate set around the fitted
-    good KDE (:meth:`candidates`) and which proposals are model-based
-    (:meth:`model_mask`).
+    good KDE (:meth:`candidates`), which proposals are model-based
+    (:meth:`model_mask`) and, on conditional or forbidden spaces, the
+    imputation uniforms of each split side (:meth:`impute`) and the
+    uniform vectors of each forbidden-row redraw (:meth:`forbidden_redraw`).
     """
 
     def __init__(
         self,
-        codec: SpaceCodec,
+        tables: CodecTables,
         seed: int,
-        device: torch.device,
         random_fraction: float,
         bandwidth_factor: float,
         min_bandwidth: float,
     ):
-        self.codec = codec
-        self.device = torch.device(device)
+        self.tables = tables
+        self.device = tables.device
         self.random_fraction = float(random_fraction)
         self.bandwidth_factor = float(bandwidth_factor)
         self.min_bandwidth = float(min_bandwidth)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
-        # float32 once: the candidate draw reads them as floats
-        self._vartypes = _f32(codec.vartypes, self.device)
-        self._cards = _f32(codec.cards, self.device)
 
     def stage0(self, b_i: int, n0: int) -> torch.Tensor:
-        return random_unit(self.codec, self.generator, n0, self.device)
+        return random_unit(self.tables, self.generator, n0)
 
     def candidates(self, b_i: int, good: KDE, total: int) -> torch.Tensor:
         return generate_candidates(
-            self.generator, good, self._vartypes, self._cards, total,
+            self.generator, good, self.tables.vartypes, self.tables.cards, total,
             self.bandwidth_factor, self.min_bandwidth,
         )
 
     def model_mask(self, b_i: int, n0: int) -> torch.Tensor:
         u = torch.rand((n0,), generator=self.generator, device=self.device)
         return u >= self.random_fraction
+
+    def impute(self, b_i: int, side: int, n: int, d: int):
+        """``(u, u_fb)``, the donor and the fallback uniforms ``f32[n, d]``
+        of split side ``side`` (0 good, 1 bad)."""
+        u = torch.rand((2, n, d), generator=self.generator, device=self.device)
+        return u[0], u[1]
+
+    def forbidden_redraw(self, b_i: int, t: int, n0: int) -> torch.Tensor:
+        """Redraw ``t``: ``n0`` uniform stage-0-style vectors, un-quantized."""
+        return self.stage0(b_i, n0)
 
 
 def make_fused_sweep_fn(
@@ -342,6 +659,7 @@ def make_fused_sweep_fn(
     codec: SpaceCodec,
     *,
     device,
+    tables: Optional[CodecTables] = None,
     num_samples: int = 64,
     random_fraction: float = 1 / 3,
     top_n_percent: int = 15,
@@ -349,6 +667,11 @@ def make_fused_sweep_fn(
     bandwidth_factor: float = 3.0,
     min_bandwidth: float = 1e-3,
     warm_counts: Optional[dict] = None,
+    rank_fn: Optional[Callable] = None,
+    active_mask_fn: Optional[Callable] = None,
+    forbidden_fn: Optional[Callable] = None,
+    fallback_vector: Optional[np.ndarray] = None,
+    max_forbidden_retries: int = 8,
     dynamic_counts: bool = False,
     capacities: Optional[dict] = None,
     return_state: bool = False,
@@ -358,9 +681,6 @@ def make_fused_sweep_fn(
     incumbent_only: bool = False,
     device_metrics: bool = False,
     stateful_eval=None,
-    rank_fn: Optional[Callable] = None,
-    active_mask_fn: Optional[Callable] = None,
-    forbidden_fn: Optional[Callable] = None,
 ) -> Callable[..., List[SweepBracketOutput]]:
     """Build the sweep; returns
     ``fn(seed, warm_v=None, warm_l=None, warm_n=None, draws=None)``.
@@ -370,7 +690,10 @@ def make_fused_sweep_fn(
     holds ``min_points_in_model + 2`` observations and both split sides
     exceed ``d``; proposals use the largest such budget, refit at every
     bracket start from all observations so far. ``draws`` replaces the
-    default :class:`GeneratorDraws` seeded with ``seed``.
+    default :class:`GeneratorDraws` seeded with ``seed``. ``tables`` are
+    ``codec``'s constants on ``device`` from their owner (``FusedBOHB``
+    builds them once for all its chunks); without them the builder uploads
+    its own.
 
     Static tier (default): ``warm_counts`` (budget -> n) sizes the warm
     observations that ``warm_v``/``warm_l`` (budget -> ``[n, d]`` / ``[n]``,
@@ -390,19 +713,27 @@ def make_fused_sweep_fn(
     state, the port never writes to its inputs: it builds the state from
     them once and then appends to it in place.
 
+    ``rank_fn`` (``fused_sh_bracket``'s promotion scorer, e.g.
+    ``ops.bracket.power_law_extrapolate``) replaces the raw stage loss as
+    the promotion score. ``active_mask_fn`` (:func:`compile_active_mask`)
+    makes the sweep conditional: evaluation sees 0 in inactive dims, the
+    observations and outputs carry NaN there, and every KDE fit imputes
+    them per split side. ``forbidden_fn`` (:func:`compile_forbidden_mask`)
+    redraws forbidden proposals in ``max_forbidden_retries`` fixed passes
+    (:func:`resample_forbidden`, all passes' draws tested at once) and
+    clamps what is still forbidden to ``fallback_vector``, a host-verified
+    valid configuration (numpy, or a tensor already on ``device``); a
+    redrawn row is not model-based. Both tiers take all three.
+
     The other tiers and seams of the reference (resident, meshes,
-    incumbent-only, device metrics, stateful evaluation, custom promotion
-    ranks, conditions and forbiddens) are not ported yet and raise
-    ``NotImplementedError``.
+    incumbent-only, device metrics, stateful evaluation) are not ported yet
+    and raise ``NotImplementedError``.
     """
     unported = {
         "resident": resident,
         "mesh": mesh is not None, "shard_sampling": shard_sampling,
         "incumbent_only": incumbent_only, "device_metrics": device_metrics,
         "stateful_eval": stateful_eval is not None,
-        "rank_fn": rank_fn is not None,
-        "active_mask_fn": active_mask_fn is not None,
-        "forbidden_fn": forbidden_fn is not None,
     }
     for name, on in unported.items():
         if on:
@@ -411,6 +742,8 @@ def make_fused_sweep_fn(
             )
     if eval_fn is None:
         raise ValueError("make_fused_sweep_fn needs an eval_fn")
+    if forbidden_fn is not None and fallback_vector is None:
+        raise ValueError("forbidden_fn requires a fallback_vector")
     if return_state and not dynamic_counts:
         raise ValueError(
             "return_state=True requires dynamic_counts=True: the static "
@@ -436,9 +769,16 @@ def make_fused_sweep_fn(
                 )
         caps = {float(b): int(n) for b, n in capacities.items()}
 
-    # float32 once, as the kernels take them: no cast per launch
-    vartypes_dev = _f32(codec.vartypes, device)
-    cards_dev = _f32(codec.cards, device)
+    if tables is None:
+        tables = codec_tables(codec, device)
+    # the kernels take the float32 vartypes and cards as they are
+    vartypes_dev, cards_dev = tables.vartypes, tables.cards
+    fallback_dev = (
+        None if forbidden_fn is None
+        else quantize_unit(
+            tables, torch.as_tensor(fallback_vector, dtype=_F32, device=device)
+        )
+    )
 
     def trained_split(n: int) -> Optional[Tuple[int, int]]:
         """Host-side gate of the KDE fit: split sizes, or None when closed."""
@@ -460,6 +800,15 @@ def make_fused_sweep_fn(
         n_bad = torch.clamp(((100 - top_n_percent) * cnt) // 100, min=min_pts)
         has = (cnt >= min_pts + 2) & (n_good > d) & (n_bad > d)
         return has, n_good, n_bad
+
+    def impute_draws(draws, b_i, n_good, n_bad):
+        """The split sides' imputation uniforms, on conditional spaces."""
+        if active_mask_fn is None:
+            return None
+        return (
+            tuple(u.to(device) for u in draws.impute(b_i, 0, n_good, d)),
+            tuple(u.to(device) for u in draws.impute(b_i, 1, n_bad, d)),
+        )
 
     def dynamic_proposals(b_i, draws, obs_v, obs_l, counts, rand_vecs, n0):
         """Largest-trained-budget choice, fit and proposal, all on the
@@ -486,6 +835,7 @@ def make_fused_sweep_fn(
         _, n_good, n_bad = dynamic_gate(sel_n)
         good, bad = fit_kde_pair_masked(
             sel_v, sel_l, sel_n, n_good, n_bad, cards_dev, min_bandwidth,
+            impute_draws=impute_draws(draws, b_i, capmax, capmax),
         )
         cands = draws.candidates(b_i, good, n0 * num_samples)
         model_vecs = propose_from_candidates(
@@ -550,8 +900,9 @@ def make_fused_sweep_fn(
         return obs_v, obs_l, counts
 
     def run_bracket(b_i, plan, draws, obs_v, obs_l, counts):
-        """One bracket: sample/propose -> rung ladder -> observation append.
-        Updates ``obs_v``/``obs_l``/``counts`` in place."""
+        """One bracket: sample/propose -> forbidden resampling -> rung
+        ladder -> observation append. Updates ``obs_v``/``obs_l``/``counts``
+        in place."""
         n0 = plan.num_configs[0]
         rand_vecs = draws.stage0(b_i, n0).to(device)
         if dynamic_counts:
@@ -579,6 +930,7 @@ def make_fused_sweep_fn(
                 good, bad = _fit_kde_pair_device(
                     obs_v[model_budget][:n], obs_l[model_budget][:n],
                     n_good, n_bad, cards_dev, min_bandwidth,
+                    impute_draws=impute_draws(draws, b_i, n_good, n_bad),
                 )
                 cands = draws.candidates(b_i, good, n0 * num_samples)
                 model_vecs = propose_from_candidates(
@@ -587,8 +939,29 @@ def make_fused_sweep_fn(
                 mb_mask = draws.model_mask(b_i, n0).to(device)
                 proposals = torch.where(mb_mask[:, None], model_vecs, rand_vecs)
 
-        vectors = quantize_unit(codec, proposals)
-        stages = fused_sh_bracket(eval_fn, vectors, plan.num_configs, plan.budgets)
+        vectors = quantize_unit(tables, proposals)
+        if forbidden_fn is not None:
+            redraws = torch.stack([draws.forbidden_redraw(b_i, t, n0).to(device)
+                                   for t in range(max_forbidden_retries)])
+            vectors, resampled = resample_forbidden(
+                vectors, forbidden_fn, active_mask_fn,
+                quantize_unit(tables, redraws), fallback_dev,
+            )
+            # a redrawn or clamped row is uniform (or the fallback), not a
+            # model pick
+            mb_mask = mb_mask & ~resampled
+        if active_mask_fn is not None:
+            # evaluation sees 0 in inactive dims (the host's to_vector ->
+            # NaN -> 0), while observations and outputs carry NaN, so the
+            # host decoder and the fit's imputation see the activity pattern
+            active = active_mask_fn(vectors)
+            eval_vectors = torch.where(active, vectors, torch.zeros_like(vectors))
+            out_vectors = torch.where(active, vectors, torch.full_like(vectors, float("nan")))
+        else:
+            eval_vectors = out_vectors = vectors
+        stages = fused_sh_bracket(
+            eval_fn, eval_vectors, plan.num_configs, plan.budgets, rank_fn=rank_fn
+        )
         for (idx_s, losses_s), k_s, budget in zip(stages, plan.num_configs, plan.budgets):
             b = float(budget)
             c = counts[b]
@@ -599,20 +972,19 @@ def make_fused_sweep_fn(
                 # append at the device offset c: the init clamp keeps
                 # c + k_s inside the buffer
                 rows = c + torch.arange(k_s, device=device)
-                obs_v[b].index_copy_(0, rows, vectors[idx_s])
+                obs_v[b].index_copy_(0, rows, out_vectors[idx_s])
                 obs_l[b].index_copy_(0, rows, upd_l)
             else:
-                obs_v[b][c:c + k_s] = vectors[idx_s]
+                obs_v[b][c:c + k_s] = out_vectors[idx_s]
                 obs_l[b][c:c + k_s] = upd_l
             counts[b] = c + k_s
         idx_packed, loss_packed = _pack_stages(stages)
-        return SweepBracketOutput(vectors[:n0], mb_mask, idx_packed, loss_packed)
+        return SweepBracketOutput(out_vectors[:n0], mb_mask, idx_packed, loss_packed)
 
     def sweep(seed, warm_v=None, warm_l=None, warm_n=None, draws=None):
         if draws is None:
             draws = GeneratorDraws(
-                codec, int(seed), device, random_fraction, bandwidth_factor,
-                min_bandwidth,
+                tables, int(seed), random_fraction, bandwidth_factor, min_bandwidth
             )
         obs_v, obs_l, counts = init_obs_state(warm_v, warm_l, warm_n)
         outputs = [

@@ -1,5 +1,10 @@
 """Optimizers of the port."""
 
-from hpbandster_tpu_torch.optimizers.fused_bohb import FusedBOHB  # noqa: F401
+from hpbandster_tpu_torch.optimizers.fused_bohb import (  # noqa: F401
+    FusedBOHB,
+    FusedH2BO,
+    FusedHyperBand,
+    FusedRandomSearch,
+)
 
-__all__ = ["FusedBOHB"]
+__all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]

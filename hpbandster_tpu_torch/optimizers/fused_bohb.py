@@ -1,16 +1,18 @@
 """FusedBOHB: the whole-sweep optimizer driver, on PyTorch.
 
 Ported from ``hpbandster_tpu/optimizers/fused_bohb.py``: ``FusedBOHB``
-(``__init__`` with ``previous_result=``, ``_plan``, the chunked ``run`` on
-the static and dynamic-count tiers, ``save_checkpoint``/``load_checkpoint``,
-``_accumulate_obs``, ``_replay_bracket``) and ``_ReplayIteration``. The sweep
-runs on the device (``ops/sweep.py``); after each chunk the host replays its
+(``__init__`` with conditions, forbidden clauses and ``previous_result=``,
+``_plan``, the chunked ``run`` on the static and dynamic-count tiers,
+``save_checkpoint``/``load_checkpoint``, ``_accumulate_obs``,
+``_replay_bracket``), ``_ReplayIteration`` and the subclasses
+``FusedHyperBand``, ``FusedH2BO`` and ``FusedRandomSearch``. The sweep runs
+on the device (``ops/sweep.py``); after each chunk the host replays its
 brackets into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
 bookkeeping, so analysis code sees the structures the reference produces.
 
-Not ported yet: the resident tier, meshes and multiprocess runs, streamed
-warm uploads, stateful evaluation, conditional spaces and forbidden
-clauses, the device-metrics plane and the observability events.
+Not ported yet: the resident tier and ``run_incumbent``, meshes and
+multiprocess runs, streamed warm uploads, stateful evaluation, the
+device-metrics plane and the observability events.
 """
 
 from __future__ import annotations
@@ -33,20 +35,25 @@ from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
 from hpbandster_tpu_torch.core.warmstart import WarmStartIteration
 from hpbandster_tpu_torch.device import resolve_device
 from hpbandster_tpu_torch.ops.bracket import (
+    BracketPlan,
     budget_ladder,
     hyperband_bracket,
     max_sh_iterations,
+    power_law_extrapolate,
 )
 from hpbandster_tpu_torch.ops.fused import _unpack_stages
 from hpbandster_tpu_torch.ops.sweep import (
     build_space_codec,
+    codec_tables,
+    compile_active_mask,
+    compile_forbidden_mask,
     make_fused_sweep_fn,
     plan_additions,
     pow2_capacities,
 )
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
-__all__ = ["FusedBOHB"]
+__all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]
 
 
 class _ReplayIteration(SuccessiveHalving):
@@ -76,6 +83,13 @@ class FusedBOHB:
     ``previous_result`` (a ``Result``) warm-starts the model with its
     observations, which ride into every later ``Result`` under negative
     iteration ids.
+
+    A space with conditions compiles them to an activity mask on the device
+    (inactive dims are 0 for ``eval_fn`` and NaN in the observations); one
+    with forbidden clauses redraws forbidden proposals on the device and
+    clamps what is still forbidden to a valid fallback configuration drawn
+    from the seed. Condition forms without a device representation raise
+    ``ValueError`` (``ops.sweep.compile_active_mask``).
     """
 
     def __init__(
@@ -106,13 +120,24 @@ class FusedBOHB:
             raise ValueError(
                 "FusedBOHB needs a batched eval_fn(vectors f32[n, d], budget) -> f32[n]"
             )
-        if configspace.get_conditions() or configspace.get_forbiddens():
-            raise NotImplementedError(
-                "conditional spaces and forbidden clauses are not ported to "
-                "the PyTorch sweep yet"
-            )
         self.configspace = configspace
         self.codec = build_space_codec(configspace)
+        #: the codec's constants on the device, uploaded once here for the
+        #: masks and every chunk's sweep
+        self.codec_tables = codec_tables(self.codec, self.device)
+        self.active_mask_fn = (
+            compile_active_mask(configspace, self.codec_tables)
+            if configspace.get_conditions() else None
+        )
+        self.forbidden_fn = self._fallback_vector = None
+        if configspace.get_forbiddens():
+            self.forbidden_fn = compile_forbidden_mask(configspace, self.codec_tables)
+            # deterministic in the optimizer's seed, not the space's RNG
+            fb_rng = np.random.default_rng(0xFB if seed is None else int(seed) ^ 0xFB)
+            fb = configspace.to_vector(configspace.sample_configuration(rng=fb_rng))
+            self._fallback_vector = torch.as_tensor(
+                np.nan_to_num(np.asarray(fb, np.float32), nan=0.0), device=self.device
+            )
         d = int(self.codec.kind.shape[0])
         # fail fast on an objective of the wrong shape, before the sweep
         probe = eval_fn(
@@ -174,17 +199,18 @@ class FusedBOHB:
 
     def _ingest_previous_result(self, previous_result: Result) -> None:
         """Seed the warm observations with a previous run's (config,
-        budget, loss) data; crashed runs enter as +inf."""
+        budget, loss) data; crashed runs enter as +inf, inactive dims of a
+        conditional space as NaN."""
         per_budget_v: Dict[float, List[np.ndarray]] = {}
         per_budget_l: Dict[float, List[float]] = {}
         id2conf = previous_result.get_id2config_mapping()
         for run in previous_result.get_all_runs(only_largest_budget=False):
             cfg = id2conf[run.config_id]["config"]
-            # the device fit does not impute, so NaNs (inactive dims of a
-            # foreign result) must not reach it
-            vec = np.nan_to_num(
-                self.configspace.to_vector(cfg).astype(np.float32), nan=0.0
-            )
+            vec = self.configspace.to_vector(cfg).astype(np.float32)
+            if self.active_mask_fn is None:
+                # condition-free: the fit does not impute, so NaNs (from a
+                # foreign result) must not reach it
+                vec = np.nan_to_num(vec, nan=0.0)
             b = float(run.budget)
             loss = np.inf if run.loss is None else float(run.loss)
             per_budget_v.setdefault(b, []).append(vec)
@@ -288,6 +314,7 @@ class FusedBOHB:
             sweep = make_fused_sweep_fn(
                 self.eval_fn, chunk_plans, self.codec,
                 device=self.device,
+                tables=self.codec_tables,
                 num_samples=self.num_samples,
                 random_fraction=self.random_fraction,
                 top_n_percent=self.top_n_percent,
@@ -295,6 +322,10 @@ class FusedBOHB:
                 bandwidth_factor=self.bandwidth_factor,
                 min_bandwidth=self.min_bandwidth,
                 warm_counts=warm_counts,
+                rank_fn=self.promotion_rank_fn,
+                active_mask_fn=self.active_mask_fn,
+                forbidden_fn=self.forbidden_fn,
+                fallback_vector=self._fallback_vector,
                 dynamic_counts=dynamic,
                 capacities=run_caps,
                 return_state=dynamic,
@@ -452,3 +483,40 @@ class FusedBOHB:
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
         """API symmetry with Master; nothing to tear down."""
+
+
+class FusedHyperBand(FusedBOHB):
+    """HyperBand on the fused path: the same bracket schedule with purely
+    random proposals. ``min_points_in_model`` is out of reach, so no model
+    gate opens and no KDE math runs."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["random_fraction"] = 1.0
+        kwargs["min_points_in_model"] = 2**30
+        super().__init__(*args, **kwargs)
+
+
+class FusedH2BO(FusedBOHB):
+    """H2BO on the fused path: promotions rank by each config's power-law
+    learning curve extrapolated to the bracket's final budget
+    (``ops.bracket.power_law_extrapolate``) instead of its current loss;
+    proposals are BOHB's."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.promotion_rank_fn = power_law_extrapolate
+
+
+class FusedRandomSearch(FusedHyperBand):
+    """Random search on the fused path: one-stage brackets sized like the
+    matching HyperBand bracket's first stage, every run at ``max_budget``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # every run is at max_budget, so the Result's HB_config does not
+        # advertise the unused ladder
+        self.config["budgets"] = [self.max_budget]
+
+    def _plan(self, iteration: int):
+        base = hyperband_bracket(iteration, self.min_budget, self.max_budget, self.eta)
+        return BracketPlan(num_configs=(base.num_configs[0],), budgets=(self.max_budget,))

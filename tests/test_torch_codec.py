@@ -8,6 +8,7 @@ import torch
 from hpbandster_tpu_torch.ops import bracket as tbracket
 from hpbandster_tpu_torch.ops.sweep import (
     build_space_codec,
+    codec_tables,
     quantize_unit,
     random_unit,
     random_unit_from,
@@ -68,12 +69,13 @@ def test_quantize_unit_within_one_ulp(ref, name):
     u[:, cat] = rng.uniform(-1.0, rc.cards[cat] + 0.5, size=(512, cat.sum()))
     u = u.astype(np.float32)
     want = np.asarray(ref.sweep.quantize_unit(rc, jnp.asarray(u)))
-    got = quantize_unit(codec, torch.from_numpy(u)).numpy()
+    tables = codec_tables(codec, "cpu")
+    got = quantize_unit(tables, torch.from_numpy(u)).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_max_ulp(got, want, maxulp=1)
     # quantization is idempotent on its own output
     np.testing.assert_array_equal(
-        quantize_unit(codec, torch.from_numpy(got)).numpy(), got
+        quantize_unit(tables, torch.from_numpy(got)).numpy(), got
     )
 
 
@@ -94,7 +96,7 @@ def test_random_unit_from_reference_draws(ref, name):
     )
     want = np.asarray(ref.sweep.random_unit(rc, key, n))
     got = random_unit_from(
-        codec, torch.from_numpy(np.array(u)), torch.from_numpy(np.array(idx))
+        codec_tables(codec, "cpu"), torch.from_numpy(np.array(u)), torch.from_numpy(np.array(idx))
     ).numpy()
     np.testing.assert_array_equal(got, want)
 
@@ -104,9 +106,9 @@ def test_random_unit_distribution():
     draws, uniform ordinal levels."""
     cs = port_space("mixed")
     cs.get_hyperparameter("act").probabilities = np.asarray([0.6, 0.3, 0.1])
-    codec = build_space_codec(cs)
+    tables = codec_tables(build_space_codec(cs), "cpu")
     gen = torch.Generator().manual_seed(0)
-    v = random_unit(codec, gen, 20000, torch.device("cpu")).numpy()
+    v = random_unit(tables, gen, 20000).numpy()
     assert v.dtype == np.float32 and v.shape == (20000, 6)
     cont = v[:, [0, 1, 4, 5]]
     assert cont.min() >= 0.0 and cont.max() < 1.0
@@ -116,6 +118,5 @@ def test_random_unit_distribution():
     depth = np.bincount(v[:, 3].astype(int), minlength=4) / len(v)
     np.testing.assert_allclose(depth, [0.25] * 4, atol=0.015)
     # the same seed gives the same draws
-    again = random_unit(codec, torch.Generator().manual_seed(0), 20000,
-                        torch.device("cpu")).numpy()
+    again = random_unit(tables, torch.Generator().manual_seed(0), 20000).numpy()
     np.testing.assert_array_equal(v, again)

@@ -122,6 +122,43 @@ def mixed_loss(xp, v, budget: float):
     return xp.where((units > 0.9) & (drop > 0.6), math.nan, val)
 
 
+def cond_space(space_module, seed: int = 0):
+    """The conditional space with a forbidden clause, built with either
+    package's ``space`` module: Branin's ``x``, ``y``; a categorical ``opt``
+    whose ``sgd`` activates ``momentum``; an ordinal ``depth`` whose values
+    above 2 activate ``extra``; and ``opt == adam`` with ``depth == 8``
+    forbidden."""
+    m = space_module
+    cs = m.ConfigurationSpace(seed=seed)
+    x = m.UniformFloatHyperparameter("x", -5.0, 10.0)
+    y = m.UniformFloatHyperparameter("y", 0.0, 15.0)
+    opt = m.CategoricalHyperparameter("opt", ["sgd", "adam"])
+    mom = m.UniformFloatHyperparameter("momentum", 0.0, 0.99)
+    depth = m.OrdinalHyperparameter("depth", [1, 2, 4, 8])
+    extra = m.UniformFloatHyperparameter("extra", 0.0, 1.0)
+    cs.add_hyperparameters([x, y, opt, mom, depth, extra])
+    cs.add_condition(m.EqualsCondition(mom, opt, "sgd"))
+    cs.add_condition(m.GreaterThanCondition(extra, depth, 2))
+    cs.add_forbidden_clause(m.ForbiddenAndConjunction(
+        m.ForbiddenEqualsClause(opt, "adam"), m.ForbiddenEqualsClause(depth, 8)))
+    return cs
+
+
+def cond_eval_fns(ref):
+    """The conditional space's objective, Branin plus ``0.1 * momentum +
+    0.05 * extra`` (inactive dims arrive as 0): ``(reference eval_fn(vector,
+    budget), port eval_fn(batch, budget))``."""
+    from hpbandster_tpu_torch.workloads.toys import branin
+
+    def ref_fn(v, budget):
+        return ref.toys.branin_from_vector(v[:2], budget) + 0.1 * v[3] + 0.05 * v[5]
+
+    def port_fn(v, budget):
+        return branin(v[:, :2], budget) + 0.1 * v[:, 3] + 0.05 * v[:, 5]
+
+    return ref_fn, port_fn
+
+
 def eval_fns(ref, name: str):
     """``(reference eval_fn(vector, budget), port eval_fn(batch, budget))``."""
     import jax.numpy as jnp
@@ -151,8 +188,9 @@ class ReferenceDraws:
     """The reference's own random draws, fed into the port's sweep through
     its draw seam: bracket ``b_i`` uses ``split(fold_in(key(seed), b_i),
     4)`` as ``ops/sweep.py``'s ``run_bracket`` does, for ``random_unit``,
-    ``generate_candidates`` (around the PORT's fitted good KDE) and the
-    ``uniform >= random_fraction`` model mask."""
+    ``generate_candidates`` (around the PORT's fitted good KDE), the
+    ``uniform >= random_fraction`` model mask, the fit's imputation
+    uniforms and the forbidden-row redraws."""
 
     def __init__(self, ref, ref_codec, seed, random_fraction=1 / 3,
                  bandwidth_factor=3.0, min_bandwidth=1e-3):
@@ -168,10 +206,7 @@ class ReferenceDraws:
     def _bracket_keys(self, b_i):
         import jax
 
-        k_rand, k_prop, k_frac, k_fit = jax.random.split(
-            jax.random.fold_in(self.root, b_i), 4
-        )
-        return k_rand, k_prop, k_frac
+        return jax.random.split(jax.random.fold_in(self.root, b_i), 4)
 
     def stage0(self, b_i, n0):
         k_rand = self._bracket_keys(b_i)[0]
@@ -202,6 +237,26 @@ class ReferenceDraws:
             np.array(jax.random.uniform(k_frac, (n0,)) >= self.random_fraction)
         )
 
+    def impute(self, b_i, side, n, d):
+        """``k_fit`` splits into the good and the bad side's keys, each
+        into a donor and a fallback key (``ops/kde.py``
+        ``impute_conditional_masked``)."""
+        import jax
+
+        k_side = jax.random.split(self._bracket_keys(b_i)[3])[side]
+        k_pick, k_fb = jax.random.split(k_side)
+        return tuple(torch.from_numpy(np.array(jax.random.uniform(k, (n, d))))
+                     for k in (k_pick, k_fb))
+
+    def forbidden_redraw(self, b_i, t, n0):
+        """``random_unit(fold_in(fold_in(k_rand, 0x7FB), t))``, as the
+        reference's rejection resampling draws."""
+        import jax
+
+        k_forb = jax.random.fold_in(self._bracket_keys(b_i)[0], 0x7FB)
+        return torch.from_numpy(np.array(self.ref.sweep.random_unit(
+            self.codec, jax.random.fold_in(k_forb, t), n0)))
+
 
 # ------------------------------------------------------ import and device
 PORT_MODULES = [
@@ -213,11 +268,16 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.core.successive_halving",
     "hpbandster_tpu_torch.core.warmstart",
     "hpbandster_tpu_torch.ops._build",
+    "hpbandster_tpu_torch.ops.bracket",
     "hpbandster_tpu_torch.ops.cuda_kde",
     "hpbandster_tpu_torch.ops.fused",
     "hpbandster_tpu_torch.ops.kde",
     "hpbandster_tpu_torch.ops.sweep",
+    "hpbandster_tpu_torch.optimizers",
     "hpbandster_tpu_torch.optimizers.fused_bohb",
+    "hpbandster_tpu_torch.space",
+    "hpbandster_tpu_torch.space.conditions",
+    "hpbandster_tpu_torch.space.forbidden",
     "hpbandster_tpu_torch.workloads.toys",
 ]
 
