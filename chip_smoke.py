@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port (``hpbandster_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # needs one CUDA card
-    python3 chip_smoke.py --profile  # also profiles device time: static
-                                     # and chunked Hartmann-6 and conditional
-                                     # sweeps, and the moment kernel at its
-                                     # scale checks
+    python3 chip_smoke.py --profile  # also profiles device time: static,
+                                     # chunked and resident Hartmann-6 and
+                                     # conditional sweeps, and the moment
+                                     # kernel at its scale checks
 
 Phases, each fatal on failure:
 
@@ -42,14 +42,41 @@ Phases, each fatal on failure:
    against their plans, no kernel launch); every recorded launch's inputs
    must be finite, and the conditional paths must have scorer launches on
    mixed vartypes and moments launches with discrete cards;
+   then the resident tier, each path with its counts reset and read the
+   same way and ``HPB_PALLAS_KDE_FIT=1``: ``run(resident=True,
+   device_metrics=True)`` on Hartmann-6 at 10 brackets (two rounds of the
+   5-bracket rotation, each one replay of a captured CUDA graph), at 12
+   (two rounds and a tail of two eager brackets) and at 50 (ten rounds),
+   and on the conditional space at 10; ``run_incumbent(n_iterations=10,
+   device_metrics=True)`` on Hartmann-6. Each resident run passes the
+   sweep gates above, and its decoded device telemetry must agree with a
+   recount from its ``Result``: evaluations and promotions per rung as
+   planned, no crash, each histogram the binning of that rung's losses,
+   each bracket's best final loss the minimum of its final rung, rung
+   stamps increasing in execution order. The launch counts of every path
+   are gated (``MAIN_PATH_LAUNCHES``; a graph's launches count once per
+   replay);
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
-   incumbent); then the host and event time of the conditional path's new
-   device work (rejection resampling, activity mask, imputation), which
-   must not synchronize;
+   incumbent); each resident run must equal, bit for bit, a same-seed
+   unrolled dynamic-tier run of the same length (every observation vector
+   and loss in order, model flags, configurations, runs), and
+   ``run_incumbent`` the best final-stage row of the same-seed resident
+   run (vector, loss, bracket, per-bracket bests, crashes last) with the
+   same decoded telemetry; a ``StatefulEval`` (linear-regression lanes
+   continued across rungs) on the resident tier must equal its unrolled
+   run bit for bit; the profiler's count of the two kernels over a
+   resident sweep must equal the wrapper counts; then the resident tier's
+   times: capture, instantiate and per-replay milliseconds, an eager
+   round of the unrolled sweep, and wall, device-busy time and idle share
+   of the 50-bracket resident run against the unrolled dynamic run; then
+   the host and event time of the conditional path's new device work
+   (rejection resampling, activity mask, imputation), which must not
+   synchronize;
 6. hold each kernel against its plain version on every input the main
-   paths gave it, with the arguments the path passed (for the masked
+   paths gave it (a launch captured into a CUDA graph holds its latest
+   replay's inputs), with the arguments the path passed (for the masked
    moments also the bandwidths the kernel computes, against the plain
    composition), time both at each path's largest launch, and take the
    kernel's device time there from ``torch.profiler`` (the fit's call must
@@ -124,7 +151,15 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "conditional_chunked": {"kde_score": 10, "kde_moments": 20},
                       "h2bo": {"kde_score": 9, "kde_moments": 0},
                       "hyperband": {"kde_score": 0, "kde_moments": 0},
-                      "random_search": {"kde_score": 0, "kde_moments": 0}}
+                      "random_search": {"kde_score": 0, "kde_moments": 0},
+                      # the resident tier fits and scores every bracket, as
+                      # the chunked tier does: 5 + 5 captured per round
+                      # (conditional 5 + 10), times the replays, plus the tail
+                      "resident": {"kde_score": 10, "kde_moments": 10},
+                      "resident_tail": {"kde_score": 12, "kde_moments": 12},
+                      "resident_long": {"kde_score": 50, "kde_moments": 50},
+                      "conditional_resident": {"kde_score": 10, "kde_moments": 20},
+                      "incumbent": {"kde_score": 10, "kde_moments": 10}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -728,8 +763,10 @@ def sync_counter(torch):
             out, syncs = _syncs_of(torch, sweep, *a, **k)
             note(build_syncs + syncs)
             per_chunk.append(len(build_syncs) + len(syncs))
+            counted.graph = sweep.graph  # the resident tier's CUDA graph
             return out
 
+        counted.graph = None
         return counted
 
     fused_bohb.make_fused_sweep_fn = counting_build
@@ -951,6 +988,312 @@ def drive_model_free(torch, dev, cls_name, max_budget=81.0, n_iterations=10):
     return res
 
 
+# ------------------------------------------------------------ resident tier
+#: resident runs of phase 4, by path: (optimizer, result, brackets), for
+#: the parity checks of phase 5
+RESIDENT_RUNS = {}
+
+
+def check_device_metrics(label, opt, res, n_iterations, max_budget=81.0):
+    """The run's decoded device telemetry (``opt.last_device_telemetry``)
+    against a recount from its ``Result``: per rung, evaluations and
+    promotions as the HyperBand plan says, no crash, the histogram sums to
+    the evaluations and equals the schema's binning of that rung's losses;
+    per bracket, the best final-stage loss is the minimum of its final
+    rung; the rung stamps increase in execution order (bracket, then
+    stage). Returns what it checked."""
+    from hpbandster_tpu_torch.obs.device_metrics import N_BINS, bin_index_np
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+
+    rec = opt.last_device_telemetry
+    if rec is None:
+        raise AssertionError(f"{label}: no device telemetry was decoded")
+    plans = [hyperband_bracket(i, 1.0, max_budget, 3.0) for i in range(n_iterations)]
+    want_evals = plan_runs_per_budget(max_budget, n_iterations)
+    want_promos, final = {}, {}
+    for p in plans:
+        for s, b in enumerate(p.budgets):
+            nxt = p.num_configs[s + 1] if s + 1 < len(p.num_configs) else 0
+            want_promos[float(b)] = want_promos.get(float(b), 0) + nxt
+    losses = {}
+    for r in res.get_all_runs():
+        losses.setdefault(float(r.budget), []).append(r.loss)
+        if r.budget == max_budget:
+            final.setdefault(r.config_id[0], []).append(r.loss)
+    got = {r["budget"]: r for r in rec["rungs"]}
+    if set(got) != set(want_evals):
+        raise AssertionError(f"{label}: telemetry rungs {sorted(got)} != plan {sorted(want_evals)}")
+    for b, rung in got.items():
+        hist = np.bincount(bin_index_np(np.asarray(losses[b], np.float32)), minlength=N_BINS)
+        if (rung["evals"] != want_evals[b] or rung["crashes"] != 0
+                or rung["promotions"] != want_promos[b]
+                or sum(rung["hist"]) != rung["evals"] - rung["crashes"]
+                or rung["hist"] != hist.tolist()):
+            raise AssertionError(f"{label}: telemetry of rung {b} {rung} disagrees with the "
+                                 f"recount (evals {want_evals[b]}, promotions "
+                                 f"{want_promos[b]}, histogram {hist.tolist()})")
+    if rec["crashes"] != 0 or rec["brackets"] != n_iterations:
+        raise AssertionError(f"{label}: {rec['crashes']} crashes over {rec['brackets']} brackets")
+    best = [round(float(np.float32(min(final[b]))), 6) for b in range(n_iterations)]
+    if rec["per_bracket_best"] != best:
+        raise AssertionError(f"{label}: per-bracket bests {rec['per_bracket_best']} != {best}")
+    order = [(r["bracket"], r["stage"]) for r in rec["rung_order"]]
+    seq = [r["seq"] for r in rec["rung_order"]]
+    if order != sorted(order) or any(b <= a for a, b in zip(seq, seq[1:])) \
+            or len(order) != sum(len(p.num_configs) for p in plans):
+        raise AssertionError(f"{label}: rung stamps out of execution order: {rec['rung_order']}")
+    return dict(telemetry_rungs=len(got), telemetry_evaluations=rec["evaluations"],
+                telemetry_promotions=rec["promotions"], telemetry_model_fits=rec["model_fits"])
+
+
+def graph_stats(opt):
+    """The resident run's CUDA-graph times from its ``run_stats`` row."""
+    row = opt.run_stats[-1]
+    if "graph_replay_ms" not in row:
+        raise AssertionError("the resident run replayed no CUDA graph")
+    replays = row["graph_replay_ms"]
+    return dict(graph_capture_s=row["graph_capture_s"],
+                graph_instantiate_s=row["graph_instantiate_s"],
+                graph_replays=len(replays), graph_replay_ms=replays,
+                graph_replay_ms_median=float(np.median(replays)))
+
+
+def drive_resident(torch, dev, label, make_opt, fn, n_iterations, conditional=False):
+    """``run(n_iterations, resident=True, device_metrics=True)`` with the
+    moment-kernel fit: the sweep gates, the telemetry recount, the graph's
+    times and the synchronizing calls of the sweep's build and call.
+    Returns the result."""
+    with moments_fit_flag(), sync_counter(torch) as (syncs, sync_sites):
+        t0 = time.perf_counter()
+        opt, ctor_syncs = _syncs_of(torch, make_opt, dev)
+        res = opt.run(n_iterations=n_iterations, resident=True, device_metrics=True)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    rec = dict(n_iterations=n_iterations, wall_s=wall,
+               execute_fetch_s=opt.run_stats[-1]["execute_fetch_s"], **graph_stats(opt),
+               **check_sweep(torch, dev, label, opt, res, fn, 81.0, n_iterations),
+               **check_device_metrics(label, opt, res, n_iterations),
+               syncs_in_sweep=syncs, syncs_in_constructor=len(ctor_syncs),
+               sync_sites=sync_sites)
+    if conditional:
+        rec.update(check_conditional_configs(torch, label, opt, res))
+    print(f"{label} path " + json.dumps(rec), flush=True)
+    RESIDENT_RUNS[label] = (opt, res, n_iterations)
+    return res
+
+
+def drive_incumbent(torch, dev, n_iterations=10):
+    """``run_incumbent(n_iterations, device_metrics=True)`` on Hartmann-6
+    with the moment-kernel fit. Returns its output."""
+    with moments_fit_flag():
+        opt = chunked_optimizer(dev)
+        out = opt.run_incumbent(n_iterations=n_iterations, device_metrics=True)
+    inc = out["incumbent"]
+    if len(inc["vector"]) != 6 or not np.isfinite(inc["loss"]):
+        raise AssertionError(f"incumbent: malformed incumbent {inc}")
+    print("incumbent path " + json.dumps({k: v for k, v in out.items()
+                                          if k != "device_telemetry"}), flush=True)
+    RESIDENT_RUNS["incumbent"] = (opt, out, n_iterations)
+    return out
+
+
+def check_resident_parity(torch, dev, label, make_opt):
+    """Phase 5: the resident run of ``label`` against a same-seed unrolled
+    dynamic-tier run of the same length, bit for bit: every observation
+    vector and loss in append order per budget, the configurations and
+    their model flags, the runs. Returns the unrolled optimizer."""
+    opt_r, res_r, n = RESIDENT_RUNS[label]
+    with moments_fit_flag():
+        opt_u = make_opt(dev)
+        res_u = opt_u.run(n_iterations=n, dynamic_counts=True)
+
+    def runs(r):
+        return sorted((x.config_id, x.budget, x.loss) for x in r.get_all_runs())
+
+    def flags(r):
+        return {c: v["config_info"]["model_based_pick"]
+                for c, v in r.get_id2config_mapping().items()}
+
+    same_obs = (set(opt_r._warm_v) == set(opt_u._warm_v) and all(
+        np.array_equal(opt_r._warm_v[b], opt_u._warm_v[b], equal_nan=True)
+        and np.array_equal(opt_r._warm_l[b], opt_u._warm_l[b], equal_nan=True)
+        for b in opt_u._warm_v))
+    checks = dict(observations=same_obs, runs=runs(res_r) == runs(res_u),
+                  configs=res_r.get_id2config_mapping() == res_u.get_id2config_mapping(),
+                  model_flags=flags(res_r) == flags(res_u))
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: resident run differs from the unrolled dynamic "
+                             f"run: {checks}")
+    print("resident parity " + json.dumps(dict(path=label, brackets=n, **checks)), flush=True)
+    return opt_u
+
+
+def check_stateful_resident(torch, dev, n_iterations=10):
+    """Phase 5: a ``StatefulEval`` on the card: per-config linear-regression
+    lanes (weights from a numpy seed, learning rate from the config, one
+    gradient step per budget unit, continued across rungs) on Branin's
+    space through ``run(resident=True)``, equal bit for bit to the
+    unrolled dynamic tier, every run finite."""
+    from hpbandster_tpu_torch import FusedBOHB
+    from hpbandster_tpu_torch.ops.fused import StatefulEval
+    from hpbandster_tpu_torch.workloads.toys import branin_space
+
+    rng = np.random.default_rng(42)
+    x = torch.as_tensor(rng.normal(size=(64, 8)), dtype=torch.float32, device=dev)
+    y = x @ torch.as_tensor(rng.normal(size=8), dtype=torch.float32, device=dev)
+    w0 = torch.as_tensor(rng.normal(size=(2, 8)), dtype=torch.float32, device=dev)
+
+    def step_fn(w, v, budget, prev_budget):
+        lr = (0.002 + 0.01 * v[:, :1])
+        for _ in range(int(round(budget - prev_budget))):
+            w = w - lr * (2.0 / x.shape[0]) * ((w @ x.T - y) @ x)
+        return w, ((w @ x.T - y) ** 2).mean(dim=1)
+
+    seam = StatefulEval(lambda v: v @ w0, step_fn)
+    results = []
+    for kw in (dict(resident=True), dict(dynamic_counts=True)):
+        opt = FusedBOHB(configspace=branin_space(seed=0), stateful_eval=seam, min_budget=1,
+                        max_budget=81, eta=3, num_samples=64, seed=0, device=dev)
+        res = opt.run(n_iterations=n_iterations, **kw)
+        results.append((opt, sorted((r.config_id, r.budget, r.loss) for r in res.get_all_runs())))
+    (opt_r, runs_r), (opt_u, runs_u) = results
+    equal = runs_r == runs_u and all(np.array_equal(opt_r._warm_v[b], opt_u._warm_v[b])
+                                     for b in opt_u._warm_v)
+    finite = all(loss is not None and np.isfinite(loss) for _, _, loss in runs_r)
+    rec = dict(brackets=n_iterations, runs=len(runs_r), equal=equal, finite=finite,
+               best_loss=min(loss for _, _, loss in runs_r), **graph_stats(opt_r))
+    print("stateful resident " + json.dumps(rec), flush=True)
+    if not (equal and finite):
+        raise AssertionError(f"stateful resident run: {rec}")
+    return rec
+
+
+def _timing_free(rec):
+    """A decoded telemetry record without the fields derived from time."""
+    if isinstance(rec, dict):
+        return {k: _timing_free(v) for k, v in rec.items()
+                if k not in ("execute_s", "est_cost_s", "est_s")}
+    if isinstance(rec, list):
+        return [_timing_free(v) for v in rec]
+    return rec
+
+
+def check_incumbent_parity():
+    """Phase 5: ``run_incumbent`` against the same-seed resident run: the
+    best final-stage row of each bracket (first on ties, crashes last), the
+    best of them, its vector, and the same decoded telemetry."""
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+
+    _, out, n = RESIDENT_RUNS["incumbent"]
+    opt_r, _, n_r = RESIDENT_RUNS["resident"]
+    if n != n_r:
+        raise AssertionError("incumbent: the resident run has another length")
+    # every HyperBand bracket ends at the max budget: its final rung is the
+    # bracket's segment of the observations there, in bracket order
+    v, l = opt_r._warm_v[81.0], opt_r._warm_l[81.0]
+    key = np.where(np.isnan(l), np.float32(3.0e38), l)
+    per_bracket, rows, off = [], [], 0
+    for i in range(n):
+        k = hyperband_bracket(i, 1.0, 81.0, 3.0).num_configs[-1]
+        a = off + int(np.argmin(key[off:off + k]))
+        per_bracket.append(float(l[a]))
+        rows.append(a)
+        off += k
+    best = int(np.argmin(key[rows]))
+    want = dict(vector=[float(x) for x in v[rows[best]]], loss=float(l[rows[best]]),
+                bracket=best, per_bracket_loss=per_bracket)
+    if out["incumbent"] != want:
+        raise AssertionError(f"incumbent {out['incumbent']} != resident run's {want}")
+    if _timing_free(out["device_telemetry"]) != _timing_free(opt_r.last_device_telemetry):
+        raise AssertionError("incumbent: device telemetry differs from the resident run's")
+    print("incumbent parity " + json.dumps(dict(equal=True, bracket=best, loss=want["loss"])),
+          flush=True)
+
+
+def profile_resident_launches(torch, dev, n_iterations=10):
+    """The profiler's count of each kernel over a resident sweep against
+    the wrappers' count (captured launches times replays). A few empty
+    launches open the window, where the profiler has missed events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    opt = chunked_optimizer(dev)
+    before = dict(cuda_kde.LAUNCHES)
+    with moments_fit_flag(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            cuda_kde.noop_launch(dev)
+        opt.run(n_iterations=n_iterations, resident=True)
+        torch.cuda.synchronize(dev)
+    counted = {k: cuda_kde.LAUNCHES[k] - before[k] for k in before}
+    seen = {"kde_score": 0, "kde_moments": 0}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        if "kde_score_kernel" in e.key:
+            seen["kde_score"] += int(e.count)
+        elif "moments_kernel" in e.key:
+            seen["kde_moments"] += int(e.count)
+    rec = dict(wrapper_counts=counted, profiler_counts=seen)
+    print("resident launches by the profiler " + json.dumps(rec), flush=True)
+    if seen != counted:
+        raise AssertionError(f"resident sweep: profiler saw {seen}, wrappers counted {counted}")
+    return rec
+
+
+def measure_resident(torch, dev, n_iterations=50, reps=5):
+    """The resident tier's times on this card at ``n_iterations``: the
+    graph's capture and instantiate seconds and device milliseconds per
+    replay (from the resident run), one eager round of the unrolled dynamic
+    sweep (host clock to a synchronize, the same five brackets and buffer
+    capacities), and wall, device-busy time and idle share of the resident
+    run against the unrolled dynamic run (profiled), with their unprofiled
+    walls and execute+fetch seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpbandster_tpu_torch.ops.sweep import plan_additions, pow2_capacities
+
+    out = {}
+    with moments_fit_flag():
+        for label, kw in (("resident", dict(resident=True)),
+                          ("unrolled_dynamic", dict(dynamic_counts=True))):
+            opt = chunked_optimizer(dev)
+            t0 = time.perf_counter()
+            opt.run(n_iterations=n_iterations, **kw)
+            torch.cuda.synchronize(dev)
+            rec = dict(wall_s=time.perf_counter() - t0,
+                       execute_fetch_s=opt.run_stats[-1]["execute_fetch_s"])
+            if label == "resident":
+                rec.update(graph_stats(opt))
+            opt = chunked_optimizer(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                opt.run(n_iterations=n_iterations, **kw)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+            busy = sum(_device_us(e) for e in prof.key_averages()
+                       if e.device_type.name == "CUDA") / 1e6
+            rec.update(profiled_wall_s=wall, device_busy_s=busy,
+                       device_idle_share=1.0 - busy / wall,
+                       profiled_execute_fetch_s=opt.run_stats[-1]["execute_fetch_s"])
+            out[label] = rec
+        opt = chunked_optimizer(dev)
+        plans = [opt._plan(i) for i in range(n_iterations)]
+        sweep = opt._sweep_fn(plans[:5], dynamic_counts=True,
+                              capacities=pow2_capacities(plan_additions(plans)))
+        times = []
+        for i in range(reps + 1):
+            t0 = time.perf_counter()
+            sweep(i)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["eager_round_ms"] = times[1:]
+    out["eager_round_ms_median"] = float(np.median(times[1:]))
+    out["n_iterations"] = n_iterations
+    print("resident timing " + json.dumps(out), flush=True)
+    return out
+
+
 def measure_conditional_host_work(torch, dev, n0=81, cap=256, reps=200):
     """Host and event time per call of the conditional path's new device
     work at the main path's shapes: the 8-pass rejection resampling of one
@@ -1047,22 +1390,26 @@ def _device_us(event):
 
 
 def profile_sweeps(torch, dev):
-    """Device time by kernel and the device idle share over static and
-    chunked Hartmann-6 and conditional sweeps (``--profile``)."""
+    """Device time by kernel and the device idle share over static,
+    chunked and resident Hartmann-6 and conditional sweeps
+    (``--profile``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for label, make_opt, chunk in (("static", chunked_optimizer, None),
-                                   ("chunked", chunked_optimizer, 2),
-                                   ("conditional_static", cond_optimizer, None),
-                                   ("conditional_chunked", cond_optimizer, 2)):
+    for label, make_opt, run_kw in (
+            ("static", chunked_optimizer, {}),
+            ("chunked", chunked_optimizer, dict(chunk_brackets=2)),
+            ("resident", chunked_optimizer, dict(resident=True)),
+            ("conditional_static", cond_optimizer, {}),
+            ("conditional_chunked", cond_optimizer, dict(chunk_brackets=2)),
+            ("conditional_resident", cond_optimizer, dict(resident=True))):
         opt = make_opt(dev)
         with contextlib.ExitStack() as stack:
-            if chunk:
+            if run_kw:
                 stack.enter_context(moments_fit_flag())
             prof = stack.enter_context(
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
             t0 = time.perf_counter()
-            opt.run(n_iterations=10, chunk_brackets=chunk)
+            opt.run(n_iterations=10, **run_kw)
             torch.cuda.synchronize(dev)
             wall = time.perf_counter() - t0
         events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
@@ -1146,6 +1493,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from hpbandster_tpu_torch.ops import cuda_kde
+    from hpbandster_tpu_torch.workloads.toys import hartmann6
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1169,6 +1517,16 @@ def main(argv=None) -> int:
         "h2bo": drive_h2bo,
         "hyperband": lambda torch, dev: drive_model_free(torch, dev, "FusedHyperBand"),
         "random_search": lambda torch, dev: drive_model_free(torch, dev, "FusedRandomSearch"),
+        "resident": lambda torch, dev: drive_resident(
+            torch, dev, "resident", chunked_optimizer, hartmann6, 10),
+        "resident_tail": lambda torch, dev: drive_resident(
+            torch, dev, "resident_tail", chunked_optimizer, hartmann6, 12),
+        "resident_long": lambda torch, dev: drive_resident(
+            torch, dev, "resident_long", chunked_optimizer, hartmann6, 50),
+        "conditional_resident": lambda torch, dev: drive_resident(
+            torch, dev, "conditional_resident", cond_optimizer, cond_objective, 10,
+            conditional=True),
+        "incumbent": drive_incumbent,
     }
     launches, recorded, results = {}, [], {}
     for path, drive in paths.items():
@@ -1183,20 +1541,31 @@ def main(argv=None) -> int:
     if launches != MAIN_PATH_LAUNCHES:
         raise AssertionError(
             f"main path launches {launches} != {MAIN_PATH_LAUNCHES}: every model "
-            "bracket of the static sweeps scores once, every chunked bracket "
-            "fits and scores once (a conditional fit runs the moments once per "
-            "split side), HyperBand and random search run no model")
+            "bracket of the static sweeps scores once, every chunked, resident "
+            "or incumbent bracket fits and scores once (a conditional fit runs "
+            "the moments once per split side), HyperBand and random search run "
+            "no model")
     facts = check_record_facts(recorded)
-    for path in ("conditional_static", "conditional_chunked"):
+    for path in ("conditional_static", "conditional_chunked", "conditional_resident"):
         if not facts[path]["kde_score_mixed_vartypes"]:
             raise AssertionError(f"{path}: no kde_score launch took the mixed-vartype branch")
-    if not facts["conditional_chunked"]["kde_moments_discrete_cards"]:
-        raise AssertionError("conditional chunked: no kde_moments launch saw discrete cards")
+    for path in ("conditional_chunked", "conditional_resident"):
+        if not facts[path]["kde_moments_discrete_cards"]:
+            raise AssertionError(f"{path}: no kde_moments launch saw discrete cards")
 
     # phase 5: resume on the card equals the uninterrupted chunked runs
     check_resume(torch, dev, "hartmann6_chunked", results["chunked"], chunked_optimizer)
     check_resume(torch, dev, "conditional_chunked", results["conditional_chunked"],
                  cond_optimizer)
+    for label, make_opt in (("resident", chunked_optimizer),
+                            ("resident_tail", chunked_optimizer),
+                            ("resident_long", chunked_optimizer),
+                            ("conditional_resident", cond_optimizer)):
+        check_resident_parity(torch, dev, label, make_opt)
+    check_incumbent_parity()
+    check_stateful_resident(torch, dev)
+    profile_resident_launches(torch, dev)
+    measure_resident(torch, dev)
     measure_conditional_host_work(torch, dev)
 
     # phase 6: kernels against plain versions on the main paths' own inputs

@@ -18,6 +18,11 @@ either reaches the kernel or raises. ``LAUNCHES[name]`` counts kernel
 launches, so a run can show that it went through the kernels; setting
 ``RECORD`` to a list keeps every launch's ``(name, inputs)``, so a run can
 hold each kernel against its plain twin at the shapes it really gave it.
+A launch made while the current stream captures a CUDA graph only records
+the kernel into the graph: it counts in ``CAPTURED``, and the graph runner
+(``ops/graphs.py``) adds a graph's captured launches to ``LAUNCHES`` at
+every replay. A recorded input of a captured launch holds the values of
+the graph's latest replay.
 
 Each kernel's launch geometry comes from shapes alone
 (:func:`kde_score_geometry`, :func:`kde_moments_geometry`): the wrappers
@@ -49,6 +54,7 @@ from hpbandster_tpu_torch.ops.kde import (
 
 __all__ = [
     "LAUNCHES",
+    "CAPTURED",
     "RECORD",
     "ScoreGeometry",
     "kde_score_geometry",
@@ -63,12 +69,17 @@ __all__ = [
     "moment_bandwidths",
     "bandwidths_from_moments",
     "noop_launch",
+    "prepare_capture",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 #: kernel launches per kernel name, counted where the kernel is launched
 LAUNCHES = {"kde_score": 0, "kde_moments": 0}
+
+#: launches recorded into CUDA graphs under capture, per kernel name: they
+#: run when a graph replays, and the runner counts them in LAUNCHES then
+CAPTURED = {"kde_score": 0, "kde_moments": 0}
 
 #: when a list, each kernel launch appends ``(name, inputs)``: for
 #: ``kde_score`` ``(cands, good, bad, vartypes, cards)``, for
@@ -78,6 +89,17 @@ RECORD: Optional[list] = None
 
 _LIB = None
 _MOMENTS_LIB = None
+
+
+def _count_launch(name: str, inputs) -> None:
+    """Count one launch of ``name``: in ``LAUNCHES`` when it runs now, in
+    ``CAPTURED`` when the current stream records it into a graph."""
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+    if RECORD is not None:
+        RECORD.append((name, inputs))
 
 
 def _kde_score_lib() -> ctypes.CDLL:
@@ -293,9 +315,7 @@ def score_candidates(
     if rc != 0:
         msg = lib.kde_score_error_string(rc).decode()
         raise RuntimeError(f"kde_score launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES["kde_score"] += 1
-    if RECORD is not None:
-        RECORD.append(("kde_score", (cands, good, bad, vt, cd)))
+    _count_launch("kde_score", (cands, good, bad, vt, cd))
     return out
 
 
@@ -420,6 +440,20 @@ def _moments_counter(dev: torch.device, stream: int) -> torch.Tensor:
     return _MOMENTS_COUNTERS[key]
 
 
+def prepare_capture(device, stream: "torch.cuda.Stream") -> None:
+    """Make the kernels capturable on ``stream``: build and load both
+    libraries (neither a build nor a library load may happen inside a
+    capture), and make the moments kernel's ticket counter for that stream
+    now, outside the graph's memory pool. The kernel's last block resets
+    the counter, so every replay finds it at zero."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    _kde_score_lib()
+    _kde_moments_lib()
+    _moments_counter(dev, stream.cuda_stream)
+
+
 #: rows of one reference grid step, and of one sequential block inside it
 _MOMENT_TILE_ROWS = 512
 _MOMENT_BLOCK_ROWS = 32
@@ -524,9 +558,7 @@ def _launch_moments(
     if rc != 0:
         msg = lib.kde_moments_error_string(rc).decode()
         raise RuntimeError(f"kde_moments launch failed: CUDA error {rc} ({msg})")
-    LAUNCHES["kde_moments"] += 1
-    if RECORD is not None:
-        RECORD.append(("kde_moments", (data, masks, cards, min_bandwidth)))
+    _count_launch("kde_moments", (data, masks, cards, min_bandwidth))
     return out, bw
 
 

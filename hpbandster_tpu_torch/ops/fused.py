@@ -2,8 +2,10 @@
 promotion without leaving the device.
 
 Ported from ``hpbandster_tpu/ops/fused.py``: ``_CRASH_RANK``,
-``fused_sh_bracket`` (the stateless ``eval_fn`` seam, with the default
-promotion scores or a ``rank_fn`` over the survivors' loss history) and
+``stage_telemetry`` (the device half of the metrics plane),
+``StatefulEval``, ``fused_sh_bracket`` (the stateless ``eval_fn`` seam or
+the ``StatefulEval`` warm-continuation seam, with the default promotion
+scores or a ``rank_fn`` over the survivors' loss history) and
 ``_pack_stages``.
 
 Crashed configs surface as NaN losses and rank behind every clean loss but
@@ -15,12 +17,13 @@ no tie order, so promotion is a stable sort of the rank keys.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["fused_sh_bracket", "rank_key"]
+__all__ = ["StatefulEval", "fused_sh_bracket", "rank_key", "stage_telemetry",
+           "tree_map"]
 
 #: crashed (NaN) losses map here for ranking: behind any real loss, ahead of
 #: the +inf padding rows
@@ -38,6 +41,58 @@ def rank_key(losses: torch.Tensor, is_pad: torch.Tensor) -> torch.Tensor:
     return torch.where(is_pad, torch.full_like(key, float("inf")), key)
 
 
+def stage_telemetry(
+    losses: torch.Tensor, edges: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rung's telemetry: ``(histogram i32[len(edges) + 1], crash count
+    i32[])`` over its losses, ``edges`` being the bin schema's upper bounds
+    (``obs.device_metrics.bin_edges``, float32, on the losses' device).
+
+    NaN (crashed) losses are left out of the histogram and counted as
+    crashes; +/-inf land in the end bins; a loss equal to an edge lands in
+    that edge's bin (``<=`` against the upper bound). Scatter-free, as in
+    the reference: a cumulative ``count(loss <= edge)`` over the losses,
+    then differenced, so the output's shape depends on the bins alone."""
+    losses = losses.to(torch.float32)
+    crashed = torch.isnan(losses)
+    w = (~crashed).to(torch.int32)
+    le = (losses[:, None] <= edges[None, :]).to(torch.int32) * w[:, None]
+    cum = le.sum(0, dtype=torch.int32)  # finite losses at or below each edge
+    total = w.sum(dtype=torch.int32)
+    hist = torch.cat([cum[:1], torch.diff(cum), (total - cum[-1])[None]])
+    return hist, crashed.sum(dtype=torch.int32)
+
+
+class StatefulEval(NamedTuple):
+    """Stateful-evaluation seam beside ``eval_fn``: training whose live
+    state threads through the rung ladder, so promoted configs continue
+    training instead of restarting.
+
+    ``init_fn(vectors f32[n, d]) -> state`` builds one lane per row: a
+    tensor, or a dict, tuple or list of them (nested), every leaf with a
+    leading axis of size ``n``. ``step_fn(state, vectors f32[k, d], budget,
+    prev_budget) -> (state, losses f32[k])`` trains each lane from budget
+    ``prev_budget`` to ``budget`` (Python floats) and returns the lanes'
+    losses; a diverged lane reports NaN and must not touch the others.
+    The bracket gathers the surviving lanes with the indices the rung
+    promoted (:func:`tree_map` of ``leaf[top]``)."""
+
+    init_fn: Callable[[torch.Tensor], Any]
+    step_fn: Callable[[Any, torch.Tensor, float, float], Tuple[Any, torch.Tensor]]
+
+
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """``fn`` applied to every tensor leaf of a (nested) dict, tuple, named
+    tuple or list, keeping the structure."""
+    if isinstance(tree, dict):
+        return type(tree)((k, tree_map(fn, v)) for k, v in tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def _eval_stage(eval_fn: EvalFn, vecs: torch.Tensor, budget: float) -> torch.Tensor:
     losses = eval_fn(vecs, budget)
     if losses.shape != (vecs.shape[0],):
@@ -49,11 +104,13 @@ def _eval_stage(eval_fn: EvalFn, vecs: torch.Tensor, budget: float) -> torch.Ten
 
 
 def fused_sh_bracket(
-    eval_fn: EvalFn,
+    eval_fn: Optional[EvalFn],
     vectors: torch.Tensor,
     num_configs: Sequence[int],
     budgets: Sequence[float],
     rank_fn: Optional[RankFn] = None,
+    stateful: Optional[StatefulEval] = None,
+    return_final_state: bool = False,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Run one whole bracket. Returns per-stage ``(indices, losses)`` where
     ``indices`` (int64) index the original stage-0 rows.
@@ -62,6 +119,13 @@ def fused_sh_bracket(
     is a Python float. ``vectors`` may carry padding rows beyond
     ``num_configs[0]``: they are evaluated but never promoted.
 
+    ``stateful`` (a :class:`StatefulEval`, exclusive with ``eval_fn``)
+    trains instead: stage 0 runs ``init_fn`` then ``step_fn(state, vecs,
+    budgets[0], 0.0)``; stage ``s`` gathers the surviving lanes by the
+    promotion's indices and runs ``step_fn(state, vecs, budgets[s],
+    budgets[s-1])``. ``return_final_state=True`` returns ``(stages,
+    state)``, the last stage's surviving lanes.
+
     ``rank_fn(budgets_so_far f32[s+1], history f32[n_cur, s+1],
     final_budget) -> scores f32[n_cur]`` replaces the promotion scores after
     stage ``s >= 1`` (lower is better). Default: the current stage's loss,
@@ -69,6 +133,13 @@ def fused_sh_bracket(
     crashed) the current loss stands in; a crash in the current stage
     ranks as a crash whatever the score.
     """
+    if (eval_fn is None) == (stateful is None):
+        raise ValueError(
+            "provide exactly one evaluation seam: eval_fn (stateless) or "
+            "stateful (StatefulEval warm continuation)"
+        )
+    if return_final_state and stateful is None:
+        raise ValueError("return_final_state=True requires stateful")
     n0 = int(num_configs[0])
     n_rows = vectors.shape[0]
     if n_rows < n0:
@@ -89,7 +160,15 @@ def fused_sh_bracket(
         scores = torch.where(torch.isnan(scores), current, scores)
         return torch.where(torch.isnan(current), current, scores)
 
-    losses = _eval_stage(eval_fn, vectors, float(budgets[0]))
+    state = None
+    if stateful is not None:
+        # one lane per row, padding rows included (never promoted)
+        state, losses = stateful.step_fn(
+            stateful.init_fn(vectors), vectors, float(budgets[0]), 0.0
+        )
+        losses = losses.to(torch.float32)
+    else:
+        losses = _eval_stage(eval_fn, vectors, float(budgets[0]))
     cur_idx = torch.arange(n_rows, device=dev)
     history = [losses]  # per-stage losses of the current survivors
     cur_key = rank_key(scores_for(history, 0), cur_idx >= n0)
@@ -99,12 +178,23 @@ def fused_sh_bracket(
         top = torch.sort(cur_key, stable=True).indices[:k]
         top = torch.sort(top).values  # keep original order among survivors
         cur_idx = cur_idx[top]
-        losses = _eval_stage(eval_fn, vectors[cur_idx], float(budgets[s]))
+        if stateful is not None:
+            # warm continuation: the surviving lanes, by the same indices
+            # the rank promoted, train the budget increment only
+            state, losses = stateful.step_fn(
+                tree_map(lambda leaf: leaf[top], state), vectors[cur_idx],
+                float(budgets[s]), float(budgets[s - 1]),
+            )
+            losses = losses.to(torch.float32)
+        else:
+            losses = _eval_stage(eval_fn, vectors[cur_idx], float(budgets[s]))
         history = ([col[top] for col in history] if rank_fn is not None else []) + [losses]
         if s + 1 < len(num_configs):
             cur_key = rank_key(scores_for(history, s),
                                torch.zeros_like(cur_idx, dtype=torch.bool))
         out.append((cur_idx, losses))
+    if return_final_state:
+        return out, state
     return out
 
 

@@ -39,9 +39,16 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hpbandster_tpu_torch.obs.device_metrics import N_BINS, bin_edges
 from hpbandster_tpu_torch.ops.bracket import BracketPlan
 from hpbandster_tpu_torch.ops.cuda_kde import propose_from_candidates
-from hpbandster_tpu_torch.ops.fused import _pack_stages, fused_sh_bracket
+from hpbandster_tpu_torch.ops.fused import (
+    _CRASH_RANK,
+    StatefulEval,
+    _pack_stages,
+    fused_sh_bracket,
+    stage_telemetry,
+)
 from hpbandster_tpu_torch.ops.kde import (
     KDE,
     fit_kde_pair_masked,
@@ -65,6 +72,12 @@ __all__ = [
     "plan_additions",
     "GeneratorDraws",
     "SweepBracketOutput",
+    "SweepIncumbent",
+    "ResidentSweepOutputs",
+    "DeviceMetrics",
+    "init_device_metrics",
+    "resident_rotation",
+    "unstack_resident_outputs",
     "make_fused_sweep_fn",
 ]
 
@@ -601,6 +614,115 @@ class SweepBracketOutput(NamedTuple):
     loss_packed: torch.Tensor
 
 
+class SweepIncumbent(NamedTuple):
+    """The ``incumbent_only=True`` sweep's whole output: the best
+    final-stage (largest-budget) loss over every bracket, crashed (NaN)
+    rows ranked behind any real loss, so an all-crashed sweep still
+    returns a row (with a NaN loss)."""
+
+    #: the winning configuration's quantized vector, f32[d]
+    vector: torch.Tensor
+    #: its final-stage loss (NaN = every candidate crashed), f32[]
+    loss: torch.Tensor
+    #: which bracket (index into ``plans``) produced it, i32[]
+    bracket: torch.Tensor
+    #: each bracket's best final-stage loss, f32[len(plans)]
+    per_bracket_loss: torch.Tensor
+
+
+class ResidentSweepOutputs(NamedTuple):
+    """Full outputs of a ``resident=True`` sweep: ``stacked`` holds one
+    :class:`SweepBracketOutput` per rotation position whose leaves carry a
+    leading round axis, ``tail`` the outputs of the partial last round.
+    :func:`unstack_resident_outputs` flattens both into the unrolled
+    sweep's per-bracket list."""
+
+    stacked: Tuple[SweepBracketOutput, ...]
+    tail: Tuple[SweepBracketOutput, ...]
+
+
+class DeviceMetrics(NamedTuple):
+    """The sweep's telemetry, accumulated on the device: every leaf is sized
+    by the schedule (brackets x rungs x bins), never by the config count.
+    Rows beyond a bracket's rung count keep their initial values; the
+    decoder (``obs.device_metrics.decode_device_metrics``) walks the plan
+    shapes and never reads them."""
+
+    #: per-(bracket, rung) loss histogram over the schema's bins; NaN
+    #: (crashed) losses are counted in ``crashes`` instead
+    loss_hist: torch.Tensor   # i32[n_brackets, max_rungs, N_BINS]
+    #: per-(bracket, rung) evaluations (the stage widths)
+    evals: torch.Tensor       # i32[n_brackets, max_rungs]
+    #: per-(bracket, rung) crashed (NaN-loss) evaluations
+    crashes: torch.Tensor     # i32[n_brackets, max_rungs]
+    #: per-(bracket, rung) configs promoted to the next rung (0 at the last)
+    promotions: torch.Tensor  # i32[n_brackets, max_rungs]
+    #: per bracket, 1 when its proposals came from a fit with an open gate
+    model_fits: torch.Tensor  # i32[n_brackets]
+    #: per-bracket best final-stage loss (NaN = every candidate crashed)
+    best_final: torch.Tensor  # f32[n_brackets]
+    #: per-(bracket, rung) position in the sweep's execution order (-1 =
+    #: the rung never ran)
+    rung_seq: torch.Tensor    # i32[n_brackets, max_rungs]
+
+
+def init_device_metrics(
+    n_brackets: int, max_rungs: int, n_bins: int, device=None
+) -> DeviceMetrics:
+    """Zeroed metrics on ``device``; ``best_final`` starts at NaN (no best
+    yet) and ``rung_seq`` at -1 (no position yet)."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return DeviceMetrics(
+        loss_hist=torch.zeros((n_brackets, max_rungs, n_bins), **i32),
+        evals=torch.zeros((n_brackets, max_rungs), **i32),
+        crashes=torch.zeros((n_brackets, max_rungs), **i32),
+        promotions=torch.zeros((n_brackets, max_rungs), **i32),
+        model_fits=torch.zeros((n_brackets,), **i32),
+        best_final=torch.full((n_brackets,), float("nan"), dtype=_F32, device=device),
+        rung_seq=torch.full((n_brackets, max_rungs), -1, **i32),
+    )
+
+
+def resident_rotation(plans: Sequence[BracketPlan]) -> Tuple[int, int, int]:
+    """``(period, n_rounds, n_tail)`` of a bracket schedule: ``period`` is
+    the smallest ``p`` with ``plans[i] == plans[i - p]`` for every ``i >=
+    p`` (``len(plans)`` for an aperiodic schedule: one round), and ``n_tail
+    = len(plans) - period * n_rounds`` brackets of the partial last round
+    run after the rounds."""
+    plans = [BracketPlan(tuple(p.num_configs), tuple(p.budgets)) for p in plans]
+    n = len(plans)
+    if n == 0:
+        raise ValueError("resident rotation needs at least one bracket")
+    period = n
+    for cand in range(1, n):
+        if all(plans[i] == plans[i - cand] for i in range(cand, n)):
+            period = cand
+            break
+    n_rounds = n // period
+    return period, n_rounds, n - period * n_rounds
+
+
+def unstack_resident_outputs(
+    raw: ResidentSweepOutputs, n_rounds: int
+) -> List[SweepBracketOutput]:
+    """Flatten a (fetched) :class:`ResidentSweepOutputs` into the unrolled
+    sweep's per-bracket list, in bracket order (round-major over the
+    rotation, then the tail)."""
+    outs: List[SweepBracketOutput] = []
+    for r in range(int(n_rounds)):
+        for pos_out in raw.stacked:
+            outs.append(SweepBracketOutput(*(leaf[r] for leaf in pos_out)))
+    outs.extend(SweepBracketOutput(*o) for o in raw.tail)
+    return outs
+
+
+@functools.lru_cache(maxsize=None)
+def _bin_edges_on(device: torch.device) -> torch.Tensor:
+    """The metrics plane's bin edges as float32 on ``device``, uploaded
+    once per device."""
+    return torch.as_tensor(bin_edges().astype(np.float32), device=device)
+
+
 class GeneratorDraws:
     """The sweep's default draws, all from one ``torch.Generator`` seeded
     with the run seed and consumed in bracket order.
@@ -654,7 +776,7 @@ class GeneratorDraws:
 
 
 def make_fused_sweep_fn(
-    eval_fn: Callable[[torch.Tensor, float], torch.Tensor],
+    eval_fn: Optional[Callable[[torch.Tensor, float], torch.Tensor]],
     plans: Sequence[BracketPlan],
     codec: SpaceCodec,
     *,
@@ -680,7 +802,7 @@ def make_fused_sweep_fn(
     shard_sampling: bool = False,
     incumbent_only: bool = False,
     device_metrics: bool = False,
-    stateful_eval=None,
+    stateful_eval: Optional[StatefulEval] = None,
 ) -> Callable[..., List[SweepBracketOutput]]:
     """Build the sweep; returns
     ``fn(seed, warm_v=None, warm_l=None, warm_n=None, draws=None)``.
@@ -707,11 +829,11 @@ def make_fused_sweep_fn(
     discards the model's picks while no gate is open, so counts are never
     read on the host. ``capacities`` (budget -> slots, covering warm plus
     every plan's additions) pins the buffer shapes so all chunks of a run
-    agree. ``return_state=True`` makes ``fn`` return ``(outputs, (obs_v,
-    obs_l, counts))``, the end-of-sweep state the next chunk takes back as
-    its warm inputs. Where the reference donates the warm buffers to that
-    state, the port never writes to its inputs: it builds the state from
-    them once and then appends to it in place.
+    agree. ``return_state=True`` makes ``fn`` also return ``(obs_v, obs_l,
+    counts)``, the end-of-sweep state the next chunk takes back as its warm
+    inputs. Where the reference donates the warm buffers to that state,
+    the port never writes to its inputs: it builds the state from them once
+    and then updates it in place.
 
     ``rank_fn`` (``fused_sh_bracket``'s promotion scorer, e.g.
     ``ops.bracket.power_law_extrapolate``) replaces the raw stage loss as
@@ -723,25 +845,42 @@ def make_fused_sweep_fn(
     (:func:`resample_forbidden`, all passes' draws tested at once) and
     clamps what is still forbidden to ``fallback_vector``, a host-verified
     valid configuration (numpy, or a tensor already on ``device``); a
-    redrawn row is not model-based. Both tiers take all three.
+    redrawn row is not model-based. Every tier takes all three.
 
-    The other tiers and seams of the reference (resident, meshes,
-    incumbent-only, device metrics, stateful evaluation) are not ported yet
-    and raise ``NotImplementedError``.
+    ``resident=True`` (needs ``dynamic_counts=True``) runs the HyperBand
+    rotation's repeating round of brackets round after round
+    (:func:`resident_rotation`), the partial last round after them. On
+    CUDA the round is one captured CUDA graph replayed once per round
+    (``ops/graphs.py``): the default draws only, since a replay cannot
+    hand a bracket index to the host. On the CPU the same round body runs
+    eagerly. ``fn`` returns :class:`ResidentSweepOutputs`; flatten it with
+    :func:`unstack_resident_outputs`. It equals the unrolled dynamic tier
+    bit for bit on the same seed and capacities. After a call on CUDA,
+    ``fn.graph`` is the :class:`~hpbandster_tpu_torch.ops.graphs.RoundGraph`
+    (capture, instantiate and replay times); otherwise None.
+
+    ``incumbent_only=True`` makes ``fn`` return one
+    :class:`SweepIncumbent` instead of per-bracket outputs.
+    ``device_metrics=True`` accumulates a :class:`DeviceMetrics` through
+    every bracket and ``fn`` returns ``(result, metrics)``, or ``(result,
+    metrics, state)`` with ``return_state``; decode it with
+    ``obs.device_metrics.decode_device_metrics``. ``stateful_eval`` (a
+    :class:`~hpbandster_tpu_torch.ops.fused.StatefulEval`, exclusive with
+    ``eval_fn``) trains each bracket's configs with warm continuation
+    across its rungs; the lanes' state stays inside the bracket.
+
+    Meshes (``mesh``, ``shard_sampling``) are not ported yet and raise
+    ``NotImplementedError``.
     """
-    unported = {
-        "resident": resident,
-        "mesh": mesh is not None, "shard_sampling": shard_sampling,
-        "incumbent_only": incumbent_only, "device_metrics": device_metrics,
-        "stateful_eval": stateful_eval is not None,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported to the PyTorch sweep yet"
-            )
-    if eval_fn is None:
-        raise ValueError("make_fused_sweep_fn needs an eval_fn")
+    if mesh is not None or shard_sampling:
+        raise NotImplementedError(
+            "meshes (mesh, shard_sampling) are not ported to the PyTorch sweep yet"
+        )
+    if (eval_fn is None) == (stateful_eval is None):
+        raise ValueError(
+            "provide exactly one evaluation seam: eval_fn (stateless) or "
+            "stateful_eval (StatefulEval warm continuation)"
+        )
     if forbidden_fn is not None and fallback_vector is None:
         raise ValueError("forbidden_fn requires a fallback_vector")
     if return_state and not dynamic_counts:
@@ -749,6 +888,15 @@ def make_fused_sweep_fn(
             "return_state=True requires dynamic_counts=True: the static "
             "tier's counts are host ints, there is no reusable state"
         )
+    if incumbent_only and not plans:
+        raise ValueError("incumbent_only=True needs at least one bracket")
+    if resident and not dynamic_counts:
+        raise ValueError(
+            "resident=True requires dynamic_counts=True: the rounds carry "
+            "observation counts on the device"
+        )
+    if resident and not plans:
+        raise ValueError("resident=True needs at least one bracket")
     device = torch.device(device)
     d = int(codec.kind.shape[0])
     min_pts = (d + 1) if min_points_in_model is None else max(int(min_points_in_model), d + 1)
@@ -779,6 +927,14 @@ def make_fused_sweep_fn(
             tables, torch.as_tensor(fallback_vector, dtype=_F32, device=device)
         )
     )
+    if device_metrics:
+        dm_edges = _bin_edges_on(device)
+        dm_rungs = max(len(p.num_configs) for p in plans) if plans else 0
+        # each bracket's first rung's position in the execution order
+        dm_seq_base = torch.as_tensor(
+            np.cumsum([0] + [len(p.num_configs) for p in plans])[:-1],
+            dtype=torch.int64, device=device,
+        )
 
     def trained_split(n: int) -> Optional[Tuple[int, int]]:
         """Host-side gate of the KDE fit: split sizes, or None when closed."""
@@ -817,7 +973,7 @@ def make_fused_sweep_fn(
         wins. With no gate open the fit runs on empty buffers (finite, the
         donor draw is :func:`~hpbandster_tpu_torch.ops.kde._masked_donors`)
         and the mask discards every model pick, like the static tier's
-        all-random bracket."""
+        all-random bracket. Also returns whether a gate was open."""
         sel_v = torch.zeros((capmax, d), dtype=_F32, device=device)
         sel_l = torch.full((capmax,), float("inf"), dtype=_F32, device=device)
         sel_n = torch.zeros((), dtype=torch.int32, device=device)
@@ -842,7 +998,12 @@ def make_fused_sweep_fn(
             cands, good, bad, vartypes_dev, cards_dev, n0
         )
         mb_mask = any_model & draws.model_mask(b_i, n0).to(device)
-        return torch.where(mb_mask[:, None], model_vecs, rand_vecs), mb_mask
+        return torch.where(mb_mask[:, None], model_vecs, rand_vecs), mb_mask, any_model
+
+    if resident:
+        period, n_rounds, _ = resident_rotation(plans)
+        round_plans = plans[:period]
+        tail_plans = plans[period * n_rounds:]
 
     def init_obs_state(warm_v, warm_l, warm_n):
         """Per-budget observation buffers. Static tier: exact-count slices
@@ -899,17 +1060,45 @@ def make_fused_sweep_fn(
             counts[b] = n_b
         return obs_v, obs_l, counts
 
-    def run_bracket(b_i, plan, draws, obs_v, obs_l, counts):
+    def init_incumbent():
+        """The cross-bracket incumbent carry, updated in place: (rank key,
+        loss, vector, bracket, per-bracket best), scalars as one-element
+        tensors."""
+        return (
+            torch.full((1,), float("inf"), dtype=_F32, device=device),
+            torch.full((1,), float("nan"), dtype=_F32, device=device),
+            torch.zeros((d,), dtype=_F32, device=device),
+            torch.full((1,), -1, dtype=torch.int32, device=device),
+            torch.zeros((len(plans),), dtype=_F32, device=device),
+        )
+
+    def best_row(losses: torch.Tensor) -> torch.Tensor:
+        """Index (``int64[1]``) of the best loss, crashes ranked behind any
+        real loss; the first on ties, like ``jnp.argmin``."""
+        key = torch.where(torch.isnan(losses),
+                          torch.full_like(losses, float(_CRASH_RANK)), losses)
+        return torch.argmin(key).view(1)
+
+    def run_bracket(b_i, b_idx, plan, draws, obs_v, obs_l, counts, inc, metrics):
         """One bracket: sample/propose -> forbidden resampling -> rung
-        ladder -> observation append. Updates ``obs_v``/``obs_l``/``counts``
-        in place."""
+        ladder -> observation append -> incumbent fold -> metrics. Updates
+        ``obs_v``/``obs_l``/``counts`` (dynamic counts in place), ``inc`` and
+        ``metrics`` in place, so a captured bracket carries its state into
+        the next replay. ``b_i`` is the bracket's index for the draw
+        source (None inside a graph, where the default draws ignore it);
+        ``b_idx`` (``int64[1]`` on the device) is the row the incumbent and
+        the metrics write. Returns the :class:`SweepBracketOutput`, or None
+        under ``incumbent_only``."""
         n0 = plan.num_configs[0]
         rand_vecs = draws.stage0(b_i, n0).to(device)
+        # the metrics' refit flag: was the model gate open this bracket
+        fit_flag = None
         if dynamic_counts:
             if any_trainable:
-                proposals, mb_mask = dynamic_proposals(
+                proposals, mb_mask, any_model = dynamic_proposals(
                     b_i, draws, obs_v, obs_l, counts, rand_vecs, n0
                 )
+                fit_flag = any_model.to(torch.int32)
             else:
                 # no budget's gate can open even at full capacity: no model
                 # math at all
@@ -925,6 +1114,7 @@ def make_fused_sweep_fn(
                 proposals = rand_vecs
                 mb_mask = torch.zeros(n0, dtype=torch.bool, device=device)
             else:
+                fit_flag = torch.ones((), dtype=torch.int32, device=device)
                 n = counts[model_budget]
                 n_good, n_bad = trained_split(n)
                 good, bad = _fit_kde_pair_device(
@@ -960,7 +1150,8 @@ def make_fused_sweep_fn(
         else:
             eval_vectors = out_vectors = vectors
         stages = fused_sh_bracket(
-            eval_fn, eval_vectors, plan.num_configs, plan.budgets, rank_fn=rank_fn
+            eval_fn, eval_vectors, plan.num_configs, plan.budgets, rank_fn=rank_fn,
+            stateful=stateful_eval,
         )
         for (idx_s, losses_s), k_s, budget in zip(stages, plan.num_configs, plan.budgets):
             b = float(budget)
@@ -974,25 +1165,138 @@ def make_fused_sweep_fn(
                 rows = c + torch.arange(k_s, device=device)
                 obs_v[b].index_copy_(0, rows, out_vectors[idx_s])
                 obs_l[b].index_copy_(0, rows, upd_l)
+                c.add_(k_s)
             else:
                 obs_v[b][c:c + k_s] = out_vectors[idx_s]
                 obs_l[b][c:c + k_s] = upd_l
-            counts[b] = c + k_s
+                counts[b] = c + k_s
+
+        idx_fin, loss_fin = stages[-1]
+        if metrics is not None or incumbent_only:
+            a_fin = best_row(loss_fin)
+        if metrics is not None:
+            depth = len(plan.num_configs)
+            for s, ((_, losses_s), k_s) in enumerate(zip(stages, plan.num_configs)):
+                hist, crashes = stage_telemetry(losses_s, dm_edges)
+                metrics.loss_hist[:, s].index_copy_(0, b_idx, hist[None])
+                metrics.evals[:, s].index_fill_(0, b_idx, k_s)
+                metrics.crashes[:, s].index_copy_(0, b_idx, crashes.view(1))
+                metrics.promotions[:, s].index_fill_(
+                    0, b_idx, plan.num_configs[s + 1] if s + 1 < depth else 0)
+                metrics.rung_seq[:, s].index_copy_(
+                    0, b_idx, (dm_seq_base.index_select(0, b_idx) + s).to(torch.int32))
+            if fit_flag is not None:
+                metrics.model_fits.index_copy_(0, b_idx, fit_flag.view(1))
+            metrics.best_final.index_copy_(0, b_idx, loss_fin.gather(0, a_fin))
+
+        if incumbent_only:
+            # fold the bracket's best final-stage row into the running
+            # incumbent; crashes rank behind every real loss
+            best_key, best_loss, best_vec, best_bracket, per_bracket = inc
+            cand_loss = loss_fin.gather(0, a_fin)
+            cand_key = torch.where(torch.isnan(cand_loss),
+                                   torch.full_like(cand_loss, float(_CRASH_RANK)),
+                                   cand_loss)
+            take = cand_key < best_key
+            best_key.copy_(torch.where(take, cand_key, best_key))
+            best_loss.copy_(torch.where(take, cand_loss, best_loss))
+            best_vec.copy_(torch.where(
+                take, out_vectors.index_select(0, idx_fin.gather(0, a_fin))[0], best_vec))
+            best_bracket.copy_(torch.where(take, b_idx.to(torch.int32), best_bracket))
+            per_bracket.index_copy_(0, b_idx, cand_loss)
+            return None
         idx_packed, loss_packed = _pack_stages(stages)
         return SweepBracketOutput(out_vectors[:n0], mb_mask, idx_packed, loss_packed)
 
+    def resident_rounds(draws, row, obs_v, obs_l, counts, inc, metrics):
+        """The rotation's rounds, then the tail, writing each round's
+        outputs into ``[n_rounds, ...]`` buffers at a device round index.
+        Returns (the stacked buffers, the tail's outputs, the graph)."""
+        r_idx = torch.zeros(1, dtype=torch.int64, device=device)
+        stacked = []
+        if not incumbent_only:
+            for plan in round_plans:
+                n0, total = plan.num_configs[0], sum(plan.num_configs)
+                stacked.append(SweepBracketOutput(
+                    torch.empty((n_rounds, n0, d), dtype=_F32, device=device),
+                    torch.empty((n_rounds, n0), dtype=torch.bool, device=device),
+                    torch.empty((n_rounds, total), dtype=torch.int64, device=device),
+                    torch.empty((n_rounds, total), dtype=_F32, device=device),
+                ))
+
+        def round_body(r=None):
+            for pos, plan in enumerate(round_plans):
+                out = run_bracket(
+                    None if r is None else r * period + pos, r_idx * period + pos,
+                    plan, draws, obs_v, obs_l, counts, inc, metrics,
+                )
+                if out is not None:
+                    for buf, leaf in zip(stacked[pos], out):
+                        buf.index_copy_(0, r_idx, leaf[None])
+            r_idx.add_(1)
+
+        graph = None
+        if device.type == "cuda":
+            from hpbandster_tpu_torch.ops.graphs import RoundGraph
+
+            graph = RoundGraph(round_body, device, generators=[draws.generator])
+            for _ in range(n_rounds):
+                graph.replay()
+        else:
+            for r in range(n_rounds):
+                round_body(r)
+        tail = []
+        for j, plan in enumerate(tail_plans):
+            b_i = period * n_rounds + j
+            out = run_bracket(b_i, row(b_i), plan, draws, obs_v, obs_l, counts,
+                              inc, metrics)
+            if out is not None:
+                tail.append(out)
+        return tuple(stacked), tuple(tail), graph
+
     def sweep(seed, warm_v=None, warm_l=None, warm_n=None, draws=None):
+        sweep.graph = None
         if draws is None:
             draws = GeneratorDraws(
                 tables, int(seed), random_fraction, bandwidth_factor, min_bandwidth
             )
+        elif resident and device.type == "cuda":
+            raise ValueError(
+                "the resident sweep on CUDA replays a captured round and takes "
+                "the default draws only"
+            )
         obs_v, obs_l, counts = init_obs_state(warm_v, warm_l, warm_n)
-        outputs = [
-            run_bracket(b_i, plan, draws, obs_v, obs_l, counts)
-            for b_i, plan in enumerate(plans)
-        ]
-        if return_state:
-            return outputs, (obs_v, obs_l, counts)
-        return outputs
+        inc = init_incumbent() if incumbent_only else None
+        metrics = (
+            init_device_metrics(len(plans), dm_rungs, N_BINS, device)
+            if device_metrics else None
+        )
+        # the brackets' rows for the incumbent and the metrics, made on the
+        # device rather than uploaded
+        rows = (torch.arange(len(plans), device=device)
+                if incumbent_only or device_metrics else None)
 
+        def row(b_i):
+            return None if rows is None else rows[b_i:b_i + 1]
+
+        if resident:
+            stacked, tail, sweep.graph = resident_rounds(
+                draws, row, obs_v, obs_l, counts, inc, metrics
+            )
+            result = ResidentSweepOutputs(stacked, tail)
+        else:
+            result = [
+                run_bracket(b_i, row(b_i), plan, draws, obs_v, obs_l, counts,
+                            inc, metrics)
+                for b_i, plan in enumerate(plans)
+            ]
+        if incumbent_only:
+            best_key, best_loss, best_vec, best_bracket, per_bracket = inc
+            result = SweepIncumbent(best_vec, best_loss[0], best_bracket[0], per_bracket)
+        out = (result,) + ((metrics,) if device_metrics else ())
+        if return_state:
+            out += ((obs_v, obs_l, counts),)
+        return out if len(out) > 1 else result
+
+    sweep.graph = None
     return sweep

@@ -1,18 +1,20 @@
 """FusedBOHB: the whole-sweep optimizer driver, on PyTorch.
 
 Ported from ``hpbandster_tpu/optimizers/fused_bohb.py``: ``FusedBOHB``
-(``__init__`` with conditions, forbidden clauses and ``previous_result=``,
-``_plan``, the chunked ``run`` on the static and dynamic-count tiers,
-``save_checkpoint``/``load_checkpoint``, ``_accumulate_obs``,
-``_replay_bracket``), ``_ReplayIteration`` and the subclasses
-``FusedHyperBand``, ``FusedH2BO`` and ``FusedRandomSearch``. The sweep runs
-on the device (``ops/sweep.py``); after each chunk the host replays its
-brackets into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
+(``__init__`` with conditions, forbidden clauses, ``previous_result=`` and
+the ``stateful_eval=`` seam, ``_plan``, the chunked ``run`` on the static
+and dynamic-count tiers and its ``resident=`` tier, the device-metrics
+plane, ``run_incumbent``, ``save_checkpoint``/``load_checkpoint``,
+``_accumulate_obs``, ``_replay_bracket``), ``_ReplayIteration`` and the
+subclasses ``FusedHyperBand``, ``FusedH2BO`` and ``FusedRandomSearch``. The
+sweep runs on the device (``ops/sweep.py``; the resident tier's rounds as
+CUDA graphs on a card); after each chunk the host replays its brackets
+into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
 bookkeeping, so analysis code sees the structures the reference produces.
 
-Not ported yet: the resident tier and ``run_incumbent``, meshes and
-multiprocess runs, streamed warm uploads, stateful evaluation, the
-device-metrics plane and the observability events.
+Not ported yet: meshes and multiprocess runs, streamed warm uploads, the
+pipelined replay of chunks, and the observability events (the decoded
+device telemetry is kept, not published).
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ from hpbandster_tpu_torch.core.result import Result
 from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
 from hpbandster_tpu_torch.core.warmstart import WarmStartIteration
 from hpbandster_tpu_torch.device import resolve_device
+from hpbandster_tpu_torch.obs.device_metrics import (
+    decode_device_metrics,
+    device_metrics_default,
+)
 from hpbandster_tpu_torch.ops.bracket import (
     BracketPlan,
     budget_ladder,
@@ -41,7 +47,7 @@ from hpbandster_tpu_torch.ops.bracket import (
     max_sh_iterations,
     power_law_extrapolate,
 )
-from hpbandster_tpu_torch.ops.fused import _unpack_stages
+from hpbandster_tpu_torch.ops.fused import StatefulEval, _unpack_stages
 from hpbandster_tpu_torch.ops.sweep import (
     build_space_codec,
     codec_tables,
@@ -50,10 +56,22 @@ from hpbandster_tpu_torch.ops.sweep import (
     make_fused_sweep_fn,
     plan_additions,
     pow2_capacities,
+    resident_rotation,
+    unstack_resident_outputs,
 )
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
 __all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]
+
+
+def _fetch(out):
+    """A sweep's device output on the host as numpy: a named tuple (or a
+    tuple or list of them) of tensors, the same structure back."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    if hasattr(out, "_fields"):
+        return type(out)(*(_fetch(x) for x in out))
+    return type(out)(_fetch(x) for x in out)
 
 
 class _ReplayIteration(SuccessiveHalving):
@@ -79,7 +97,9 @@ class FusedBOHB:
     ``eval_fn(vectors f32[n, d], budget) -> f32[n]`` evaluates a batch of
     unit-hypercube configuration vectors at a Python-float budget.
     ``device=None`` means ``cuda`` and raises where CUDA is absent; pass
-    ``device="cpu"`` to run the plain PyTorch path on the CPU.
+    ``device="cpu"`` to run the plain PyTorch path on the CPU. In place of
+    ``eval_fn``, ``stateful_eval`` (an ``ops.fused.StatefulEval``) trains
+    each bracket's configs with warm continuation across its rungs.
     ``previous_result`` (a ``Result``) warm-starts the model with its
     observations, which ride into every later ``Result`` under negative
     iteration ids.
@@ -112,13 +132,20 @@ class FusedBOHB:
         logger: Optional[logging.Logger] = None,
         previous_result: Optional[Result] = None,
         device=None,
+        stateful_eval: Optional[StatefulEval] = None,
     ):
         self.device = resolve_device(device)
         if configspace is None:
             raise ValueError("you have to provide a valid ConfigurationSpace object")
-        if eval_fn is None:
+        if eval_fn is None and stateful_eval is None:
             raise ValueError(
-                "FusedBOHB needs a batched eval_fn(vectors f32[n, d], budget) -> f32[n]"
+                "FusedBOHB needs a batched eval_fn(vectors f32[n, d], budget) -> "
+                "f32[n], or a StatefulEval (ops.fused.StatefulEval)"
+            )
+        if eval_fn is not None and stateful_eval is not None:
+            raise ValueError(
+                "eval_fn and stateful_eval are exclusive: one evaluation seam "
+                "per optimizer"
             )
         self.configspace = configspace
         self.codec = build_space_codec(configspace)
@@ -140,16 +167,32 @@ class FusedBOHB:
             )
         d = int(self.codec.kind.shape[0])
         # fail fast on an objective of the wrong shape, before the sweep
-        probe = eval_fn(
-            torch.full((2, d), 0.5, dtype=torch.float32, device=self.device),
-            float(min_budget),
-        )
-        if tuple(getattr(probe, "shape", ())) != (2,):
-            raise ValueError(
-                "eval_fn must return one loss per row: f32[n] for f32[n, "
-                f"{d}] vectors, got shape {tuple(getattr(probe, 'shape', ()))}"
-            )
+        probe_v = torch.full((2, d), 0.5, dtype=torch.float32, device=self.device)
+        if stateful_eval is not None:
+            # one init -> step round trip on two lanes
+            try:
+                _, probe = stateful_eval.step_fn(
+                    stateful_eval.init_fn(probe_v), probe_v, float(min_budget), 0.0
+                )
+            except Exception as e:
+                raise ValueError(
+                    f"stateful_eval failed on f32[2, {d}] vectors (init_fn + "
+                    f"step_fn): {type(e).__name__}: {e}"
+                ) from e
+            if tuple(getattr(probe, "shape", ())) != (2,):
+                raise ValueError(
+                    "stateful_eval.step_fn must return per-lane losses f32[n], "
+                    f"got shape {tuple(getattr(probe, 'shape', ()))}"
+                )
+        else:
+            probe = eval_fn(probe_v, float(min_budget))
+            if tuple(getattr(probe, "shape", ())) != (2,):
+                raise ValueError(
+                    "eval_fn must return one loss per row: f32[n] for f32[n, "
+                    f"{d}] vectors, got shape {tuple(getattr(probe, 'shape', ()))}"
+                )
         self.eval_fn = eval_fn
+        self.stateful_eval = stateful_eval
         self.run_id = run_id
         self.eta = float(eta)
         self.min_budget = float(min_budget)
@@ -194,6 +237,9 @@ class FusedBOHB:
         self._warm_v: Dict[float, np.ndarray] = {}
         self._warm_l: Dict[float, np.ndarray] = {}
         self.warmstart_iteration: List[Any] = []
+        #: the decoded device telemetry of the last run with the metrics
+        #: plane on (``obs.device_metrics.decode_device_metrics``)
+        self.last_device_telemetry: Optional[Dict[str, Any]] = None
         if previous_result is not None:
             self._ingest_previous_result(previous_result)
 
@@ -241,6 +287,7 @@ class FusedBOHB:
         checkpoint_path: Optional[str] = None,
         dynamic_counts: Optional[bool] = None,
         resident: bool = False,
+        device_metrics: Optional[bool] = None,
     ) -> Result:
         """Run the remaining brackets up to ``n_iterations`` (a total that
         counts earlier ``run()`` calls, which feed this one as warm data) on
@@ -265,13 +312,37 @@ class FusedBOHB:
         distribution but are distinct consumers of random numbers. Between
         dynamic chunks the observation state stays on the device while the
         buffer capacities are unchanged, and is uploaded from the host's
-        copy when they grow. ``resident`` is not ported yet and raises.
+        copy when they grow.
+
+        ``resident=True`` runs the schedule as the resident sweep: the
+        HyperBand rotation's round of brackets, on a card one captured CUDA
+        graph replayed once per round (``ops/sweep.py``), then the partial
+        last round; one fetch at the end. Its ``Result`` equals the
+        unrolled dynamic tier's (``dynamic_counts=True``) on the same seed.
+        It replaces chunking and needs the dynamic-count tier. On a card its
+        ``run_stats`` row adds the graph's capture and instantiate seconds
+        and each replay's device milliseconds.
+
+        ``device_metrics`` turns the device metrics plane on: per-rung loss
+        histograms, crash, evaluation and promotion counts, refit flags and
+        per-bracket bests accumulate on the device, and every chunk's are
+        decoded at the end of the run into one record,
+        :attr:`last_device_telemetry`. ``None`` follows
+        ``HPB_DEVICE_METRICS=1``; off otherwise.
         """
         del min_n_workers  # API symmetry with Master.run; no worker pool here
-        if resident:
-            raise NotImplementedError(
-                "resident is not ported to the PyTorch FusedBOHB yet"
+        if resident and chunk_brackets is not None:
+            raise ValueError(
+                "resident=True replaces chunking (the whole schedule is one "
+                "resident sweep): drop chunk_brackets"
             )
+        if resident and dynamic_counts is False:
+            raise ValueError(
+                "resident=True requires the dynamic-count tier (the rounds "
+                "carry the counts on the device): drop dynamic_counts=False"
+            )
+        use_dm = (device_metrics_default() if device_metrics is None
+                  else bool(device_metrics))
         first = len(self.iterations)
         plans = [self._plan(i) for i in range(first, int(n_iterations))]
         if self.config["time_ref"] is None:
@@ -280,7 +351,7 @@ class FusedBOHB:
         # only the caller's knobs choose the tier, never how many brackets
         # remain: a run cut after its first chunk and a longer uninterrupted
         # run must execute identical first chunks for a resume to match
-        dynamic = (
+        dynamic = resident or (
             (chunk_brackets is not None)
             if dynamic_counts is None else bool(dynamic_counts)
         )
@@ -289,6 +360,9 @@ class FusedBOHB:
         #: device observation state returned by the previous dynamic chunk
         #: and the capacities it was built for
         dev_state = dev_caps = None
+        #: each chunk's fetched metrics and plans, decoded together at the end
+        dm_parts: List[Any] = []
+        dm_execute_s = 0.0
         while plans:
             chunk_plans, plans = plans[:chunk], plans[chunk:]
             seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
@@ -305,38 +379,33 @@ class FusedBOHB:
                 if dev_state is not None and run_caps == dev_caps:
                     warm, upload_bytes = dev_state, 0
                 else:
-                    warm, upload_bytes = self._dynamic_warm(run_caps, d)
+                    warm, upload_bytes, _ = self._dynamic_warm(run_caps, d)
             else:
                 warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
                 upload_bytes = sum(
                     v.nbytes + self._warm_l[b].nbytes for b, v in self._warm_v.items()
                 )
-            sweep = make_fused_sweep_fn(
-                self.eval_fn, chunk_plans, self.codec,
-                device=self.device,
-                tables=self.codec_tables,
-                num_samples=self.num_samples,
-                random_fraction=self.random_fraction,
-                top_n_percent=self.top_n_percent,
-                min_points_in_model=self.min_points_in_model,
-                bandwidth_factor=self.bandwidth_factor,
-                min_bandwidth=self.min_bandwidth,
-                warm_counts=warm_counts,
-                rank_fn=self.promotion_rank_fn,
-                active_mask_fn=self.active_mask_fn,
-                forbidden_fn=self.forbidden_fn,
-                fallback_vector=self._fallback_vector,
-                dynamic_counts=dynamic,
-                capacities=run_caps,
-                return_state=dynamic,
+            sweep = self._sweep_fn(
+                chunk_plans, warm_counts=warm_counts, dynamic_counts=dynamic,
+                capacities=run_caps, return_state=dynamic, resident=resident,
+                device_metrics=use_dm,
             )
             t0 = time.perf_counter()
-            raw = sweep(seed, *warm)
+            # (outputs[, metrics][, state]): a bare result when neither
+            parts = sweep(seed, *warm)
+            if not (dynamic or use_dm):
+                parts = (parts,)
             if dynamic:
-                raw, dev_state = raw
+                *parts, dev_state = parts
                 dev_caps = run_caps
-            outputs = [type(o)(*(t.cpu().numpy() for t in o)) for o in raw]
+            outputs = _fetch(parts[0])
+            if use_dm:
+                dm_parts.append((_fetch(parts[1]), chunk_plans))
             execute_s = time.perf_counter() - t0
+            if resident:
+                outputs = unstack_resident_outputs(
+                    outputs, resident_rotation(chunk_plans)[1]
+                )
             stat = {
                 "chunk_index": len(self.run_stats),
                 "brackets": list(range(done, done + len(chunk_plans))),
@@ -346,6 +415,12 @@ class FusedBOHB:
                 # 0 when the previous chunk's device state carried them
                 "warm_upload_bytes": int(upload_bytes),
             }
+            graph = getattr(sweep, "graph", None)  # a wrapped sweep may not carry it
+            if graph is not None:
+                stat.update(graph_capture_s=graph.capture_s,
+                            graph_instantiate_s=graph.instantiate_s,
+                            graph_replay_ms=graph.replay_ms())
+            dm_execute_s += execute_s
             self.run_stats.append(stat)
             job_info = {
                 "fused_chunk": stat["chunk_index"],
@@ -364,13 +439,106 @@ class FusedBOHB:
             done += len(chunk_plans)
             if checkpoint_path is not None:
                 self.save_checkpoint(checkpoint_path)
+        if dm_parts:
+            self.last_device_telemetry = decode_device_metrics(
+                dm_parts, execute_s=dm_execute_s
+            )
         return Result(list(self.iterations) + self.warmstart_iteration, self.config)
+
+    def run_incumbent(
+        self,
+        n_iterations: int = 1,
+        resident: bool = True,
+        device_metrics: Optional[bool] = None,
+    ) -> Dict[str, Any]:
+        """The incumbent-only sweep: brackets ``0 .. n_iterations - 1`` as
+        one dynamic-count sweep (the resident tier unless ``resident=False``)
+        whose only output is the best final-stage configuration, with the
+        optimizer's warm observations as its warm data. No per-config
+        ``Result`` bookkeeping, and :attr:`iterations` does not advance: a
+        one-shot query, not a resumable run.
+
+        Returns ``incumbent`` (``vector``, ``loss``, ``bracket``,
+        ``per_bracket_loss``), ``evaluations``, ``execute_fetch_s`` and
+        ``transfers``: the bytes and tensors this call moved each way
+        (``transfer_bytes_h2d``, ``transfer_bytes_d2h``, ``transfers_h2d``,
+        ``transfers_d2h``). ``device_metrics`` (default:
+        ``HPB_DEVICE_METRICS``) adds ``device_telemetry``, the decoded
+        record, also kept as :attr:`last_device_telemetry`.
+        """
+        plans = [self._plan(i) for i in range(int(n_iterations))]
+        if not plans:
+            raise ValueError("run_incumbent needs n_iterations >= 1")
+        use_dm = (device_metrics_default() if device_metrics is None
+                  else bool(device_metrics))
+        d = int(self.codec.kind.shape[0])
+        # the chunked tier's capacity policy
+        run_caps = {float(b): len(l) for b, l in self._warm_l.items()}
+        for b, k in plan_additions(plans).items():
+            run_caps[b] = run_caps.get(b, 0) + k
+        run_caps = pow2_capacities(run_caps)
+        seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
+        warm, upload_bytes, uploads = self._dynamic_warm(run_caps, d)
+        sweep = self._sweep_fn(
+            plans, dynamic_counts=True, capacities=run_caps, resident=resident,
+            incumbent_only=True, device_metrics=use_dm,
+        )
+        t0 = time.perf_counter()
+        raw = sweep(seed, *warm)
+        inc, dm = (raw if use_dm else (raw, None))
+        inc = _fetch(inc)
+        dm = None if dm is None else _fetch(dm)
+        execute_s = time.perf_counter() - t0
+        fetched = list(inc) + ([] if dm is None else list(dm))
+        out: Dict[str, Any] = {
+            "incumbent": {
+                "vector": [float(x) for x in inc.vector],
+                "loss": float(inc.loss),
+                "bracket": int(inc.bracket),
+                "per_bracket_loss": [float(x) for x in inc.per_bracket_loss],
+            },
+            "evaluations": int(sum(sum(p.num_configs) for p in plans)),
+            "execute_fetch_s": execute_s,
+            "transfers": {
+                "transfer_bytes_h2d": int(upload_bytes),
+                "transfer_bytes_d2h": int(sum(a.nbytes for a in fetched)),
+                "transfers_h2d": int(uploads),
+                "transfers_d2h": len(fetched),
+            },
+        }
+        if dm is not None:
+            self.last_device_telemetry = decode_device_metrics(
+                dm, plans=plans, execute_s=execute_s
+            )
+            out["device_telemetry"] = self.last_device_telemetry
+        return out
+
+    def _sweep_fn(self, plans, **modes):
+        """``make_fused_sweep_fn`` over ``plans`` with this optimizer's
+        settings and the given tier and modes."""
+        return make_fused_sweep_fn(
+            self.eval_fn, plans, self.codec,
+            device=self.device,
+            tables=self.codec_tables,
+            num_samples=self.num_samples,
+            random_fraction=self.random_fraction,
+            top_n_percent=self.top_n_percent,
+            min_points_in_model=self.min_points_in_model,
+            bandwidth_factor=self.bandwidth_factor,
+            min_bandwidth=self.min_bandwidth,
+            rank_fn=self.promotion_rank_fn,
+            active_mask_fn=self.active_mask_fn,
+            forbidden_fn=self.forbidden_fn,
+            fallback_vector=self._fallback_vector,
+            stateful_eval=self.stateful_eval,
+            **modes,
+        )
 
     def _dynamic_warm(self, run_caps: Dict[float, int], d: int):
         """The host fold of the warm observations as the dynamic tier's
         full-capacity inputs on the device: ``((warm_v, warm_l, warm_n),
-        bytes uploaded)``. Pads are (0-vector, +inf loss), exactly what the
-        device appends leave in a threaded state."""
+        bytes uploaded, tensors uploaded)``. Pads are (0-vector, +inf loss),
+        exactly what the device appends leave in a threaded state."""
         warm_v_pad, warm_l_pad, warm_n = {}, {}, {}
         for b, cap in run_caps.items():
             v = self._warm_v.get(b)
@@ -384,7 +552,8 @@ class FusedBOHB:
         nbytes = sum(
             warm_v_pad[b].nbytes + warm_l_pad[b].nbytes + 4 for b in run_caps
         )
-        return dynamic_obs_from_numpy(warm_v_pad, warm_l_pad, warm_n, self.device), nbytes
+        warm = dynamic_obs_from_numpy(warm_v_pad, warm_l_pad, warm_n, self.device)
+        return warm, nbytes, 3 * len(run_caps)
 
     def save_checkpoint(self, path: str) -> None:
         """Write the fused-tier checkpoint (``core/checkpoint.py``): warm

@@ -9,6 +9,7 @@ noisier.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -75,12 +76,17 @@ _H6_P = 1e-4 * np.array(
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _hartmann6_constants(dev: torch.device):
+    """Hartmann-6's constants on ``dev``, uploaded on the first call there:
+    an upload from host memory synchronises, and a CUDA graph cannot
+    capture it."""
+    return tuple(torch.as_tensor(x, device=dev) for x in (_H6_A, _H6_P, _H6_ALPHA))
+
+
 def hartmann6(vectors: torch.Tensor, budget: float) -> torch.Tensor:
     """Hartmann-6 on [0,1]^6; global minimum ~-3.3224."""
-    dev = vectors.device
-    a = torch.as_tensor(_H6_A, device=dev)
-    p = torch.as_tensor(_H6_P, device=dev)
-    alpha = torch.as_tensor(_H6_ALPHA, device=dev)
+    a, p, alpha = _hartmann6_constants(vectors.device)
     inner = (a[None] * torch.square(vectors[:, None, :] - p[None])).sum(-1)
     val = -(alpha[None] * torch.exp(-inner)).sum(-1)
     noise = 0.5 * torch.sin(31.0 * vectors.sum(-1)) / math.sqrt(budget + 1e-9)

@@ -108,20 +108,24 @@ def test_threaded_state_equals_reupload_every_chunk():
 
 def test_tier_follows_the_knobs_not_the_remaining_schedule():
     """``chunk_brackets`` selects the dynamic tier whatever the chunk size;
-    ``dynamic_counts`` forces either tier."""
+    ``dynamic_counts`` forces either tier; ``resident`` takes the dynamic
+    tier, in one chunk."""
     cases = [
         (dict(chunk_brackets=8), [True]),
         (dict(), [False]),
         (dict(dynamic_counts=True), [True]),
         (dict(chunk_brackets=2, dynamic_counts=False), [False, False]),
     ]
+    cases.append((dict(resident=True), [True]))
     for kw, tiers in cases:
         opt = make_fused()
         res = opt.run(n_iterations=4, **kw)
         assert [s["dynamic_counts"] for s in opt.run_stats] == tiers, kw
         assert _runs_per_budget(res) == _expected_runs_per_budget(4, 9.0)
-    with pytest.raises(NotImplementedError):
-        make_fused().run(n_iterations=2, resident=True)
+    # the resident tier is the dynamic tier, and replaces chunking
+    for kw in (dict(dynamic_counts=False), dict(chunk_brackets=2)):
+        with pytest.raises(ValueError, match="resident"):
+            make_fused().run(n_iterations=2, resident=True, **kw)
 
 
 def test_failed_chunk_keeps_completed_chunks():

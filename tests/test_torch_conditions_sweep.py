@@ -35,9 +35,10 @@ LOSS_TOL = 1e-4
 FALLBACK = np.array([0.3, 0.6, 0.0, 0.5, 2.0, 0.25], np.float32)
 
 
-def run_conditional_pair(ref, dynamic, seed=1234, n_iterations=3):
+def run_conditional_pair(ref, dynamic, seed=1234, n_iterations=3, **modes):
     """The reference's and the port's sweep on the conditional space and the
-    same draws. Returns ``(want, got, forbidden rows the port saw)``."""
+    same draws, both built with ``modes`` (e.g. ``resident=True``) as well.
+    Returns ``(want, got, forbidden rows the port saw)``."""
     rcs, tcs = cond_space(ref.space), cond_space(tspace)
     rc = ref.sweep.build_space_codec(rcs)
     codec = codec_from_numpy(*rc)
@@ -51,7 +52,7 @@ def run_conditional_pair(ref, dynamic, seed=1234, n_iterations=3):
         ref_eval, plans, rc, num_samples=NUM_SAMPLES, use_pallas=True,
         pallas_interpret=True, active_mask_fn=ref.sweep.compile_active_mask(rcs, rc),
         forbidden_fn=ref.sweep.compile_forbidden_mask(rcs, rc),
-        fallback_vector=FALLBACK, **kw,
+        fallback_vector=FALLBACK, **kw, **modes,
     )(np.uint32(seed))
     tables = codec_tables(codec, "cpu")
     forbidden = compile_forbidden_mask(tcs, tables)
@@ -65,7 +66,7 @@ def run_conditional_pair(ref, dynamic, seed=1234, n_iterations=3):
     got = make_fused_sweep_fn(
         port_eval, plans, codec, device="cpu", tables=tables, num_samples=NUM_SAMPLES,
         active_mask_fn=compile_active_mask(tcs, tables),
-        forbidden_fn=counting_forbidden, fallback_vector=FALLBACK, **kw,
+        forbidden_fn=counting_forbidden, fallback_vector=FALLBACK, **kw, **modes,
     )(seed, draws=ReferenceDraws(ref, rc, seed))
     return want, got, seen
 

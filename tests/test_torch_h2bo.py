@@ -246,20 +246,24 @@ def test_h2bo_resume_and_checkpoint_guard(tmp_path):
 
 
 def test_unported_optimizer_modes_raise():
-    """On every optimizer class and a conditional space, the resident tier
-    raises ``NotImplementedError`` on both tiers, modes without a parameter
-    here (meshes, stateful evaluation, device metrics) are refused as
-    unknown arguments, and nothing runs."""
+    """On every optimizer class and a conditional space: a mesh is refused
+    as an unknown argument, a ``stateful_eval`` beside an ``eval_fn`` is
+    refused, the resident tier refuses chunking and the static tier
+    (``ValueError``, nothing runs), and ``run(resident=True,
+    device_metrics=True)`` runs the plan with its telemetry."""
     for cls in (FusedBOHB, *CLASSES.values()):
         kw = dict(configspace=cond_space(tspace), eval_fn=cond_loss, min_budget=1,
                   max_budget=9, seed=0, device="cpu")
-        for extra in ({"mesh": object()}, {"stateful_eval": object()}):
-            with pytest.raises(TypeError):
-                cls(**kw, **extra)
-        opt = cls(**kw)
-        for run_kw in ({"resident": True}, {"chunk_brackets": 2, "resident": True}):
-            with pytest.raises(NotImplementedError):
-                opt.run(n_iterations=1, **run_kw)
         with pytest.raises(TypeError):
-            opt.run(n_iterations=1, device_metrics=True)
+            cls(**kw, mesh=object())
+        with pytest.raises(ValueError, match="exclusive"):
+            cls(**kw, stateful_eval=object())
+        opt = cls(**kw)
+        for run_kw in ({"chunk_brackets": 2, "resident": True},
+                       {"dynamic_counts": False, "resident": True}):
+            with pytest.raises(ValueError, match="resident"):
+                opt.run(n_iterations=1, **run_kw)
         assert opt.iterations == []
+        res = opt.run(n_iterations=2, resident=True, device_metrics=True)
+        assert len(opt.iterations) == 2 and opt.run_stats[-1]["dynamic_counts"]
+        assert opt.last_device_telemetry["evaluations"] == len(res.get_all_runs())

@@ -51,12 +51,14 @@ def ref():
             raising=False,
         )
         from hpbandster_tpu import space as rspace
+        from hpbandster_tpu.obs import device_metrics
         from hpbandster_tpu.ops import bracket, fused, kde, pallas_kde, sweep
         from hpbandster_tpu.workloads import toys
 
         yield SimpleNamespace(
             space=rspace, bracket=bracket, fused=fused, kde=kde,
             pallas_kde=pallas_kde, sweep=sweep, toys=toys,
+            device_metrics=device_metrics,
         )
     for name in sorted(set(sys.modules) - before, reverse=True):
         if not _is_reference_module(name):
@@ -263,6 +265,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch",
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
+    "hpbandster_tpu_torch.obs.device_metrics",
     "hpbandster_tpu_torch.core.checkpoint",
     "hpbandster_tpu_torch.core.result",
     "hpbandster_tpu_torch.core.successive_halving",
@@ -271,6 +274,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.ops.bracket",
     "hpbandster_tpu_torch.ops.cuda_kde",
     "hpbandster_tpu_torch.ops.fused",
+    "hpbandster_tpu_torch.ops.graphs",
     "hpbandster_tpu_torch.ops.kde",
     "hpbandster_tpu_torch.ops.sweep",
     "hpbandster_tpu_torch.optimizers",
@@ -359,19 +363,27 @@ def test_scorer_refuses_unknown_devices():
 
 
 def test_unported_tiers_raise():
-    """Tiers and seams that later slices port raise instead of silently
-    running the static tier."""
+    """What later slices port (meshes) raises ``NotImplementedError``
+    instead of silently running without one; the resident tier refuses,
+    with the reference's ``ValueError``, the tiers it cannot run on."""
     from hpbandster_tpu_torch import FusedBOHB
     from hpbandster_tpu_torch.ops.sweep import build_space_codec, make_fused_sweep_fn
     from hpbandster_tpu_torch.workloads.toys import branin, branin_space
 
     codec = build_space_codec(branin_space())
-    for kw in ({"resident": True}, {"incumbent_only": True},
-               {"device_metrics": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"mesh": object()}, {"shard_sampling": True},
+               {"mesh": object(), "resident": True, "dynamic_counts": True}):
+        with pytest.raises(NotImplementedError, match="mesh"):
             make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", **kw)
+    with pytest.raises(ValueError, match="dynamic_counts"):
+        make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", resident=True)
+    for kw in ({"resident": True}, {"incumbent_only": True}):
+        with pytest.raises(ValueError, match="at least one bracket"):
+            make_fused_sweep_fn(branin, [], codec, device="cpu", dynamic_counts=True, **kw)
     opt = FusedBOHB(configspace=branin_space(seed=0), eval_fn=branin,
                     min_budget=1, max_budget=9, device="cpu")
-    for kw in ({"resident": True}, {"chunk_brackets": 2, "resident": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"chunk_brackets": 2, "resident": True},
+               {"dynamic_counts": False, "resident": True}):
+        with pytest.raises(ValueError, match="resident"):
             opt.run(n_iterations=2, **kw)
+    assert opt.iterations == []
