@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # also profiles device time: static,
                                      # chunked and resident Hartmann-6 and
-                                     # conditional sweeps, and the moment
-                                     # kernel at its scale checks
+                                     # conditional sweeps, the moment
+                                     # kernel at its scale checks, and
+                                     # each training workload's sweep
 
 Phases, each fatal on failure:
 
@@ -53,9 +54,20 @@ Phases, each fatal on failure:
    recount from its ``Result``: evaluations and promotions per rung as
    planned, no crash, each histogram the binning of that rung's losses,
    each bracket's best final loss the minimum of its final rung, rung
-   stamps increasing in execution order. The launch counts of every path
-   are gated (``MAIN_PATH_LAUNCHES``; a graph's launches count once per
-   replay);
+   stamps increasing in execution order; then the training workloads at
+   the reference's full widths (``bench.py``'s settings), each sweep with
+   its counts reset and read the same way: the CNN (``CNNConfig()``,
+   budgets 3..81) static for 5 brackets, whose incumbent must reach
+   ``CNN_MIN_VAL_ACCURACY``, then one rotation unrolled and resident
+   (``HPB_PALLAS_KDE_FIT=1``, device metrics, a telemetry recount); the
+   MLP ensemble (a ``StatefulEval``, budgets 1..81) unrolled and resident
+   for 10 brackets; the teacher (1..27, 4 brackets), ResNet-18 (3..27, 2)
+   and the transformer (3..81, 2), static; each gated on runs per budget,
+   error rates in [0, 1], crashes ranked behind every real loss, a finite
+   incumbent, and printing wall and execute+fetch seconds, peak memory and
+   training FLOP/s against the card's bfloat16 peak. The launch counts of
+   every path are gated (``MAIN_PATH_LAUNCHES``; a graph's launches count
+   once per replay);
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
@@ -73,7 +85,11 @@ Phases, each fatal on failure:
    of the 50-bracket resident run against the unrolled dynamic run; then
    the host and event time of the conditional path's new device work
    (rejection resampling, activity mask, imputation), which must not
-   synchronize;
+   synchronize; the CNN's and the ensemble's resident runs must equal
+   their unrolled runs bit for bit (deterministic cuDNN algorithms), the
+   CNN's losses on the card those on the CPU from the same data and
+   weights (``CNN_CPU_RTOL``), and the ensemble's promoted lanes the
+   uninterrupted trainer's (``ENSEMBLE_RTOL``; bit for bit reported);
 6. hold each kernel against its plain version on every input the main
    paths gave it (a launch captured into a CUDA graph holds its latest
    replay's inputs), with the arguments the path passed (for the masked
@@ -82,7 +98,9 @@ Phases, each fatal on failure:
    kernel's device time there from ``torch.profiler`` (the fit's call must
    run the moments kernel once per call and nothing else);
 7. time the launch floor (an empty kernel through the same ctypes route),
-   print the kernels' JSON line (event-timed ``ms``, profiled
+   print the ``workloads`` JSON line (per workload path; device busy time
+   and idle share with ``--profile``, which sweeps each path again under
+   the profiler), the kernels' JSON line (event-timed ``ms``, profiled
    ``device_ms``, ``host_ms``, ``launch_floor_ms``, bound, plain and
    launches), the card's name and power limit, and last the JSON result
    line.
@@ -159,7 +177,19 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "resident_tail": {"kde_score": 12, "kde_moments": 12},
                       "resident_long": {"kde_score": 50, "kde_moments": 50},
                       "conditional_resident": {"kde_score": 10, "kde_moments": 20},
-                      "incumbent": {"kde_score": 10, "kde_moments": 10}}
+                      "incumbent": {"kde_score": 10, "kde_moments": 10},
+                      # the training workloads: static sweeps score every
+                      # bracket after the first; the dynamic tiers (the CNN
+                      # with the moment-kernel fit, the ensemble without it)
+                      # fit and score every bracket
+                      "cnn": {"kde_score": 4, "kde_moments": 0},
+                      "cnn_unrolled": {"kde_score": 4, "kde_moments": 4},
+                      "cnn_resident": {"kde_score": 4, "kde_moments": 4},
+                      "ensemble_unrolled": {"kde_score": 10, "kde_moments": 0},
+                      "ensemble_resident": {"kde_score": 10, "kde_moments": 0},
+                      "teacher": {"kde_score": 3, "kde_moments": 0},
+                      "resnet": {"kde_score": 1, "kde_moments": 0},
+                      "transformer": {"kde_score": 1, "kde_moments": 0}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -615,16 +645,16 @@ def random_search_median_best(torch, dev, fn, opt, n_evals, budget):
     return float(best.median())
 
 
-def plan_runs_per_budget(max_budget, n_iterations, stage0_only=False):
+def plan_runs_per_budget(max_budget, n_iterations, stage0_only=False, min_budget=1.0):
     """Runs per budget of the first ``n_iterations`` HyperBand brackets at
-    ``eta = 3``, budgets 1..``max_budget``, computed here and not taken from
-    the optimizer under test. ``stage0_only``: random search's plan, each
-    bracket's first stage, all at ``max_budget``."""
+    ``eta = 3``, budgets ``min_budget``..``max_budget``, computed here and not
+    taken from the optimizer under test. ``stage0_only``: random search's
+    plan, each bracket's first stage, all at ``max_budget``."""
     from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
 
     want = {}
     for i in range(n_iterations):
-        p = hyperband_bracket(i, 1.0, max_budget, 3.0)
+        p = hyperband_bracket(i, min_budget, max_budget, 3.0)
         stages = ([(p.num_configs[0], max_budget)] if stage0_only
                   else zip(p.num_configs, p.budgets))
         for k, b in stages:
@@ -994,7 +1024,7 @@ def drive_model_free(torch, dev, cls_name, max_budget=81.0, n_iterations=10):
 RESIDENT_RUNS = {}
 
 
-def check_device_metrics(label, opt, res, n_iterations, max_budget=81.0):
+def check_device_metrics(label, opt, res, n_iterations, max_budget=81.0, min_budget=1.0):
     """The run's decoded device telemetry (``opt.last_device_telemetry``)
     against a recount from its ``Result``: per rung, evaluations and
     promotions as the HyperBand plan says, no crash, the histogram sums to
@@ -1008,8 +1038,8 @@ def check_device_metrics(label, opt, res, n_iterations, max_budget=81.0):
     rec = opt.last_device_telemetry
     if rec is None:
         raise AssertionError(f"{label}: no device telemetry was decoded")
-    plans = [hyperband_bracket(i, 1.0, max_budget, 3.0) for i in range(n_iterations)]
-    want_evals = plan_runs_per_budget(max_budget, n_iterations)
+    plans = [hyperband_bracket(i, min_budget, max_budget, 3.0) for i in range(n_iterations)]
+    want_evals = plan_runs_per_budget(max_budget, n_iterations, min_budget=min_budget)
     want_promos, final = {}, {}
     for p in plans:
         for s, b in enumerate(p.budgets):
@@ -1106,7 +1136,13 @@ def check_resident_parity(torch, dev, label, make_opt):
     with moments_fit_flag():
         opt_u = make_opt(dev)
         res_u = opt_u.run(n_iterations=n, dynamic_counts=True)
+    compare_sweeps(label, n, opt_r, res_r, opt_u, res_u)
+    return opt_u
 
+
+def compare_sweeps(label, n, opt_r, res_r, opt_u, res_u):
+    """A resident run against a same-seed unrolled dynamic-tier run, bit
+    for bit (fatal otherwise)."""
     def runs(r):
         return sorted((x.config_id, x.budget, x.loss) for x in r.get_all_runs())
 
@@ -1125,7 +1161,6 @@ def check_resident_parity(torch, dev, label, make_opt):
         raise AssertionError(f"{label}: resident run differs from the unrolled dynamic "
                              f"run: {checks}")
     print("resident parity " + json.dumps(dict(path=label, brackets=n, **checks)), flush=True)
-    return opt_u
 
 
 def check_stateful_resident(torch, dev, n_iterations=10):
@@ -1339,6 +1374,351 @@ def measure_conditional_host_work(torch, dev, n0=81, cap=256, reps=200):
     return out
 
 
+# ---------------------------------------------------------- workload paths
+#: the training workloads' sweeps (the reference's ``bench.py`` settings):
+#: path -> (optimizer, result, record), for phase 5 and the workloads line
+WORKLOAD_RUNS = {}
+#: the CNN sweep's incumbent must reach this validation accuracy. Chance is
+#: 0.1; a chance-level classifier's accuracy on the 256 validation images
+#: has a standard deviation of sqrt(0.1 * 0.9 / 256) = 0.019, so the best
+#: of the sweep's ~13 runs at the max budget stays near 0.16 by luck alone;
+#: 0.30 is seven deviations above that, and well under the 0.746 the
+#: reference's sweeps reach (``CNN_TARGET_VAL_ACCURACY`` 0.70)
+CNN_MIN_VAL_ACCURACY = 0.30
+#: CNN validation cross-entropy on the card against the CPU, 3 SGD steps on
+#: the same data and weights: both round every convolution to bfloat16, and
+#: cuDNN and the CPU's library sum in other orders, so a value can round to
+#: the neighbouring bfloat16 (2^-9 relative) and the layers and steps carry
+#: that on (the CPU tests hold the port to the reference at 2e-2)
+CNN_CPU_RTOL = 3e-2
+#: the ensemble's promoted lanes against the uninterrupted trainer where
+#: they are not bit for bit equal: a batched GEMM over another number of
+#: lanes may take another cuBLAS kernel, summing in another order
+ENSEMBLE_RTOL = 1e-4
+ENSEMBLE_ATOL = 1e-6
+
+
+def _crash_rank(loss):
+    """A ``Result`` loss as the sweep ranked it: a crash (None) behind every
+    real loss, a genuine +inf behind that."""
+    return float(np.float32(3.0e38)) if loss is None else loss
+
+
+def check_workload_sweep(label, res, min_budget, max_budget, n_iterations, error_rate):
+    """A training workload's sweep: runs per budget equal the HyperBand
+    plan; error rates lie in [0, 1]; each rung promoted its best, a crash
+    (a diverged lane, NaN) never ahead of a real loss, so a rung's
+    survivors are finite wherever it had enough finite losses; the
+    incumbent's loss is finite. A survivor may still diverge at the next
+    rung's longer training: crashes are counted, not gated. Returns what it
+    checked."""
+    want = plan_runs_per_budget(max_budget, n_iterations, min_budget=min_budget)
+    got = {}
+    for r in res.get_all_runs():
+        got[r.budget] = got.get(r.budget, 0) + 1
+    if got != want:
+        raise AssertionError(f"{label}: runs per budget {got} != plan {want}")
+    rungs = {}
+    for r in res.get_all_runs():
+        rungs.setdefault((r.config_id[0], float(r.budget)), {})[r.config_id] = r.loss
+    crashes = 0
+    for (b, budget), losses in sorted(rungs.items()):
+        real = [v for v in losses.values() if v is not None]
+        crashes += len(losses) - len(real)
+        if error_rate and not all(0.0 <= v <= 1.0 for v in real):
+            raise AssertionError(f"{label}: an error rate outside [0, 1] at budget {budget}")
+        later = [bb for (bi, bb) in rungs if bi == b and bb > budget]
+        if later:
+            promoted = rungs[(b, min(later))]
+            kept = [_crash_rank(v) for c, v in losses.items() if c in promoted]
+            dropped = [_crash_rank(v) for c, v in losses.items() if c not in promoted]
+            if dropped and max(kept) > min(dropped):
+                raise AssertionError(f"{label}: bracket {b} at budget {budget} promoted "
+                                     f"{sorted(kept)} over {min(dropped)}")
+    inc = res.get_incumbent_id()
+    inc_loss = None if inc is None else res.get_runs_by_id(inc)[-1].loss
+    if inc_loss is None or not np.isfinite(inc_loss):
+        raise AssertionError(f"{label}: no finite incumbent at budget {max_budget}")
+    return dict(evaluations=len(res.get_all_runs()), crashes=crashes,
+                incumbent_loss=inc_loss)
+
+
+def workload_optimizer(name, dev):
+    """``(optimizer, min_budget, max_budget, error_rate, training FLOPs of
+    a Result)`` of a training workload at its reference settings and full
+    widths, seed 0 (the reference's ``bench.py``)."""
+    from hpbandster_tpu_torch import FusedBOHB
+    from hpbandster_tpu_torch.workloads import flops
+    from hpbandster_tpu_torch.workloads import (
+        CNNConfig,
+        MLPConfig,
+        ResNetConfig,
+        TeacherConfig,
+        TransformerConfig,
+        cnn_space,
+        make_cnn_error_fn,
+        make_mlp_ensemble,
+        make_resnet_eval_fn,
+        make_teacher_eval_fn,
+        make_transformer_error_fn,
+        mlp_space,
+        resnet_space,
+        teacher_space,
+        transformer_space,
+    )
+
+    if name == "cnn":  # bench.py:857 bench_cnn
+        kw = dict(configspace=cnn_space(seed=0), eval_fn=make_cnn_error_fn(CNNConfig(), device=dev))
+        spec = (3.0, 81.0, True, lambda r: flops.sweep_training_flops(
+            r, flops.cnn_step_flops(CNNConfig()), include_failed=True))
+    elif name == "ensemble":  # workloads/ensemble.py make_mlp_ensemble
+        kw = dict(configspace=mlp_space(seed=0),
+                  stateful_eval=make_mlp_ensemble(MLPConfig(), device=dev))
+        spec = (1.0, 81.0, False, lambda r: ensemble_training_flops(r, MLPConfig()))
+    elif name == "teacher":  # tests/test_teacher_workload.py:93-96
+        kw = dict(configspace=teacher_space(seed=0),
+                  eval_fn=make_teacher_eval_fn(TeacherConfig(), device=dev))
+        spec = (1.0, 27.0, True, lambda r: flops.sweep_training_flops(
+            r, flops.teacher_epoch_flops(TeacherConfig()), include_failed=True))
+    elif name == "resnet":  # bench.py:903 bench_resnet
+        kw = dict(configspace=resnet_space(seed=0),
+                  eval_fn=make_resnet_eval_fn(ResNetConfig(), device=dev))
+        spec = (3.0, 27.0, False, lambda r: flops.sweep_training_flops(
+            r, flops.resnet_step_flops(ResNetConfig()), include_failed=True))
+    else:  # bench.py:958 bench_transformer
+        kw = dict(configspace=transformer_space(seed=0),
+                  eval_fn=make_transformer_error_fn(TransformerConfig(), device=dev))
+        spec = (3.0, 81.0, True, lambda r: flops.sweep_training_flops(
+            r, flops.transformer_step_flops(TransformerConfig()), include_failed=True))
+    opt = FusedBOHB(min_budget=spec[0], max_budget=spec[1], eta=3, seed=0, device=dev, **kw)
+    return (opt,) + spec
+
+
+def ensemble_training_flops(res, cfg):
+    """The ensemble's training FLOPs: a lane trains only its rung's budget
+    increment (warm continuation), so each bracket's rung ``s`` costs
+    ``n_s * (b_s - b_{s-1})`` steps."""
+    from hpbandster_tpu_torch.workloads.flops import mlp_step_flops
+
+    steps = 0.0
+    for b in {r.config_id[0] for r in res.get_all_runs()}:
+        budgets = sorted({r.budget for r in res.get_all_runs() if r.config_id[0] == b})
+        for prev, budget in zip([0.0] + budgets, budgets):
+            n = sum(1 for r in res.get_all_runs()
+                    if r.config_id[0] == b and r.budget == budget)
+            steps += n * (round(budget) - round(prev))
+    return mlp_step_flops(cfg) * steps
+
+
+def drive_workload(torch, dev, label, name, n_iterations, **run_kw):
+    """One training workload's ``FusedBOHB.run()`` on the card: the sweep
+    gates, wall and execute+fetch seconds, peak memory, and the training
+    FLOP/s against the card's bfloat16 peak. A resident run also passes
+    the telemetry recount (with ``device_metrics``) and gives its graph's
+    times. Returns the result."""
+    from hpbandster_tpu_torch.workloads.flops import peak_bf16_flops
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    opt, min_b, max_b, error_rate, flops_of = workload_optimizer(name, dev)
+    res = opt.run(n_iterations=n_iterations, **run_kw)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    execute_s = sum(r["execute_fetch_s"] for r in opt.run_stats)
+    train_flops = flops_of(res)
+    peak = peak_bf16_flops(dev)
+    rec = dict(workload=name, n_iterations=n_iterations, min_budget=min_b, max_budget=max_b,
+               run_kw=run_kw, moments_fit=os.environ.get("HPB_PALLAS_KDE_FIT") == "1",
+               wall_s=wall, execute_fetch_s=execute_s,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               **check_workload_sweep(label, res, min_b, max_b, n_iterations, error_rate),
+               training_flops=train_flops, training_flops_per_s=train_flops / execute_s,
+               share_of_peak_bf16=None if peak is None else train_flops / execute_s / peak)
+    if error_rate:
+        rec["incumbent_val_accuracy"] = 1.0 - rec["incumbent_loss"]
+    if run_kw.get("resident"):
+        rec.update(graph_stats(opt))
+    if run_kw.get("device_metrics"):
+        rec.update(check_device_metrics(label, opt, res, n_iterations, max_b, min_b))
+    print(f"{label} path " + json.dumps(rec), flush=True)
+    WORKLOAD_RUNS[label] = (opt, res, rec)
+    return res
+
+
+def drive_cnn(torch, dev):
+    """The CNN at full width, static tier, ``bench_cnn``'s sweep; its
+    incumbent must beat chance by ``CNN_MIN_VAL_ACCURACY``."""
+    from hpbandster_tpu_torch.workloads import CNN_TARGET_VAL_ACCURACY
+
+    res = drive_workload(torch, dev, "cnn", "cnn", 5)
+    acc = WORKLOAD_RUNS["cnn"][2]["incumbent_val_accuracy"]
+    print("cnn incumbent " + json.dumps(dict(
+        val_accuracy=acc, gate=CNN_MIN_VAL_ACCURACY, chance=0.1,
+        target_val_accuracy=CNN_TARGET_VAL_ACCURACY,
+        target_met=acc >= CNN_TARGET_VAL_ACCURACY)), flush=True)
+    if not acc >= CNN_MIN_VAL_ACCURACY:
+        raise AssertionError(f"cnn: incumbent validation accuracy {acc} < {CNN_MIN_VAL_ACCURACY}")
+    return res
+
+
+def drive_cnn_tier(torch, dev, label, **run_kw):
+    """The CNN through the dynamic tier, one rotation (4 brackets), with
+    the moment-kernel fit and the device metrics: unrolled, or resident (a
+    captured CUDA graph holding the round's training, backward passes
+    included)."""
+    with moments_fit_flag():
+        return drive_workload(torch, dev, label, "cnn", 4, device_metrics=True, **run_kw)
+
+
+def check_cnn_against_cpu(torch, dev, n=8, budget=3.0):
+    """The CNN's validation cross-entropy after ``budget`` steps for ``n``
+    seeded configs (learning rates up to 0.16), on the card and on the CPU
+    from the same data and weights (drawn on the CPU), within
+    ``CNN_CPU_RTOL``."""
+    from hpbandster_tpu_torch.workloads.cnn import (
+        CNNConfig,
+        draw_cnn_unit_params,
+        make_cnn_eval_fn,
+        make_image_dataset,
+    )
+    from hpbandster_tpu_torch.workloads.train import make_generator
+
+    cfg, cpu = CNNConfig(), torch.device("cpu")
+    data = make_image_dataset(make_generator(cpu, 0), cfg)
+    unit = draw_cnn_unit_params(make_generator(cpu, 1), cfg)
+    v = torch.from_numpy(np.random.default_rng(0).uniform(0.05, 0.8, (n, 4)).astype(np.float32))
+    t0 = time.perf_counter()
+    on_card = make_cnn_eval_fn(cfg, device=dev, data=data, init=unit)(v.to(dev), budget).cpu()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = make_cnn_eval_fn(cfg, device=cpu, data=data, init=unit)(v, budget)
+    cpu_s = time.perf_counter() - t0
+    err = float(((on_card - on_cpu).abs() / on_cpu.abs()).max())
+    rec = dict(configs=n, budget=budget, max_rel_err=err, rtol=CNN_CPU_RTOL,
+               card=on_card.tolist(), cpu=on_cpu.tolist(), card_s=card_s, cpu_s=cpu_s)
+    print("cnn card vs cpu " + json.dumps(rec), flush=True)
+    if not (torch.isfinite(on_card).all() and err <= CNN_CPU_RTOL):
+        raise AssertionError(f"cnn: card and CPU losses differ: {rec}")
+    return rec
+
+
+def check_workload_parity(label_r, label_u):
+    """Phase 5: a workload's resident run against its unrolled run, bit for
+    bit."""
+    opt_r, res_r, rec = WORKLOAD_RUNS[label_r]
+    opt_u, res_u, _ = WORKLOAD_RUNS[label_u]
+    compare_sweeps(label_r, rec["n_iterations"], opt_r, res_r, opt_u, res_u)
+
+
+def check_ensemble_continuation(torch, dev):
+    """Phase 5: the ensemble at ``MLPConfig()`` through the first bracket of
+    its sweep (81 configs, budgets 1..81); each rung's losses and the
+    promoted lane's final state against ``make_uninterrupted_train_fn`` at
+    the same cumulative steps: bit for bit where that holds, else within
+    ``ENSEMBLE_RTOL``/``ENSEMBLE_ATOL``."""
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+    from hpbandster_tpu_torch.ops.fused import fused_sh_bracket, tree_leaves
+    from hpbandster_tpu_torch.workloads import (
+        MLPConfig,
+        make_mlp_ensemble,
+        make_uninterrupted_train_fn,
+    )
+
+    plan = hyperband_bracket(0, 1.0, 81.0, 3.0)
+    v = torch.from_numpy(np.random.default_rng(0).random((81, 4)).astype(np.float32)).to(dev)
+    stages, state = fused_sh_bracket(None, v, plan.num_configs, plan.budgets,
+                                     stateful=make_mlp_ensemble(MLPConfig(), device=dev),
+                                     return_final_state=True)
+    straight = make_uninterrupted_train_fn(MLPConfig(), device=dev)
+    bitwise, worst = True, 0.0
+
+    def diff(a, b):
+        nonlocal bitwise, worst
+        same_nan = bool((torch.isnan(a) == torch.isnan(b)).all())
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        bitwise = bitwise and same_nan and torch.equal(a, b)
+        excess = ((a - b).abs() - ENSEMBLE_ATOL - ENSEMBLE_RTOL * b.abs()).max()
+        worst = max(worst, float(excess) if same_nan else float("inf"))
+
+    for (idx, losses), budget in zip(stages, plan.budgets):
+        diff(losses, straight(v[idx], int(round(budget)))[1])
+    final_state = straight(v[stages[-1][0]], int(round(plan.budgets[-1])))[0]
+    for a, b in zip(tree_leaves(state), tree_leaves(final_state)):
+        diff(a, b)
+    rec = dict(lanes=plan.num_configs, budgets=plan.budgets, bitwise=bitwise,
+               worst_excess_over_tolerance=worst, rtol=ENSEMBLE_RTOL, atol=ENSEMBLE_ATOL)
+    print("ensemble continuation " + json.dumps(rec), flush=True)
+    if worst > 0.0:
+        raise AssertionError(f"ensemble: promoted lanes differ from the uninterrupted run: {rec}")
+    return rec
+
+
+def print_workload_accuracies():
+    """The teacher's and the transformer's incumbents beside the
+    reference's documented targets (reported, not gated)."""
+    from hpbandster_tpu_torch.workloads import (
+        TARGET_VAL_ACCURACY,
+        TRANSFORMER_TARGET_VAL_ACCURACY,
+    )
+
+    for label, target in (("teacher", TARGET_VAL_ACCURACY),
+                          ("transformer", TRANSFORMER_TARGET_VAL_ACCURACY)):
+        acc = WORKLOAD_RUNS[label][2]["incumbent_val_accuracy"]
+        print(f"{label} incumbent " + json.dumps(dict(
+            val_accuracy=acc, target_val_accuracy=target, target_met=acc >= target)),
+            flush=True)
+
+
+def profile_workloads(torch, dev):
+    """``--profile``: each workload path again under the profiler: device
+    busy time and idle share over the sweep's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, (_, _, rec) in WORKLOAD_RUNS.items():
+        run_kw = {k: v for k, v in rec["run_kw"].items() if k != "device_metrics"}
+        with contextlib.ExitStack() as stack:
+            if rec["moments_fit"]:
+                stack.enter_context(moments_fit_flag())
+            opt = workload_optimizer(rec["workload"], dev)[0]
+            torch.cuda.synchronize(dev)
+            prof = stack.enter_context(
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            opt.run(n_iterations=rec["n_iterations"], **run_kw)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(_device_us(e) for e in events) / 1e6
+        top = sorted(events, key=_device_us, reverse=True)[:8]
+        out[label] = dict(profiled_wall_s=wall, device_busy_ms=busy * 1e3,
+                          device_idle_share=1.0 - busy / wall,
+                          top_kernels=[dict(name=e.key[:60], count=int(e.count),
+                                            device_ms=_device_us(e) / 1e3) for e in top])
+        print(f"profile {label} " + json.dumps(out[label]), flush=True)
+    return out
+
+
+def workloads_line(torch, profiled, card):
+    """The workloads' JSON line: per path the wall and execute+fetch
+    seconds, device busy ms and idle share (``--profile``, else not
+    measured), peak memory and training FLOP/s with its share of the
+    card's bfloat16 peak; and the card."""
+    keys = ("workload", "n_iterations", "wall_s", "execute_fetch_s", "peak_memory_bytes",
+            "training_flops", "training_flops_per_s", "share_of_peak_bf16", "evaluations",
+            "crashes", "incumbent_val_accuracy", "graph_capture_s", "graph_instantiate_s",
+            "graph_replay_ms")
+    paths = {}
+    for label, (_, _, rec) in WORKLOAD_RUNS.items():
+        row = {k: rec[k] for k in keys if k in rec}
+        prof = profiled.get(label, {})
+        row["device_busy_ms"] = prof.get("device_busy_ms", "not measured")
+        row["device_idle_share"] = prof.get("device_idle_share", "not measured")
+        paths[label] = row
+    return "workloads " + json.dumps(dict(card=card, paths=paths))
+
+
 def record_facts(name, inputs):
     """What a recorded launch's inputs (a ``cuda_kde.RECORD`` entry) were:
     ``finite`` (no NaN or inf in any tensor input), ``mixed_vartypes`` (the
@@ -1497,6 +1877,10 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # deterministic cuDNN algorithms: a conv workload's resident run equals
+    # its unrolled run bit for bit only with these
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1527,6 +1911,20 @@ def main(argv=None) -> int:
             torch, dev, "conditional_resident", cond_optimizer, cond_objective, 10,
             conditional=True),
         "incumbent": drive_incumbent,
+        # the training workloads at the reference's widths
+        "cnn": drive_cnn,
+        "cnn_unrolled": lambda torch, dev: drive_cnn_tier(
+            torch, dev, "cnn_unrolled", dynamic_counts=True),
+        "cnn_resident": lambda torch, dev: drive_cnn_tier(
+            torch, dev, "cnn_resident", resident=True),
+        "ensemble_unrolled": lambda torch, dev: drive_workload(
+            torch, dev, "ensemble_unrolled", "ensemble", 10, dynamic_counts=True),
+        "ensemble_resident": lambda torch, dev: drive_workload(
+            torch, dev, "ensemble_resident", "ensemble", 10, resident=True),
+        "teacher": lambda torch, dev: drive_workload(torch, dev, "teacher", "teacher", 4),
+        "resnet": lambda torch, dev: drive_workload(torch, dev, "resnet", "resnet", 2),
+        "transformer": lambda torch, dev: drive_workload(
+            torch, dev, "transformer", "transformer", 2),
     }
     launches, recorded, results = {}, [], {}
     for path, drive in paths.items():
@@ -1564,6 +1962,11 @@ def main(argv=None) -> int:
         check_resident_parity(torch, dev, label, make_opt)
     check_incumbent_parity()
     check_stateful_resident(torch, dev)
+    check_workload_parity("cnn_resident", "cnn_unrolled")
+    check_workload_parity("ensemble_resident", "ensemble_unrolled")
+    check_cnn_against_cpu(torch, dev)
+    check_ensemble_continuation(torch, dev)
+    print_workload_accuracies()
     profile_resident_launches(torch, dev)
     measure_resident(torch, dev)
     measure_conditional_host_work(torch, dev)
@@ -1571,9 +1974,16 @@ def main(argv=None) -> int:
     # phase 6: kernels against plain versions on the main paths' own inputs
     held = check_recorded_launches(torch, recorded)
 
+    profiled = {}
     if args.profile:
         profile_sweeps(torch, dev)
         profile_moments_device_time(torch, dev)
+        profiled = profile_workloads(torch, dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(workloads_line(torch, profiled, smi), flush=True)
 
     floor = launch_floor(torch, dev)
     kernels = []
@@ -1595,11 +2005,7 @@ def main(argv=None) -> int:
             device_ms_by_path={p: r["device_ms"] for p, r in per_path.items()},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
 """State carried between the reference and the port.
 
-This system has no weights: its state is the space codec, the fitted KDEs
-and the warm observation buffers. These functions turn the reference's
+The optimizer's state is the space codec, the fitted KDEs and the warm
+observation buffers; the training workloads add datasets and initial
+weights (:func:`dataset_from_numpy`, :func:`params_from_numpy`). These functions turn the reference's
 numpy values (``np.asarray`` of its arrays) into the port's forms, so both
 sides can compute on the same state. ``FusedBOHB`` uses
 :func:`warm_obs_from_numpy` (static tier) and :func:`dynamic_obs_from_numpy`
@@ -26,6 +27,8 @@ __all__ = [
     "kde_from_numpy",
     "warm_obs_from_numpy",
     "dynamic_obs_from_numpy",
+    "dataset_from_numpy",
+    "params_from_numpy",
 ]
 
 
@@ -89,3 +92,33 @@ def dynamic_obs_from_numpy(
         for b in warm_v_pad
     }
     return vs, ls, ns
+
+
+def dataset_from_numpy(data, device: Optional[torch.device] = None):
+    """A workload's dataset from the reference's arrays (a nested tuple, as
+    its ``make_*_dataset`` returns): float arrays as float32 tensors, images
+    (4-D, NHWC) transposed to the port's NCHW, integer arrays (labels,
+    tokens) as int64, on ``device``."""
+    if isinstance(data, (tuple, list)):
+        return tuple(dataset_from_numpy(x, device) for x in data)
+    a = np.asarray(data)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    if a.ndim == 4:
+        a = a.transpose(0, 3, 1, 2)
+    return torch.as_tensor(np.array(a, np.float32), device=device)
+
+
+def params_from_numpy(tree, device: Optional[torch.device] = None):
+    """A workload's parameter tree from the reference's (nested dicts of
+    arrays): float32 tensors on ``device``, conv kernels (4-D) from the
+    reference's HWIO to the port's OIHW. Pass the reference's
+    initialisation at ``init_scale = 1`` as a workload's ``init=``: every
+    initialiser is linear in ``init_scale`` (layer-norm gains excepted,
+    which do not scale), and the port scales per config."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree, np.float32)
+    if a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)
+    return torch.as_tensor(np.array(a), device=device)

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 __all__ = ["StatefulEval", "fused_sh_bracket", "rank_key", "stage_telemetry",
-           "tree_map"]
+           "tree_leaves", "tree_map"]
 
 #: crashed (NaN) losses map here for ranking: behind any real loss, ahead of
 #: the +inf padding rows
@@ -91,6 +91,14 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a (nested) dict, tuple, named tuple or list, in
+    :func:`tree_map`'s order."""
+    out: List[torch.Tensor] = []
+    tree_map(lambda t: out.append(t) or t, tree)
+    return out
 
 
 def _eval_stage(eval_fn: EvalFn, vecs: torch.Tensor, budget: float) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Synthetic HPO objectives: Branin (2-D) and Hartmann-6 (6-D).
 
-Ported from ``hpbandster_tpu/workloads/toys.py`` (``branin_from_vector``
-and ``hartmann6_from_vector``) as batched torch functions
-``f(vectors f32[n, d], budget) -> f32[n]`` on the unit hypercube. Budget
-enters as a decaying deterministic noise term, so lower fidelities are
-noisier.
+Ported from ``hpbandster_tpu/workloads/toys.py`` as batched torch functions
+``f(vectors f32[n, d], budget) -> f32[n]`` on the unit hypercube
+(:func:`branin`, :func:`hartmann6`), with the reference's per-vector forms
+(``branin_from_vector``, ``hartmann6_from_vector``: one ``f32[d]`` vector
+-> a 0-dim loss) and its host-side ``branin_dict``. Budget enters as a
+decaying deterministic noise term, so lower fidelities are noisier.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from hpbandster_tpu_torch.space import ConfigurationSpace, UniformFloatHyperpara
 __all__ = [
     "branin_space",
     "branin",
+    "branin_from_vector",
+    "branin_dict",
     "BRANIN_OPT",
     "hartmann6_space",
     "hartmann6",
+    "hartmann6_from_vector",
     "HARTMANN6_OPT",
 ]
 
@@ -46,6 +50,24 @@ def branin(vectors: torch.Tensor, budget: float) -> torch.Tensor:
     val = (y - b * x**2 + c * x - 6.0) ** 2 + 10.0 * (1 - t) * torch.cos(x) + 10.0
     noise = 5.0 * torch.sin(13.7 * x + 7.3 * y) / math.sqrt(budget + 1e-9)
     return val + noise
+
+
+def branin_from_vector(vec: torch.Tensor, budget: float) -> torch.Tensor:
+    """Branin of one unit-square vector ``f32[2]`` (a 0-dim tensor)."""
+    return branin(vec[None], budget)[0]
+
+
+def branin_dict(config, budget) -> float:
+    """Host-side Branin of a configuration dict (``x``, ``y`` in the space's
+    own units), for ``Worker.compute``-style evaluation."""
+    x, y = config["x"], config["y"]
+    val = (
+        (y - 5.1 / (4 * np.pi**2) * x**2 + 5.0 / np.pi * x - 6.0) ** 2
+        + 10 * (1 - 1 / (8 * np.pi)) * np.cos(x)
+        + 10
+    )
+    noise = 5.0 * np.sin(13.7 * x + 7.3 * y) / np.sqrt(budget + 1e-9)
+    return float(val + noise)
 
 
 def hartmann6_space(seed=None) -> ConfigurationSpace:
@@ -91,3 +113,8 @@ def hartmann6(vectors: torch.Tensor, budget: float) -> torch.Tensor:
     val = -(alpha[None] * torch.exp(-inner)).sum(-1)
     noise = 0.5 * torch.sin(31.0 * vectors.sum(-1)) / math.sqrt(budget + 1e-9)
     return val + noise
+
+
+def hartmann6_from_vector(vec: torch.Tensor, budget: float) -> torch.Tensor:
+    """Hartmann-6 of one vector ``f32[6]`` (a 0-dim tensor)."""
+    return hartmann6(vec[None], budget)[0]

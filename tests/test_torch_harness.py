@@ -69,6 +69,18 @@ def ref():
             delattr(sys.modules[parent], child)
 
 
+@pytest.fixture(scope="module")
+def ref_wl(ref):
+    """The reference's training workloads (``hpbandster_tpu.workloads.*``),
+    imported inside :func:`ref`'s window and removed with it."""
+    import importlib
+
+    names = ("train", "mlp", "toys", "ensemble", "teacher", "cnn", "resnet",
+             "transformer", "flops")
+    return SimpleNamespace(**{
+        n: importlib.import_module(f"hpbandster_tpu.workloads.{n}") for n in names})
+
+
 # ------------------------------------------------------------------ spaces
 #: search spaces built identically in both packages: (kind, name, *args, kw)
 SPACES = {
@@ -282,7 +294,16 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.space",
     "hpbandster_tpu_torch.space.conditions",
     "hpbandster_tpu_torch.space.forbidden",
+    "hpbandster_tpu_torch.workloads",
+    "hpbandster_tpu_torch.workloads.cnn",
+    "hpbandster_tpu_torch.workloads.ensemble",
+    "hpbandster_tpu_torch.workloads.flops",
+    "hpbandster_tpu_torch.workloads.mlp",
+    "hpbandster_tpu_torch.workloads.resnet",
+    "hpbandster_tpu_torch.workloads.teacher",
     "hpbandster_tpu_torch.workloads.toys",
+    "hpbandster_tpu_torch.workloads.train",
+    "hpbandster_tpu_torch.workloads.transformer",
 ]
 
 
