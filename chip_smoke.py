@@ -65,9 +65,25 @@ Phases, each fatal on failure:
    and the transformer (3..81, 2), static; each gated on runs per budget,
    error rates in [0, 1], crashes ranked behind every real loss, a finite
    incumbent, and printing wall and execute+fetch seconds, peak memory and
-   training FLOP/s against the card's bfloat16 peak. The launch counts of
-   every path are gated (``MAIN_PATH_LAUNCHES``; a graph's launches count
-   once per replay);
+   training FLOP/s against the card's bfloat16 peak; then the Master-driven
+   tier (``BatchedExecutor(VmapBackend(...))``, ``bench.py:741``'s
+   setting), each path with its counts reset and read the same way:
+   ``BOHB`` on Hartmann-6 with ``parallel_brackets=3`` (the sweep gates),
+   the same at ``parallel_brackets=1`` fused and stage-batched (the same
+   runs, losses within ``FUSION_RTOL``; fusion counts and cache hits), the
+   in-trace refit with ``HPB_PALLAS_KDE_FIT=1`` and ``HPB_USE_PALLAS=1``
+   (both kernels), ``HyperBand`` and ``RandomSearch`` on Branin (no
+   launch), ``H2BO`` on Hartmann-6, a Master checkpoint after 4 brackets
+   resumed to 10 (equal to the uninterrupted fused run), and the teacher at
+   full width (``bench.py:1054``: runs per budget, crash ranking, the
+   incumbent's accuracy reported against ``TARGET_VAL_ACCURACY``); each
+   prints wall seconds, finished runs per second and host syncs per
+   bracket. The launch counts of every path are gated
+   (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
+   Master-driven path's count is derived from its ``Result``: one scorer
+   launch, of at least ``BATCHED_MIN_S`` candidates, per stage-0 wave with a
+   model-based pick, and with the in-trace moments fit one moments launch
+   beside it);
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
@@ -743,17 +759,23 @@ def drive_static_path(torch, dev, max_budget=81.0, n_iterations=10, num_samples=
 
 
 @contextlib.contextmanager
-def moments_fit_flag():
-    """``HPB_PALLAS_KDE_FIT=1`` for the chunked runs only."""
-    old = os.environ.get("HPB_PALLAS_KDE_FIT")
-    os.environ["HPB_PALLAS_KDE_FIT"] = "1"
+def env_flags(**env):
+    """Environment flags for one path only."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["HPB_PALLAS_KDE_FIT"]
-        else:
-            os.environ["HPB_PALLAS_KDE_FIT"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def moments_fit_flag():
+    """``HPB_PALLAS_KDE_FIT=1`` for the chunked runs only."""
+    return env_flags(HPB_PALLAS_KDE_FIT="1")
 
 
 def _syncs_of(torch, fn, *args, **kwargs):
@@ -1015,6 +1037,258 @@ def drive_model_free(torch, dev, cls_name, max_budget=81.0, n_iterations=10):
                runs_per_budget=want,
                incumbent_loss=res.get_runs_by_id(res.get_incumbent_id())[-1].loss)
     print(f"{cls_name} path " + json.dumps(rec), flush=True)
+    return res
+
+
+# ------------------------------------------------------------- batched tier
+#: the Master-driven paths' expected launches, derived from each run's
+#: Result: one scorer launch for each stage-0 wave that had a model-based
+#: pick, and with the in-trace moments fit one moments launch beside it
+BATCHED_EXPECTED = {}
+#: path -> (optimizer, result, record), for the resume check and PERF.md
+BATCHED_RUNS = {}
+#: the smallest scorer launch of a model wave: proposal_batch_size (128)
+#: proposals of num_samples (64) candidates
+BATCHED_MIN_S = 128 * 64
+#: the fused and the stage-batched runs of one setting agree within this
+#: relative tolerance (the reference's own check, tests/test_fused.py:98)
+FUSION_RTOL = 1e-5
+
+
+def model_waves(iterations):
+    """Stage-0 waves that had a model-based pick: each ran one scorer
+    launch."""
+    return sum(
+        any(d.config_info.get("model_based_pick") for c, d in it.data.items() if c[1] == 0)
+        for it in iterations)
+
+
+def batched_optimizer(dev, cls_name, objective="hartmann6", max_budget=81.0,
+                      parallel_brackets=3, fuse_brackets=True, seed=0, **kw):
+    """A Master-driven optimizer of the port on ``BatchedExecutor(
+    VmapBackend(objective))``, eta 3, budgets 1..``max_budget``: the
+    reference's ``bench.py:741`` ``bench_batched`` setting."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import toys
+
+    cs = getattr(toys, f"{objective}_space")(seed=seed)
+    ex = h.BatchedExecutor(h.VmapBackend(getattr(toys, objective), device=dev), cs,
+                           fuse_brackets=fuse_brackets, parallel_brackets=parallel_brackets)
+    if cls_name in ("BOHB", "H2BO"):
+        kw = dict(num_samples=64, device=dev, **kw)
+    return getattr(h, cls_name)(configspace=cs, run_id=f"smoke-{cls_name}", executor=ex,
+                                min_budget=1, max_budget=max_budget, eta=3, seed=seed, **kw)
+
+
+def run_batched(torch, dev, opt, n_iterations):
+    """``opt.run()`` with its synchronizing CUDA calls counted; returns
+    ``(result, record)``: wall seconds, finished runs per second (the
+    reference's ``bench_batched`` measure), host syncs per bracket and by
+    source line, model waves, and the executor's fusion counts."""
+    t0 = time.perf_counter()
+    res, syncs = _syncs_of(torch, opt.run, n_iterations=n_iterations)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    opt.shutdown()
+    sites = {}
+    for w in syncs:
+        site = f"{Path(w.filename).name}:{w.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    finished = sum(r.loss is not None for r in res.get_all_runs())
+    ex = opt.executor
+    return res, dict(
+        n_iterations=n_iterations, wall_s=wall, finished_runs=finished,
+        runs_per_s=finished / wall, host_syncs=len(syncs),
+        host_syncs_per_bracket=len(syncs) / n_iterations,
+        sync_sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])),
+        model_waves=model_waves(opt.iterations),
+        fused_brackets_run=ex.fused_brackets_run, fused_cache_hits=ex.fused_cache_hits,
+        fused_cache_misses=ex.fused_cache_misses)
+
+
+def batched_sweep_checks(torch, dev, label, opt, res, max_budget, n_iterations):
+    """:func:`check_sweep` on a Master-driven run: runs per budget, finite
+    losses, the incumbent below the random searches' median best, model
+    picks beating random picks. The random searches draw through the
+    space's codec, as for the fused paths."""
+    import types
+
+    from hpbandster_tpu_torch.ops.sweep import build_space_codec, codec_tables
+    from hpbandster_tpu_torch.workloads import toys
+
+    view = types.SimpleNamespace(
+        codec_tables=codec_tables(build_space_codec(opt.configspace), dev),
+        active_mask_fn=None, forbidden_fn=None, iterations=opt.iterations)
+    fn = toys.hartmann6 if opt.configspace.dim == 6 else toys.branin
+    return check_sweep(torch, dev, label, view, res, fn, max_budget, n_iterations)
+
+
+def check_wave_launches(label, iterations, moments=False):
+    """The path's expected launches from its iterations (one scorer launch
+    per model wave), no pick that fell back from a failed model, and every
+    scorer launch recorded in the path scoring at least ``BATCHED_MIN_S``
+    candidates."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    waves = model_waves(iterations)
+    if waves < 1:
+        raise AssertionError(f"{label}: no stage-0 wave had a model-based pick")
+    if any(d.config_info.get("sample_reason") == "model_failure"
+           for it in iterations for d in it.data.values()):
+        raise AssertionError(f"{label}: a model-based proposal fell back to random")
+    small = [inputs[0].shape[0] for name, inputs in cuda_kde.RECORD
+             if name == "kde_score" and inputs[0].shape[0] < BATCHED_MIN_S]
+    if small:
+        raise AssertionError(f"{label}: scorer launches below S = {BATCHED_MIN_S}: {small}")
+    BATCHED_EXPECTED[label] = {"kde_score": waves, "kde_moments": waves if moments else 0}
+
+
+def drive_batched_bohb(torch, dev, max_budget=81.0, n_iterations=10):
+    """``BOHB`` + ``BatchedExecutor(VmapBackend(hartmann6),
+    parallel_brackets=3)``, the toy setting: the sweep gates and one scorer
+    launch per model wave."""
+    opt = batched_optimizer(dev, "BOHB")
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    rec.update(batched_sweep_checks(torch, dev, "batched_bohb", opt, res, max_budget,
+                                    n_iterations))
+    check_wave_launches("batched_bohb", opt.iterations)
+    print("batched_bohb path " + json.dumps(rec), flush=True)
+    BATCHED_RUNS["batched_bohb"] = (opt, res, rec)
+    return res
+
+
+def _runs(res):
+    id2c = res.get_id2config_mapping()
+    return {(r.config_id, r.budget): (r.loss, id2c[r.config_id]["config"])
+            for r in res.get_all_runs()}
+
+
+def drive_batched_fusion(torch, dev, n_iterations=10):
+    """The ``batched_bohb`` setting at ``parallel_brackets=1``, with and
+    without bracket fusion: the same ``(config_id, budget)`` set and
+    losses within ``FUSION_RTOL``."""
+    runs, iterations = {}, []
+    for fuse in (True, False):
+        opt = batched_optimizer(dev, "BOHB", parallel_brackets=1, fuse_brackets=fuse)
+        res, rec = run_batched(torch, dev, opt, n_iterations)
+        rec.update(batched_sweep_checks(torch, dev, f"batched_bohb_fusion_{fuse}", opt, res,
+                                        81.0, n_iterations))
+        if (rec["fused_brackets_run"] > 0) != fuse or (fuse and rec["fused_cache_hits"] < 1):
+            raise AssertionError(f"batched_bohb_fusion fuse={fuse}: fused "
+                                 f"{rec['fused_brackets_run']}, cache hits "
+                                 f"{rec['fused_cache_hits']}")
+        print(f"batched_bohb_fusion fuse={fuse} " + json.dumps(rec), flush=True)
+        runs[fuse] = _runs(res)
+        iterations += opt.iterations
+        BATCHED_RUNS[f"batched_bohb_fusion_{fuse}"] = (opt, res, rec)
+    if set(runs[True]) != set(runs[False]):
+        raise AssertionError("batched_bohb_fusion: fused and stage-batched runs differ "
+                             "in their (config_id, budget) set")
+    worst = max(abs(runs[True][k][0] - runs[False][k][0]) / max(abs(runs[False][k][0]), 1e-30)
+                for k in runs[True])
+    if not worst <= FUSION_RTOL:
+        raise AssertionError(f"batched_bohb_fusion: losses differ by rel {worst}")
+    print("batched_bohb_fusion compare " + json.dumps(
+        dict(runs=len(runs[True]), max_rel_loss_diff=worst)), flush=True)
+    check_wave_launches("batched_bohb_fusion", iterations)
+    return runs
+
+
+def drive_batched_in_trace(torch, dev, max_budget=81.0, n_iterations=10):
+    """``BOHB(in_trace_refit=True)`` with ``HPB_PALLAS_KDE_FIT=1`` and
+    ``HPB_USE_PALLAS=1``: each model wave fits on the card (one moments
+    launch for both sides) and proposes in the flat layout (one scorer
+    launch)."""
+    with env_flags(HPB_PALLAS_KDE_FIT="1", HPB_USE_PALLAS="1"):
+        opt = batched_optimizer(dev, "BOHB", in_trace_refit=True)
+        if not opt.config_generator.use_pallas:
+            raise AssertionError("batched_bohb_in_trace: use_pallas did not resolve on")
+        res, rec = run_batched(torch, dev, opt, n_iterations)
+    rec.update(batched_sweep_checks(torch, dev, "batched_bohb_in_trace", opt, res,
+                                    max_budget, n_iterations))
+    check_wave_launches("batched_bohb_in_trace", opt.iterations, moments=True)
+    print("batched_bohb_in_trace path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_batched_model_free(torch, dev, cls_name, max_budget=81.0, n_iterations=10):
+    """``HyperBand`` or ``RandomSearch`` on Branin: runs per budget, no
+    kernel launch."""
+    opt = batched_optimizer(dev, cls_name, objective="branin")
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    rec["runs_per_budget"] = check_runs_per_budget(
+        cls_name, res, max_budget, n_iterations, stage0_only=cls_name == "RandomSearch")
+    label = "batched_hyperband" if cls_name == "HyperBand" else "batched_random_search"
+    BATCHED_EXPECTED[label] = {"kde_score": 0, "kde_moments": 0}
+    print(f"{label} path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_batched_h2bo(torch, dev, max_budget=81.0, n_iterations=10):
+    """``H2BO`` on Hartmann-6: learning-curve promotions on the host, the
+    proposals as BOHB's."""
+    opt = batched_optimizer(dev, "H2BO")
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    rec.update(batched_sweep_checks(torch, dev, "batched_h2bo", opt, res, max_budget,
+                                    n_iterations))
+    check_wave_launches("batched_h2bo", opt.iterations)
+    print("batched_h2bo path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_batched_resume(torch, dev, cut=4, n_iterations=10):
+    """A Master checkpoint taken on the card after ``cut`` brackets of the
+    fused ``parallel_brackets=1`` run, loaded into a fresh optimizer and
+    run to ``n_iterations``: every run equals the uninterrupted run's
+    (``batched_bohb_fusion``, fused) exactly."""
+    import tempfile
+
+    victim = batched_optimizer(dev, "BOHB", parallel_brackets=1)
+    victim.run(n_iterations=cut)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "master.pkl")
+        victim.save_checkpoint(path)
+        resumed = batched_optimizer(dev, "BOHB", parallel_brackets=1)
+        resumed.load_checkpoint(path)
+    res, rec = run_batched(torch, dev, resumed, n_iterations)
+    want = _runs(BATCHED_RUNS["batched_bohb_fusion_True"][1])
+    got = _runs(res)
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"batched_resume: {len(diff)} runs differ from the "
+                             f"uninterrupted run, first {diff[:3]}")
+    check_wave_launches("batched_resume", resumed.iterations)
+    rec.update(cut=cut, runs=len(got), equal_to_uninterrupted=True)
+    print("batched_resume path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_batched_teacher(torch, dev, n_iterations=4):
+    """The teacher at full width on the batched path, ``bench.py:1054``
+    ``bench_teacher``'s setting: ``TeacherConfig()``, budgets 1..27, eta 3,
+    ``min_points_in_model=5``, seed 0. Gated on runs per budget and crash
+    ranking; the incumbent's validation accuracy is reported against
+    ``TARGET_VAL_ACCURACY``, not gated."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import (
+        TARGET_VAL_ACCURACY,
+        TeacherConfig,
+        make_teacher_eval_fn,
+        teacher_space,
+    )
+
+    cs = teacher_space(seed=0)
+    ex = h.BatchedExecutor(h.VmapBackend(make_teacher_eval_fn(TeacherConfig(), device=dev),
+                                         device=dev), cs)
+    opt = h.BOHB(configspace=cs, run_id="smoke-teacher", executor=ex, min_budget=1,
+                 max_budget=27, eta=3, seed=0, min_points_in_model=5, device=dev)
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    rec.update(check_workload_sweep("batched_teacher", res, 1.0, 27.0, n_iterations, True))
+    rec.update(incumbent_val_accuracy=1.0 - rec["incumbent_loss"],
+               target_val_accuracy=TARGET_VAL_ACCURACY)
+    check_wave_launches("batched_teacher", opt.iterations)
+    print("batched_teacher path " + json.dumps(rec), flush=True)
+    BATCHED_RUNS["batched_teacher"] = (opt, res, rec)
     return res
 
 
@@ -1925,6 +2199,17 @@ def main(argv=None) -> int:
         "resnet": lambda torch, dev: drive_workload(torch, dev, "resnet", "resnet", 2),
         "transformer": lambda torch, dev: drive_workload(
             torch, dev, "transformer", "transformer", 2),
+        # the Master-driven tier (per-bracket batched path)
+        "batched_bohb": drive_batched_bohb,
+        "batched_bohb_fusion": drive_batched_fusion,
+        "batched_bohb_in_trace": drive_batched_in_trace,
+        "batched_hyperband": lambda torch, dev: drive_batched_model_free(
+            torch, dev, "HyperBand"),
+        "batched_random_search": lambda torch, dev: drive_batched_model_free(
+            torch, dev, "RandomSearch"),
+        "batched_h2bo": drive_batched_h2bo,
+        "batched_resume": drive_batched_resume,
+        "batched_teacher": drive_batched_teacher,
     }
     launches, recorded, results = {}, [], {}
     for path, drive in paths.items():
@@ -1936,13 +2221,15 @@ def main(argv=None) -> int:
         recorded += [(path, name, inputs) for name, inputs in cuda_kde.RECORD]
         cuda_kde.RECORD = None
     print("main path launches " + json.dumps(launches), flush=True)
-    if launches != MAIN_PATH_LAUNCHES:
+    expected = {**MAIN_PATH_LAUNCHES, **BATCHED_EXPECTED}
+    if launches != expected:
         raise AssertionError(
-            f"main path launches {launches} != {MAIN_PATH_LAUNCHES}: every model "
+            f"main path launches {launches} != {expected}: every model "
             "bracket of the static sweeps scores once, every chunked, resident "
             "or incumbent bracket fits and scores once (a conditional fit runs "
             "the moments once per split side), HyperBand and random search run "
-            "no model")
+            "no model, every Master-driven model wave scores once (and fits "
+            "once with the in-trace moments fit)")
     facts = check_record_facts(recorded)
     for path in ("conditional_static", "conditional_chunked", "conditional_resident"):
         if not facts[path]["kde_score_mixed_vartypes"]:

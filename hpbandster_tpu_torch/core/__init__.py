@@ -1,3 +1,4 @@
-"""Host bookkeeping of the port: Job, Datum/BaseIteration,
-SuccessiveHalving, Result, warm start (WarmStartIteration) and fused-tier
-checkpoints."""
+"""Host bookkeeping of the port: Job, Datum/BaseIteration, the iteration
+types (SuccessiveHalving, SuccessiveResampling, JaxSuccessiveHalving),
+Result, warm start (WarmStartIteration), the Master's run loop and the
+Master and fused-tier checkpoints."""

@@ -1,14 +1,20 @@
-"""Fused-tier checkpoints: a chunked ``FusedBOHB`` run resumes from its
-last chunk boundary.
+"""Mid-run optimizer checkpoints: a Master-driven optimizer resumes
+mid-bracket, a chunked ``FusedBOHB`` run from its last chunk boundary.
 
-Ported from ``hpbandster_tpu/core/checkpoint.py`` (its fused half:
-``_datum_state``, ``_iteration_state``, ``_restore_iteration``,
-``_check_iteration_shape``, ``_rank_fn_name``, ``fused_state_dict``,
-``restore_fused_state``, ``_atomic_pickle``, ``save_fused_checkpoint``,
-``load_fused_checkpoint``). The format, its version, keys and guards are
-the reference's, and the pickle holds only Python and numpy values, so a
-checkpoint written by the reference's ``FusedBOHB`` loads here and the other
-way round. The port scores candidates in the reference's Pallas form (flat
+Ported from ``hpbandster_tpu/core/checkpoint.py``: the Master half
+(``master_state_dict``, ``restore_master_state``, ``save_checkpoint``,
+``load_checkpoint``: every bracket's ``Datum`` bookkeeping, the stage
+pointers and the config generator's state, with in-flight configs rolled
+back to QUEUED) and the fused half (``_datum_state``, ``_iteration_state``,
+``_restore_iteration``, ``_check_iteration_shape``, ``_rank_fn_name``,
+``fused_state_dict``, ``restore_fused_state``, ``_atomic_pickle``,
+``save_fused_checkpoint``, ``load_fused_checkpoint``). The format, its
+version, keys and guards are the reference's, and the pickle holds only
+Python and numpy values. A fused checkpoint written by the reference's
+``FusedBOHB`` loads here and the other way round. A Master checkpoint of
+``BOHB`` or ``H2BO`` does not cross: the reference's holds its generator's
+jax key, the port's a ``torch.Generator`` state, and each side's
+``BOHBKDE.set_state`` refuses the other's. The port scores candidates in the reference's Pallas form (flat
 candidate draw, ``diff**2 < 0.25`` match test), so it writes
 ``use_pallas: True`` and refuses a checkpoint written with
 ``use_pallas=False``.
@@ -25,6 +31,10 @@ import numpy as np
 from hpbandster_tpu_torch.core.iteration import Datum, Status
 
 __all__ = [
+    "master_state_dict",
+    "restore_master_state",
+    "save_checkpoint",
+    "load_checkpoint",
     "fused_state_dict",
     "restore_fused_state",
     "save_fused_checkpoint",
@@ -92,6 +102,49 @@ def _check_iteration_shape(it, it_state: Dict[str, Any]) -> None:
             f"{list(it.num_configs)}@{list(it.budgets)} — was the "
             "optimizer constructed with different eta/budget settings?"
         )
+
+
+def master_state_dict(master) -> Dict[str, Any]:
+    """Snapshot a Master (under its own lock) into a picklable dict."""
+    with master.thread_cond:
+        state = {
+            "format_version": _FORMAT_VERSION,
+            "config": dict(master.config),
+            "time_ref": master.time_ref,
+            "iterations": [_iteration_state(it) for it in master.iterations],
+        }
+        if hasattr(master.config_generator, "get_state"):
+            state["config_generator"] = master.config_generator.get_state()
+    return state
+
+
+def restore_master_state(master, state: Dict[str, Any]) -> None:
+    """Rehydrate a freshly constructed Master from :func:`master_state_dict`.
+
+    The Master must have the same bracket arithmetic (eta, budgets): the
+    iterations are rebuilt by ``get_next_iteration`` and their shapes
+    checked against the snapshot.
+    """
+    if state.get("format_version") != _FORMAT_VERSION:
+        raise ValueError(f"unsupported checkpoint version {state.get('format_version')}")
+    if state.get("kind") == "fused":
+        raise ValueError("fused-tier checkpoint (use FusedBOHB.load_checkpoint)")
+    with master.thread_cond:
+        if master.iterations:
+            raise RuntimeError("can only restore into a fresh Master")
+        master.config.update(state["config"])
+        master.time_ref = state["time_ref"]
+        if "config_generator" in state and hasattr(
+            master.config_generator, "set_state"
+        ):
+            master.config_generator.set_state(state["config_generator"])
+        for it_state in state["iterations"]:
+            it = master.get_next_iteration(
+                it_state["HPB_iter"], {"result_logger": master.result_logger}
+            )
+            _check_iteration_shape(it, it_state)
+            _restore_iteration(it, it_state)
+            master.iterations.append(it)
 
 
 def _rank_fn_name(fn) -> Any:
@@ -207,6 +260,16 @@ def _atomic_pickle(state: Dict[str, Any], path: str) -> None:
     with open(tmp, "wb") as fh:
         pickle.dump(state, fh)
     os.replace(tmp, path)  # atomic: a crash mid-write never corrupts
+
+
+def save_checkpoint(master, path: str) -> None:
+    _atomic_pickle(master_state_dict(master), path)
+
+
+def load_checkpoint(master, path: str) -> None:
+    with open(path, "rb") as fh:
+        state = pickle.load(fh)
+    restore_master_state(master, state)
 
 
 def save_fused_checkpoint(opt, path: str) -> None:

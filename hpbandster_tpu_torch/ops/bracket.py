@@ -1,10 +1,16 @@
 """Successive-halving / HyperBand bracket arithmetic (host side, numpy).
 
 Ported from ``hpbandster_tpu/ops/bracket.py``: ``max_sh_iterations``,
-``budget_ladder``, ``BracketPlan``, ``hyperband_bracket``, the host
-promotion rule ``sh_promotion_mask_np`` and ``power_law_extrapolate`` (the
-H2BO promotion score, in tensor ops). The schedule is plain Python, so the
-port keeps it identical; the on-device promotion lives in ``ops/fused.py``.
+``budget_ladder``, ``BracketPlan``, ``hyperband_bracket``,
+``hyperband_schedule``, the promotion rule on the tensor's device
+(``sh_promotion_mask``, ``sh_promotion_mask_compiled``), its host twin
+``sh_promotion_mask_np``, the resampling variant ``sh_resample_mask`` and
+``power_law_extrapolate`` (the H2BO promotion score, in tensor ops). The
+schedule is plain Python, so the port keeps it identical; the fused
+bracket's own promotion lives in ``ops/fused.py``.
+
+Every promotion rule ranks NaN (crashed) as +inf and breaks ties by the
+lower index: a stable sort, as ``jnp.argsort`` is.
 """
 
 from __future__ import annotations
@@ -20,7 +26,11 @@ __all__ = [
     "budget_ladder",
     "BracketPlan",
     "hyperband_bracket",
+    "hyperband_schedule",
+    "sh_promotion_mask",
+    "sh_promotion_mask_compiled",
     "sh_promotion_mask_np",
+    "sh_resample_mask",
     "power_law_extrapolate",
 ]
 
@@ -76,6 +86,56 @@ def hyperband_bracket(
     ns = tuple(max(int(n0 * eta ** (-j)), 1) for j in range(s + 1))
     budgets = tuple(float(b) for b in ladder[-(s + 1):])
     return BracketPlan(num_configs=ns, budgets=budgets)
+
+
+def hyperband_schedule(
+    n_iterations: int, min_budget: float, max_budget: float, eta: float
+) -> Tuple[BracketPlan, ...]:
+    """Plans for ``n_iterations`` consecutive HyperBand iterations."""
+    return tuple(
+        hyperband_bracket(i, min_budget, max_budget, eta) for i in range(n_iterations)
+    )
+
+
+def sh_promotion_mask(losses: torch.Tensor, k) -> torch.Tensor:
+    """The successive-halving promotion rule on the losses' device:
+    ``losses f32[n]`` (NaN = crashed) -> ``bool[n]`` marking the ``k`` best.
+    NaN ranks as +inf; ``ranks = argsort(argsort(clean))`` with stable
+    sorts, so ties go to the lower index. ``k`` is an int or a 0-dim
+    tensor; leading batch dims rank independently."""
+    losses = torch.as_tensor(losses)
+    clean = torch.where(torch.isnan(losses), torch.full_like(losses, math.inf), losses)
+    order = torch.argsort(clean, dim=-1, stable=True)
+    ranks = torch.argsort(order, dim=-1, stable=True)
+    return ranks < k
+
+
+def sh_promotion_mask_compiled():
+    """The reference's compiled promotion kernel: there is nothing to
+    compile here, so the rule itself, one callable for every width."""
+    return sh_promotion_mask
+
+
+def sh_resample_mask(
+    losses: torch.Tensor, k, resampling_rate: float, generator=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SuccessiveResampling's rule: promote only ``max(ceil(k * (1 -
+    resampling_rate)), 1)`` survivors; the caller fills the rest of the next
+    stage with fresh samples. Returns ``(promote_mask, n_resampled)``, the
+    count an int32 0-dim tensor. The selection is deterministic; the
+    generator is accepted in the reference's key position and unused."""
+    del generator
+    losses = torch.as_tensor(losses)
+    if isinstance(k, torch.Tensor):
+        prod = k.to(torch.float32) * (1.0 - resampling_rate)
+        k_i = k.to(torch.int32)
+    else:
+        # the product in float64 rounded once to float32, as the reference's
+        # Python-number product reaches jnp.ceil
+        prod = torch.tensor(np.float32(k * (1.0 - resampling_rate)), device=losses.device)
+        k_i = torch.tensor(int(k), dtype=torch.int32, device=losses.device)
+    n_promote = torch.clamp(torch.ceil(prod).to(torch.int32), min=1)
+    return sh_promotion_mask(losses, n_promote), k_i - n_promote
 
 
 def sh_promotion_mask_np(losses: np.ndarray, k) -> np.ndarray:

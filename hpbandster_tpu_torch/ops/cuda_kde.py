@@ -4,8 +4,11 @@ Ported from ``hpbandster_tpu/ops/pallas_kde.py``, built by ``ops/_build.py``:
 
 * the acquisition scorer: the Pallas TPU kernel ``_score_kernel`` becomes
   ``csrc/kde_score.cu``; ``pallas_score_candidates_traced`` becomes
-  :func:`score_candidates` and ``pallas_propose_batch`` becomes
-  :func:`propose_batch`;
+  :func:`score_candidates`, ``pallas_propose_batch`` becomes
+  :func:`propose_batch`, ``pallas_propose_batch_seeded`` becomes
+  :func:`propose_batch_seeded` and ``pallas_refit_propose_batch_seeded``
+  becomes :func:`refit_propose_batch_seeded` (the flat candidate layout;
+  ``ops/kde.py`` has the per-proposal twins, which score here too);
 * the bandwidth fit's masked moments: ``_moments_kernel`` becomes
   ``csrc/kde_moments.cu``; ``_masked_moments_padded`` becomes
   :func:`masked_moments` and ``pallas_normal_reference_bandwidths`` becomes
@@ -48,8 +51,10 @@ from hpbandster_tpu_torch.ops._build import load_library
 from hpbandster_tpu_torch.ops.kde import (
     KDE,
     LOG_PDF_FLOOR,
+    SeededDraws,
     _discrete_bw_cap,
     generate_candidates,
+    refit_pair,
 )
 
 __all__ = [
@@ -63,7 +68,10 @@ __all__ = [
     "score_candidates",
     "score_candidates_reference",
     "propose_from_candidates",
+    "propose_scored",
     "propose_batch",
+    "propose_batch_seeded",
+    "refit_propose_batch_seeded",
     "masked_moments",
     "masked_moments_reference",
     "moment_bandwidths",
@@ -345,6 +353,18 @@ def propose_from_candidates(
     ]
 
 
+def propose_scored(
+    cands: torch.Tensor, good: KDE, bad: KDE, vartypes, cards, n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`propose_from_candidates` with each proposal's winning score:
+    ``(f32[n, d], f32[n])``, one scorer launch."""
+    scores = score_candidates(cands, good, bad, vartypes, cards).reshape(n, -1)
+    best = torch.argmax(scores, dim=1, keepdim=True)
+    vecs = torch.take_along_dim(
+        cands.reshape(n, scores.shape[1], -1), best[:, :, None], dim=1)[:, 0]
+    return vecs, torch.take_along_dim(scores, best, dim=1)[:, 0]
+
+
 def propose_batch(
     generator: torch.Generator,
     good: KDE,
@@ -364,6 +384,53 @@ def propose_batch(
         bandwidth_factor, min_bandwidth,
     )
     return propose_from_candidates(cands, good, bad, vartypes, cards, n)
+
+
+def propose_batch_seeded(
+    seed: int,
+    good: KDE,
+    bad: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    draws: Optional[SeededDraws] = None,
+) -> torch.Tensor:
+    """:func:`propose_batch` keyed from one host seed through a draw source
+    (``ops.kde.SeededDraws`` by default): ``f32[n, d]``."""
+    draws = draws or SeededDraws(good.data.device)
+    cands = draws.candidates(seed, good, vartypes, cards, n, num_samples,
+                             bandwidth_factor, min_bandwidth, flat=True)
+    return propose_from_candidates(cands, good, bad, vartypes, cards, n)
+
+
+def refit_propose_batch_seeded(
+    seed: int,
+    obs_v: torch.Tensor,
+    obs_l: torch.Tensor,
+    count: int,
+    n_good: int,
+    n_bad: int,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    min_bandwidth_fit: float = 1e-3,
+    impute_seed: Optional[int] = None,
+    draws: Optional[SeededDraws] = None,
+) -> torch.Tensor:
+    """The KDE refit over raw observation buffers (``ops.kde.refit_pair``,
+    floored at ``min_bandwidth_fit``) and :func:`propose_batch_seeded` with
+    no host step between them: ``f32[n, d]`` proposals, no scores."""
+    draws = draws or SeededDraws(obs_v.device)
+    good, bad = refit_pair(obs_v, obs_l, count, n_good, n_bad, cards,
+                           min_bandwidth_fit, impute_seed, draws)
+    return propose_batch_seeded(seed, good, bad, vartypes, cards, n, num_samples,
+                                bandwidth_factor, min_bandwidth, draws)
 
 
 # ------------------------------------------------------------ bandwidth fit

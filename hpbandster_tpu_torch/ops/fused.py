@@ -5,8 +5,9 @@ Ported from ``hpbandster_tpu/ops/fused.py``: ``_CRASH_RANK``,
 ``stage_telemetry`` (the device half of the metrics plane),
 ``StatefulEval``, ``fused_sh_bracket`` (the stateless ``eval_fn`` seam or
 the ``StatefulEval`` warm-continuation seam, with the default promotion
-scores or a ``rank_fn`` over the survivors' loss history) and
-``_pack_stages``.
+scores or a ``rank_fn`` over the survivors' loss history), ``_pack_stages``,
+``_unpack_stages`` and ``make_fused_bracket_fn`` (one bracket shape's
+runner, for the batched executor).
 
 Crashed configs surface as NaN losses and rank behind every clean loss but
 ahead of padding rows. Ties keep the lower row index: the reference's
@@ -22,8 +23,11 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["StatefulEval", "fused_sh_bracket", "rank_key", "stage_telemetry",
-           "tree_leaves", "tree_map"]
+from hpbandster_tpu_torch.device import resolve_device, upload
+from hpbandster_tpu_torch.utils.lru import LRUCache
+
+__all__ = ["StatefulEval", "fused_sh_bracket", "make_fused_bracket_fn", "rank_key",
+           "stage_telemetry", "tree_leaves", "tree_map"]
 
 #: crashed (NaN) losses map here for ranking: behind any real loss, ahead of
 #: the +inf padding rows
@@ -222,3 +226,59 @@ def _unpack_stages(packed, num_configs) -> List[Tuple[np.ndarray, np.ndarray]]:
         out.append((idx_flat[off:off + k], loss_flat[off:off + k]))
         off += k
     return out
+
+
+#: process-wide runner cache: executors come and go, but an (objective,
+#: bracket shape, device) combination builds once. Bounded, so throwaway
+#: closures cannot pin their datasets forever.
+_FUSED_FN_CACHE = LRUCache(maxsize=64)
+
+
+def make_fused_bracket_fn(
+    eval_fn: EvalFn,
+    num_configs: Sequence[int],
+    budgets: Sequence[float],
+    mesh=None,
+    device=None,
+):
+    """A runner for one bracket shape: ``fn(vectors f32[n0, d]) ->
+    [(indices, losses), ...]`` as numpy, every stage and promotion on
+    ``device`` (``None`` means ``cuda``).
+
+    ``fn.dispatch(vectors)`` uploads the vectors and launches the whole
+    bracket without waiting for it, returning the packed stages as one
+    device tensor; ``fn.fetch(packed)`` brings them to the host (one
+    transfer, which synchronises), so a caller can launch several brackets
+    before fetching any. Runners are cached per ``(eval_fn, num_configs,
+    budgets, device)``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_fused_bracket_fn(mesh=...) is not ported yet (ROADMAP A7: "
+            "multi-GPU)")
+    dev = resolve_device(device)
+    num_configs = tuple(int(n) for n in num_configs)
+    budgets = tuple(float(b) for b in budgets)
+    cache_key = (eval_fn, num_configs, budgets, dev)
+    cached = _FUSED_FN_CACHE.get(cache_key)
+    if cached is not None:
+        return cached
+
+    def dispatch(vectors) -> torch.Tensor:
+        (v,) = upload(dev, vectors)
+        idx, losses = _pack_stages(fused_sh_bracket(eval_fn, v, num_configs, budgets))
+        # one tensor, one transfer at the fetch (indices are exact in f32)
+        return torch.cat([idx.to(torch.float32), losses])
+
+    def fetch(packed: torch.Tensor):
+        flat = packed.cpu().numpy()
+        total = len(flat) // 2
+        return _unpack_stages((flat[:total].astype(np.int64), flat[total:]), num_configs)
+
+    def runner(vectors):
+        return fetch(dispatch(vectors))
+
+    runner.dispatch = dispatch
+    runner.fetch = fetch
+    _FUSED_FN_CACHE[cache_key] = runner
+    return runner

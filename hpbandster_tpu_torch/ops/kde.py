@@ -2,15 +2,23 @@
 
 Ported from ``hpbandster_tpu/ops/kde.py``: ``KDE``, ``LOG_PDF_FLOOR``,
 ``_discrete_bw_cap``, ``normal_reference_bandwidths`` (two-pass variance),
-``_truncnorm_unit``, ``sample_around``, ``generate_candidates``, the
-``HPB_PALLAS_KDE_FIT`` flag reader, ``impute_conditional_masked`` and
-``fit_kde_pair_masked`` (the traced-count fit of the dynamic-count tier).
-The acquisition scorer and the masked-moment bandwidth kernel live in
-``ops/cuda_kde.py``.
+``_per_dim_log_kernels`` and ``kde_logpdf`` (the reference's XLA log-density,
+kept as a plain version for the tests), ``_truncnorm_unit``,
+``sample_around``, ``generate_candidates``, the ``HPB_PALLAS_KDE_FIT`` flag
+reader, ``impute_conditional_masked``, ``fit_kde_pair_masked`` (the
+traced-count fit of the dynamic-count tier) and the per-bracket path's
+proposal half: ``propose``, ``propose_batch``, ``generate_candidates_seeded``,
+``propose_batch_seeded_scored``, ``propose_batch_seeded`` and
+``refit_propose_batch_seeded``. The acquisition scorer and the masked-moment
+bandwidth kernel live in ``ops/cuda_kde.py``; every proposal here scores
+through it (``kde_score.cu`` on a card), never through ``kde_logpdf``.
 
 Random numbers come from an explicit ``torch.Generator``. The sampling math
 is split from the draws (``candidates_from_uniforms``), so a test can feed
-the reference's own uniforms through the port's arithmetic.
+the reference's own uniforms through the port's arithmetic; the seeded
+proposal functions take their candidates and imputation uniforms from a
+draw source (:class:`SeededDraws` by default), so a test can feed the
+reference's own candidates.
 """
 
 from __future__ import annotations
@@ -25,15 +33,27 @@ __all__ = [
     "KDE",
     "LOG_PDF_FLOOR",
     "normal_reference_bandwidths",
+    "kde_logpdf",
     "sample_around",
     "candidates_from_uniforms",
     "generate_candidates",
     "impute_conditional_masked",
     "fit_kde_pair_masked",
+    "SeededDraws",
+    "per_proposal_candidates",
+    "propose",
+    "propose_batch",
+    "generate_candidates_seeded",
+    "propose_batch_seeded_scored",
+    "propose_batch_seeded",
+    "refit_pair",
+    "refit_propose_batch_seeded",
 ]
 
 #: the reference clips pdf values at 1e-32 before the ratio
 LOG_PDF_FLOOR = math.log(1e-32)
+
+_LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 class KDE(NamedTuple):
@@ -73,6 +93,47 @@ def normal_reference_bandwidths(
     sigma = torch.sqrt(torch.clamp(var, min=0.0))
     bw = 1.06 * sigma * n ** (-1.0 / (4.0 + d))
     return torch.minimum(torch.clamp(bw, min=min_bandwidth), _discrete_bw_cap(cards.to(data.device)))
+
+
+def _per_dim_log_kernels(
+    x: torch.Tensor,
+    data: torch.Tensor,
+    bw: torch.Tensor,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+) -> torch.Tensor:
+    """Log kernel value of each (point, datum, dim): ``x f32[..., d]``
+    against ``data f32[N, d]`` gives ``f32[..., N, d]``.
+
+    Vartype codes: 0 continuous (Gaussian), 1 unordered
+    (Aitchison–Aitken), 2 ordered (Wang–van Ryzin); the reference's XLA form,
+    where a discrete match is ``|diff| < 0.5`` and any code other than 0
+    and 1 takes the ordinal kernel.
+    """
+    diff = x[..., None, :] - data
+    bw = torch.clamp(bw, min=1e-10)
+    log_c = -0.5 * torch.square(diff / bw) - torch.log(bw) - _LOG_SQRT_2PI
+    same = torch.abs(diff) < 0.5  # discrete dims hold integer codes
+    lam = torch.clamp(bw, 1e-10, 1.0 - 1e-7)
+    km1 = torch.clamp(cards.to(torch.float32) - 1.0, min=1.0)
+    l1m = torch.log1p(-lam)
+    log_u = torch.where(same, l1m, torch.log(lam) - torch.log(km1))
+    log_o = torch.where(
+        same, l1m, math.log(0.5) + l1m + torch.abs(diff) * torch.log(lam)
+    )
+    return torch.where(vartypes == 0, log_c, torch.where(vartypes == 1, log_u, log_o))
+
+
+def kde_logpdf(
+    x: torch.Tensor, kde: KDE, vartypes: torch.Tensor, cards: torch.Tensor
+) -> torch.Tensor:
+    """Mixture log-density of points ``x f32[..., d]`` under the
+    product-kernel KDE, ``f32[...]``: the plain version the tests hold the
+    proposal path against."""
+    per_datum = _per_dim_log_kernels(x, kde.data, kde.bw, vartypes, cards).sum(-1)
+    log_w = torch.where(kde.mask > 0, 0.0, -math.inf)
+    n = torch.clamp(kde.mask.sum(), min=1.0)
+    return torch.logsumexp(per_datum + log_w, dim=-1) - torch.log(n)
 
 
 def _truncnorm_unit(
@@ -287,3 +348,228 @@ def fit_kde_pair_masked(
         bw_good = normal_reference_bandwidths(good_data, good_mask, cards, min_bandwidth)
         bw_bad = normal_reference_bandwidths(bad_data, bad_mask, cards, min_bandwidth)
     return KDE(good_data, good_mask, bw_good), KDE(bad_data, bad_mask, bw_bad)
+
+
+# ------------------------------------------------------------- proposals
+def per_proposal_candidates(
+    generator: torch.Generator,
+    good: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+) -> torch.Tensor:
+    """``n`` proposals' candidates in :func:`propose`'s layout, proposal
+    after proposal: each candidate's donor uniform and its three
+    perturbation uniforms are drawn together, ``f32[n * num_samples, d]``.
+    The flat layout (:func:`generate_candidates`) draws every donor first;
+    the distribution is the same, the numbers differ."""
+    d = good.data.shape[1]
+    u = torch.rand((n * num_samples, 1 + 3 * d), generator=generator,
+                   device=good.data.device)
+    idx = _masked_donors(good.mask, u[:, 0])
+    return candidates_from_uniforms(
+        good, idx, u[:, 1:1 + d], u[:, 1 + d:1 + 2 * d], u[:, 1 + 2 * d:],
+        vartypes, cards, bandwidth_factor, min_bandwidth,
+    )
+
+
+class SeededDraws:
+    """The per-bracket path's default draws, on ``device``.
+
+    A proposal wave's candidates come from a ``torch.Generator`` seeded with
+    the wave's host seed (the number the reference turns into a jax key),
+    in the per-proposal or the flat layout; the in-trace fit's imputation
+    uniforms from one seeded with the imputation seed. A call with seed
+    ``None`` (a one-at-a-time proposal) draws from :attr:`trickle`, one
+    generator seeded at construction, as the reference's trickle path draws
+    from its key chain. A test replaces this object to feed the reference's
+    own candidates through the port's arithmetic.
+    """
+
+    def __init__(self, device, trickle_seed: int = 0):
+        self.device = torch.device(device)
+        self.trickle = torch.Generator(device=self.device)
+        self.trickle.manual_seed(int(trickle_seed))
+
+    def generator(self, seed: Optional[int]) -> torch.Generator:
+        if seed is None:
+            return self.trickle
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+        return gen
+
+    def candidates(self, seed, good: KDE, vartypes, cards, n: int, num_samples: int,
+                   bandwidth_factor: float, min_bandwidth: float, flat: bool) -> torch.Tensor:
+        """``f32[n * num_samples, d]``, proposal ``i``'s candidates in rows
+        ``i * num_samples`` onwards."""
+        gen = self.generator(seed)
+        if flat:
+            return generate_candidates(gen, good, vartypes, cards, n * num_samples,
+                                       bandwidth_factor, min_bandwidth)
+        return per_proposal_candidates(gen, good, vartypes, cards, n, num_samples,
+                                       bandwidth_factor, min_bandwidth)
+
+    def impute(self, seed: int, n: int, d: int):
+        """The good and the bad side's ``(u, u_fb)`` imputation uniforms,
+        each ``f32[n, d]``."""
+        u = torch.rand((2, 2, n, d), generator=self.generator(seed), device=self.device)
+        return (u[0, 0], u[0, 1]), (u[1, 0], u[1, 1])
+
+
+def propose(
+    generator: torch.Generator,
+    good: KDE,
+    bad: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One BOHB proposal: the best of ``num_samples`` candidates by
+    ``max(log l, F) - max(log g, F)``. Returns ``(best f32[d], candidates
+    f32[num_samples, d], scores f32[num_samples])``."""
+    from hpbandster_tpu_torch.ops.cuda_kde import score_candidates
+
+    cands = per_proposal_candidates(generator, good, vartypes, cards, 1, num_samples,
+                                    bandwidth_factor, min_bandwidth)
+    scores = score_candidates(cands, good, bad, vartypes, cards)
+    # index_select, not a 0-dim tensor index, which reads it on the host
+    best = cands.index_select(0, torch.argmax(scores).reshape(1))[0]
+    return best, cands, scores
+
+
+def propose_batch(
+    generator: torch.Generator,
+    good: KDE,
+    bad: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+) -> torch.Tensor:
+    """A whole stage of :func:`propose` calls in one scorer launch,
+    ``f32[n, d]``: the reference's vmap of ``propose`` over a key batch."""
+    from hpbandster_tpu_torch.ops.cuda_kde import propose_from_candidates
+
+    cands = per_proposal_candidates(generator, good, vartypes, cards, n, num_samples,
+                                    bandwidth_factor, min_bandwidth)
+    return propose_from_candidates(cands, good, bad, vartypes, cards, n)
+
+
+def generate_candidates_seeded(
+    seed: int,
+    good: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    draws: Optional[SeededDraws] = None,
+) -> torch.Tensor:
+    """All ``n * num_samples`` candidates of a stage in the flat layout,
+    ``f32[n * num_samples, d]``, keyed from one host seed."""
+    draws = draws or SeededDraws(good.data.device)
+    return draws.candidates(seed, good, vartypes, cards, n, num_samples,
+                            bandwidth_factor, min_bandwidth, flat=True)
+
+
+def propose_batch_seeded_scored(
+    seed: Optional[int],
+    good: KDE,
+    bad: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    draws: Optional[SeededDraws] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n`` proposals in :func:`propose`'s layout from one host seed, and
+    each one's winning score: ``(f32[n, d], f32[n])``, the score being the
+    selected candidate's ``log l - log g`` (for the audit's ``lg_score``).
+    One scorer launch for all ``n * num_samples`` candidates."""
+    from hpbandster_tpu_torch.ops.cuda_kde import propose_scored
+
+    draws = draws or SeededDraws(good.data.device)
+    cands = draws.candidates(seed, good, vartypes, cards, n, num_samples,
+                             bandwidth_factor, min_bandwidth, flat=False)
+    return propose_scored(cands, good, bad, vartypes, cards, n)
+
+
+def propose_batch_seeded(
+    seed: Optional[int],
+    good: KDE,
+    bad: KDE,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    draws: Optional[SeededDraws] = None,
+) -> torch.Tensor:
+    """:func:`propose_batch_seeded_scored` without the scores."""
+    return propose_batch_seeded_scored(
+        seed, good, bad, vartypes, cards, n, num_samples, bandwidth_factor,
+        min_bandwidth, draws,
+    )[0]
+
+
+def refit_pair(
+    obs_v: torch.Tensor,
+    obs_l: torch.Tensor,
+    count: int,
+    n_good: int,
+    n_bad: int,
+    cards: torch.Tensor,
+    min_bandwidth: float,
+    impute_seed: Optional[int],
+    draws: SeededDraws,
+) -> Tuple[KDE, KDE]:
+    """The in-trace refit's good/bad pair over raw observation buffers
+    (:func:`fit_kde_pair_masked`), imputing from ``impute_seed``'s draws on
+    a conditional space. The moment-kernel fit follows
+    ``HPB_PALLAS_KDE_FIT``."""
+    impute_draws = (None if impute_seed is None
+                    else draws.impute(impute_seed, *obs_v.shape))
+    return fit_kde_pair_masked(obs_v, obs_l, count, n_good, n_bad, cards,
+                               min_bandwidth, impute_draws=impute_draws)
+
+
+def refit_propose_batch_seeded(
+    seed: int,
+    obs_v: torch.Tensor,
+    obs_l: torch.Tensor,
+    count: int,
+    n_good: int,
+    n_bad: int,
+    vartypes: torch.Tensor,
+    cards: torch.Tensor,
+    n: int,
+    num_samples: int = 64,
+    bandwidth_factor: float = 3.0,
+    min_bandwidth: float = 1e-3,
+    impute_seed: Optional[int] = None,
+    draws: Optional[SeededDraws] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KDE refit and a whole stage of proposals with no host step
+    between them: raw observation buffers (``f32[C, d]`` vectors, ``f32[C]``
+    losses, ``+inf`` in empty slots) in, ``(f32[n, d], f32[n])`` proposals
+    and scores out, in :func:`propose`'s layout. ``count``, ``n_good`` and
+    ``n_bad`` are the caller's split arithmetic. Pass ``impute_seed`` on
+    conditional spaces."""
+    draws = draws or SeededDraws(obs_v.device)
+    good, bad = refit_pair(obs_v, obs_l, count, n_good, n_bad, cards,
+                           min_bandwidth, impute_seed, draws)
+    return propose_batch_seeded_scored(
+        seed, good, bad, vartypes, cards, n, num_samples, bandwidth_factor,
+        min_bandwidth, draws,
+    )

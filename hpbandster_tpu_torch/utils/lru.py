@@ -1,0 +1,62 @@
+"""Tiny bounded LRU mapping for process-wide caches.
+
+A copy of ``hpbandster_tpu/utils/lru.py`` (jax-free there too), so the port
+imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any
+
+__all__ = ["LRUCache"]
+
+
+class LRUCache:
+    """Dict-shaped LRU: reads refresh recency, inserts evict the oldest.
+
+    Used for process-wide caches of built bracket runners, where an
+    unbounded dict would pin every closed-over dataset for the process
+    lifetime while throwaway closures (new identity each call) never hit.
+    Thread-safe.
+    """
+
+    def __init__(self, maxsize: int = 64):
+        self.maxsize = int(maxsize)
+        self._data: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __contains__(self, key: Any) -> bool:
+        with self._lock:
+            return key in self._data
+
+    def __getitem__(self, key: Any) -> Any:
+        with self._lock:
+            value = self._data[key]
+            self._data.move_to_end(key)
+            return value
+
+    def get(self, key: Any, default: Any = None) -> Any:
+        with self._lock:
+            if key not in self._data:
+                return default
+            value = self._data[key]
+            self._data.move_to_end(key)
+            return value
+
+    def __setitem__(self, key: Any, value: Any) -> None:
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+            self._data[key] = value
+            while len(self._data) > self.maxsize:
+                self._data.popitem(last=False)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()

@@ -81,6 +81,25 @@ def ref_wl(ref):
         n: importlib.import_module(f"hpbandster_tpu.workloads.{n}") for n in names})
 
 
+@pytest.fixture(scope="module")
+def ref_opt(ref):
+    """The reference's Master-driven tier (``core``, ``models``,
+    ``optimizers``, ``parallel``), imported inside :func:`ref`'s window and
+    removed with it."""
+    import importlib
+
+    names = {
+        "master": "core.master", "checkpoint": "core.checkpoint",
+        "result": "core.result", "successive_halving": "core.successive_halving",
+        "bohb_kde": "models.bohb_kde", "random_sampling": "models.random_sampling",
+        "learning_curves": "models.learning_curves",
+        "optimizers": "optimizers", "h2bo": "optimizers.h2bo",
+        "parallel": "parallel",
+    }
+    return SimpleNamespace(**{
+        k: importlib.import_module(f"hpbandster_tpu.{m}") for k, m in names.items()})
+
+
 # ------------------------------------------------------------------ spaces
 #: search spaces built identically in both packages: (kind, name, *args, kw)
 SPACES = {
@@ -272,6 +291,80 @@ class ReferenceDraws:
             self.codec, jax.random.fold_in(k_forb, t), n0)))
 
 
+class ReferenceKDEDraws:
+    """The reference's candidate and imputation draws of the per-bracket
+    path (``models/bohb_kde.py``), fed through the port's draw seam
+    (``ops.kde.SeededDraws``) as a port ``BOHBKDE``'s ``draws``:
+
+    * a wave's seed keys ``split(key(seed), n)``, one key per proposal,
+      each drawing its candidates as the reference's ``propose`` does; in
+      the flat layout ``generate_candidates_seeded(seed)``;
+    * seed ``None`` (one proposal at a time) splits the reference
+      generator's own key chain, ``key(trickle_seed)``;
+    * the in-trace fit's imputation uniforms come from
+      ``split(key(impute_seed))``, a donor and a fallback key per side.
+
+    Each call's candidates are kept in ``calls`` and its seed in ``seeds``,
+    so a test can score them with the reference's own log-density."""
+
+    def __init__(self, ref, trickle_seed=0):
+        import jax
+        import jax.numpy as jnp
+
+        self.ref = ref
+        self.key = jax.random.key(trickle_seed)
+        self.calls, self.seeds = [], []
+        sample_around = ref.kde.sample_around
+
+        def one(k, data, mask, bw, vt, cards, bf, mbw, num_samples):
+            k_idx, k_samp = jax.random.split(k)
+            logits = jnp.where(mask > 0, 0.0, -jnp.inf)
+            idx = jax.random.categorical(k_idx, logits, shape=(num_samples,))
+            keys = jax.random.split(k_samp, num_samples)
+            return jax.vmap(lambda kk, x: sample_around(kk, x, bw, vt, cards, bf, mbw))(
+                keys, data[idx])
+
+        def batch(keys, data, mask, bw, vt, cards, bf, mbw, num_samples):
+            return jax.vmap(lambda k: one(k, data, mask, bw, vt, cards, bf, mbw,
+                                          num_samples))(keys)
+
+        self._batch = jax.jit(batch, static_argnames=("num_samples",))
+
+    def candidates(self, seed, good, vartypes, cards, n, num_samples,
+                   bandwidth_factor, min_bandwidth, flat):
+        import jax
+        import jax.numpy as jnp
+
+        g = self.ref.kde.KDE(*(jnp.asarray(t.numpy()) for t in good))
+        vt, cd = jnp.asarray(vartypes.numpy()), jnp.asarray(cards.numpy())
+        if flat:
+            c = self.ref.kde.generate_candidates_seeded(
+                jnp.uint32(seed), g, vt, cd, n, num_samples, bandwidth_factor,
+                min_bandwidth)
+        else:
+            if seed is None:
+                self.key, sub = jax.random.split(self.key)
+                keys = sub[None]
+            else:
+                keys = jax.random.split(jax.random.key(np.uint32(seed)), n)
+            c = self._batch(keys, g.data, g.mask, g.bw, vt, cd, bandwidth_factor,
+                            min_bandwidth, num_samples=num_samples)
+        out = torch.from_numpy(np.array(c).reshape(n * num_samples, -1))
+        self.calls.append(out)
+        self.seeds.append(seed)
+        return out
+
+    def impute(self, seed, n, d):
+        import jax
+
+        sides = []
+        for k_side in jax.random.split(jax.random.key(np.uint32(seed))):
+            k_pick, k_fb = jax.random.split(k_side)
+            sides.append(tuple(torch.from_numpy(np.array(jax.random.uniform(k, (n, d))))
+                               for k in (k_pick, k_fb)))
+        return tuple(sides)
+
+
 # ------------------------------------------------------ import and device
 PORT_MODULES = [
     "hpbandster_tpu_torch",
@@ -279,6 +372,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.device",
     "hpbandster_tpu_torch.obs.device_metrics",
     "hpbandster_tpu_torch.core.checkpoint",
+    "hpbandster_tpu_torch.core.master",
     "hpbandster_tpu_torch.core.result",
     "hpbandster_tpu_torch.core.successive_halving",
     "hpbandster_tpu_torch.core.warmstart",
@@ -289,11 +383,24 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.ops.graphs",
     "hpbandster_tpu_torch.ops.kde",
     "hpbandster_tpu_torch.ops.sweep",
+    "hpbandster_tpu_torch.models",
+    "hpbandster_tpu_torch.models.base",
+    "hpbandster_tpu_torch.models.bohb_kde",
+    "hpbandster_tpu_torch.models.learning_curves",
+    "hpbandster_tpu_torch.models.random_sampling",
     "hpbandster_tpu_torch.optimizers",
+    "hpbandster_tpu_torch.optimizers.bohb",
     "hpbandster_tpu_torch.optimizers.fused_bohb",
+    "hpbandster_tpu_torch.optimizers.h2bo",
+    "hpbandster_tpu_torch.optimizers.hyperband",
+    "hpbandster_tpu_torch.optimizers.randomsearch",
+    "hpbandster_tpu_torch.parallel",
+    "hpbandster_tpu_torch.parallel.backends",
+    "hpbandster_tpu_torch.parallel.batched_executor",
     "hpbandster_tpu_torch.space",
     "hpbandster_tpu_torch.space.conditions",
     "hpbandster_tpu_torch.space.forbidden",
+    "hpbandster_tpu_torch.utils.lru",
     "hpbandster_tpu_torch.workloads",
     "hpbandster_tpu_torch.workloads.cnn",
     "hpbandster_tpu_torch.workloads.ensemble",
@@ -408,3 +515,50 @@ def test_unported_tiers_raise():
         with pytest.raises(ValueError, match="resident"):
             opt.run(n_iterations=2, **kw)
     assert opt.iterations == []
+
+    # the Master-driven tier: the RPC host tier, meshes, promotion rules,
+    # bucketed brackets and the write-ahead journal wait for later slices
+    from hpbandster_tpu_torch import BOHB, BatchedExecutor, HyperBand, VmapBackend
+    from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
+
+    cs = branin_space(seed=0)
+
+    def executor():
+        return BatchedExecutor(VmapBackend(branin, device="cpu"), cs)
+
+    common = dict(configspace=cs, run_id="unported", min_budget=1, max_budget=9,
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        BOHB(**common)  # executor=None would build the RPC Dispatcher
+    with pytest.raises(NotImplementedError, match="A9"):
+        BOHB(executor=executor(), wal_path="wal.jsonl", **common)
+    with pytest.raises(NotImplementedError, match="A5b"):
+        BOHB(executor=executor(), promotion_rule="asha", **common)
+    with pytest.raises(NotImplementedError, match="A6"):
+        BatchedExecutor(VmapBackend(branin, device="cpu"), cs, bucket_brackets=True)
+    with pytest.raises(NotImplementedError, match="A7"):
+        VmapBackend(branin, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        make_fused_bracket_fn(branin, (9, 3), (1.0, 3.0), mesh=object(), device="cpu")
+    hb = HyperBand(configspace=cs, run_id="unported", executor=executor(),
+                   min_budget=1, max_budget=9)
+    with pytest.raises(NotImplementedError, match="A9"):
+        hb.resume("checkpoint.pkl")
+
+
+def test_master_optimizers_refuse_to_run_without_a_device(monkeypatch):
+    """``BOHB``'s model, ``VmapBackend`` and the fused bracket runner take
+    ``device=None`` as CUDA and raise where it is absent."""
+    from hpbandster_tpu_torch import BOHB, BatchedExecutor, VmapBackend
+    from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cs = branin_space(seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VmapBackend(branin)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_fused_bracket_fn(branin, (9, 3), (1.0, 3.0))
+    ex = BatchedExecutor(VmapBackend(branin, device="cpu"), cs)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BOHB(configspace=cs, run_id="nodev", executor=ex, min_budget=1, max_budget=9)
