@@ -78,7 +78,26 @@ Phases, each fatal on failure:
    full width (``bench.py:1054``: runs per budget, crash ranking, the
    incumbent's accuracy reported against ``TARGET_VAL_ACCURACY``); each
    prints wall seconds, finished runs per second and host syncs per
-   bracket. The launch counts of every path are gated
+   bracket (the batched paths run on the bucket graphs, the default); then
+   the bucketed brackets and the serving tier, each path with its counts
+   reset and read the same way: ``batched_bohb_bucketed`` (``BOHB`` on
+   Hartmann-6 at the toy setting on its own objective closure: the sweep
+   gates, one CUDA graph captured per bucket, every fusable bracket on its
+   bucket's graph), ``serve_megabatch`` and ``serve_continuous`` (4 ``BOHB``
+   tenants, seeds 0-3, Hartmann-6 at the toy setting, in threads started
+   together, through one ``ServePool(pack_window_s=0.05)`` whose scheduler
+   quantum covers one bracket, megabatched or with ``continuous=True,
+   lane_count=8``: each tenant's runs per budget and its incumbent below
+   the random searches' median, the background precompile overlapping the
+   tenants' submissions, at least one packed bracket, captures at most the
+   buckets times {solo, packed} or the bucket families, each tenant's lane
+   incumbents the best final loss of its bucketed brackets) and
+   ``serve_teacher`` (3 teacher tenants at full width, ``bench.py:1054``'s
+   setting, megabatched at ``pack_width=4``: runs per budget, crash
+   ranking, a finite incumbent, its accuracy reported); each prints wall,
+   runs per second in total and per tenant, packed and solo brackets,
+   every graph's capture, instantiate and replay times, host syncs per
+   bracket and peak memory. The launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
    launch, of at least ``BATCHED_MIN_S`` candidates, per stage-0 wave with a
@@ -106,6 +125,10 @@ Phases, each fatal on failure:
    CNN's losses on the card those on the CPU from the same data and
    weights (``CNN_CPU_RTOL``), and the ensemble's promoted lanes the
    uninterrupted trainer's (``ENSEMBLE_RTOL``; bit for bit reported);
+   the bucketed run must equal the same run with
+   ``bucket_brackets=False`` bit for bit, and each serving tenant its own
+   seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
+   objective;
 6. hold each kernel against its plain version on every input the main
    paths gave it (a launch captured into a CUDA graph holds its latest
    replay's inputs), with the arguments the path passed (for the masked
@@ -143,6 +166,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -1064,16 +1088,20 @@ def model_waves(iterations):
 
 
 def batched_optimizer(dev, cls_name, objective="hartmann6", max_budget=81.0,
-                      parallel_brackets=3, fuse_brackets=True, seed=0, **kw):
+                      parallel_brackets=3, fuse_brackets=True, seed=0, objective_fn=None,
+                      bucket_brackets=True, **kw):
     """A Master-driven optimizer of the port on ``BatchedExecutor(
     VmapBackend(objective))``, eta 3, budgets 1..``max_budget``: the
-    reference's ``bench.py:741`` ``bench_batched`` setting."""
+    reference's ``bench.py:741`` ``bench_batched`` setting. ``objective_fn``
+    evaluates in place of the named toy (on its space)."""
     import hpbandster_tpu_torch as h
     from hpbandster_tpu_torch.workloads import toys
 
     cs = getattr(toys, f"{objective}_space")(seed=seed)
-    ex = h.BatchedExecutor(h.VmapBackend(getattr(toys, objective), device=dev), cs,
-                           fuse_brackets=fuse_brackets, parallel_brackets=parallel_brackets)
+    fn = objective_fn or getattr(toys, objective)
+    ex = h.BatchedExecutor(h.VmapBackend(fn, device=dev), cs, fuse_brackets=fuse_brackets,
+                           parallel_brackets=parallel_brackets,
+                           bucket_brackets=bucket_brackets)
     if cls_name in ("BOHB", "H2BO"):
         kw = dict(num_samples=64, device=dev, **kw)
     return getattr(h, cls_name)(configspace=cs, run_id=f"smoke-{cls_name}", executor=ex,
@@ -1263,6 +1291,20 @@ def drive_batched_resume(torch, dev, cut=4, n_iterations=10):
     return res
 
 
+_TEACHER_EVAL_FNS = {}
+
+
+def teacher_eval_fn(dev):
+    """The teacher's objective at full width (``TeacherConfig()``), one per
+    device in the process: the batched and the serving teacher paths share
+    it, so its solo bucket graphs (keyed by objective) are captured once."""
+    from hpbandster_tpu_torch.workloads import TeacherConfig, make_teacher_eval_fn
+
+    if dev not in _TEACHER_EVAL_FNS:
+        _TEACHER_EVAL_FNS[dev] = make_teacher_eval_fn(TeacherConfig(), device=dev)
+    return _TEACHER_EVAL_FNS[dev]
+
+
 def drive_batched_teacher(torch, dev, n_iterations=4):
     """The teacher at full width on the batched path, ``bench.py:1054``
     ``bench_teacher``'s setting: ``TeacherConfig()``, budgets 1..27, eta 3,
@@ -1270,16 +1312,10 @@ def drive_batched_teacher(torch, dev, n_iterations=4):
     ranking; the incumbent's validation accuracy is reported against
     ``TARGET_VAL_ACCURACY``, not gated."""
     import hpbandster_tpu_torch as h
-    from hpbandster_tpu_torch.workloads import (
-        TARGET_VAL_ACCURACY,
-        TeacherConfig,
-        make_teacher_eval_fn,
-        teacher_space,
-    )
+    from hpbandster_tpu_torch.workloads import TARGET_VAL_ACCURACY, teacher_space
 
     cs = teacher_space(seed=0)
-    ex = h.BatchedExecutor(h.VmapBackend(make_teacher_eval_fn(TeacherConfig(), device=dev),
-                                         device=dev), cs)
+    ex = h.BatchedExecutor(h.VmapBackend(teacher_eval_fn(dev), device=dev), cs)
     opt = h.BOHB(configspace=cs, run_id="smoke-teacher", executor=ex, min_budget=1,
                  max_budget=27, eta=3, seed=0, min_points_in_model=5, device=dev)
     res, rec = run_batched(torch, dev, opt, n_iterations)
@@ -1290,6 +1326,371 @@ def drive_batched_teacher(torch, dev, n_iterations=4):
     print("batched_teacher path " + json.dumps(rec), flush=True)
     BATCHED_RUNS["batched_teacher"] = (opt, res, rec)
     return res
+
+
+# ------------------------------------------------------------- serving tier
+#: serving paths by label: (pool, optimizers by tenant, results by tenant,
+#: record), for the solo parity checks of phase 5
+SERVE_RUNS = {}
+#: the toy serving paths' tenants: one BOHB each, seeds 0-3
+SERVE_SEEDS = (0, 1, 2, 3)
+#: a tenant thread that has not finished by then fails its path
+SERVE_JOIN_S = 600
+
+
+def fresh_objective(fn):
+    """A new closure over ``fn``: the bucket, megabatch and lane runners
+    are cached per objective, so a path on its own closure captures its own
+    graphs, and counts them."""
+    def objective(vectors, budget):
+        return fn(vectors, budget)
+
+    return objective
+
+
+def capture_counts():
+    from hpbandster_tpu_torch.ops import graphs
+
+    return {k: graphs.CAPTURES[k] for k in
+            ("fused_bucket", "megabatch_bracket", "continuous_bracket")}
+
+
+def program_stats(runners):
+    """Each program's build, capture and instantiate seconds (host clock)
+    and its replays' device milliseconds (CUDA events)."""
+    out = []
+    for r in runners:
+        rec = dict(name=r.program.name, widths=list(r.bucket.widths),
+                   build_s=r.program.build_s)
+        for attr in ("pack_width", "lane_count"):
+            if hasattr(r, attr):
+                rec[attr] = getattr(r, attr)
+        g = r.program.graph
+        if g is not None:
+            ms = g.replay_ms()
+            rec.update(capture_s=g.capture_s, instantiate_s=g.instantiate_s,
+                       replays=len(ms), replay_device_ms_total=float(sum(ms)),
+                       replay_device_ms_median=float(np.median(ms)) if ms else None)
+        out.append(rec)
+    return out
+
+
+def drive_batched_bucketed(torch, dev, max_budget=81.0, n_iterations=10):
+    """``BOHB`` + ``BatchedExecutor(VmapBackend(hartmann6))``, the toy
+    setting, with the bucketed brackets (the default): the batched sweep
+    gates, one scorer launch per model wave, one CUDA graph captured per
+    bucket, every fusable bracket on its bucket's graph, and runs equal to
+    the same run with ``bucket_brackets=False`` bit for bit (the
+    comparison run comes after the path, in phase 5)."""
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+    from hpbandster_tpu_torch.workloads import toys
+
+    objective = fresh_objective(toys.hartmann6)
+    before = capture_counts()
+    opt = batched_optimizer(dev, "BOHB", objective_fn=objective)
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    ex = opt.executor
+    captured = capture_counts()["fused_bucket"] - before["fused_bucket"]
+    fusable = sum(len(hyperband_bracket(i, 1.0, max_budget, 3.0).num_configs) >= 2
+                  for i in range(n_iterations))
+    if not ex._bucket_precompile.wait(60) or ex._bucket_precompile.errors:
+        raise AssertionError(f"batched_bohb_bucketed: precompile {ex._bucket_precompile.errors}")
+    if captured != len(ex._bucket_set.buckets):
+        raise AssertionError(f"batched_bohb_bucketed: {captured} graphs captured for "
+                             f"{len(ex._bucket_set.buckets)} buckets")
+    if ex.bucketed_brackets_run != fusable or ex.fused_brackets_run != fusable:
+        raise AssertionError(f"batched_bohb_bucketed: {ex.bucketed_brackets_run} bucketed, "
+                             f"{ex.fused_brackets_run} fused of {fusable} fusable brackets")
+    rec.update(batched_sweep_checks(torch, dev, "batched_bohb_bucketed", opt, res, max_budget,
+                                    n_iterations))
+    check_wave_launches("batched_bohb_bucketed", opt.iterations)
+    rec.update(buckets=[list(b.widths) for b in ex._bucket_set.buckets],
+               graphs_captured=captured, bucketed_brackets_run=ex.bucketed_brackets_run,
+               programs=program_stats(make_runners(ex, objective)))
+    print("batched_bohb_bucketed path " + json.dumps(rec), flush=True)
+    BATCHED_RUNS["batched_bohb_bucketed"] = (opt, res, rec)
+    return res
+
+
+def make_runners(ex, objective):
+    from hpbandster_tpu_torch.ops.buckets import make_bucketed_bracket_fn
+
+    return [make_bucketed_bracket_fn(objective, b, device=ex.device)
+            for b in ex._bucket_set.buckets]
+
+
+def check_bucketed_parity(torch, dev, n_iterations=10):
+    """Phase 5: the bucketed run equals the same seed with
+    ``bucket_brackets=False`` (per-shape programs) bit for bit: every run's
+    loss and configuration."""
+    opt_b, res_b, _ = BATCHED_RUNS["batched_bohb_bucketed"]
+    opt = batched_optimizer(dev, "BOHB", objective_fn=opt_b.executor.backend.eval_fn,
+                            bucket_brackets=False)
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    if opt.executor.bucketed_brackets_run:
+        raise AssertionError("batched_bohb_unbucketed: a bracket rode a bucket program")
+    want, got = _runs(res), _runs(res_b)
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"batched_bohb_bucketed: {len(diff)} runs differ from the "
+                             f"unbucketed run, first {diff[:3]}")
+    rec.update(runs=len(got), equal_bitwise=True)
+    print("batched_bohb_bucketed compare " + json.dumps(rec), flush=True)
+
+
+def serve_pool(dev, objective, space, **kw):
+    import hpbandster_tpu_torch as h
+
+    return h.ServePool(h.VmapBackend(objective, device=dev), space, **kw)
+
+
+def bracket_quantum(max_budget, n_iterations):
+    """A deficit-fair scheduler whose quantum covers the costliest bracket
+    of the schedule (configs x budget), so that every backlogged tenant can
+    dispatch one bracket a round and co-arriving brackets pack. With the
+    default quantum (64) a 1..81 bracket (cost up to 405) could only be
+    force-served alone, one a round."""
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+    from hpbandster_tpu_torch.serve import DeficitFairScheduler, work_cost
+
+    return DeficitFairScheduler(quantum=max(
+        work_cost(p.num_configs, p.budgets)
+        for p in (hyperband_bracket(i, 1.0, max_budget, 3.0) for i in range(n_iterations))))
+
+
+def serve_tenants(torch, dev, label, pool, make_opt, seeds, n_iterations, shutdown=True):
+    """One optimizer per seed, each driven in its own thread, all started
+    together behind a barrier, with the synchronizing CUDA calls counted.
+    Returns ``(optimizers, results, record)``: wall seconds, finished runs
+    per second in total and per tenant, packed and solo brackets, the
+    programs' capture, instantiate and replay times, host syncs per
+    bracket, peak memory, and how many tenant jobs were submitted while the
+    background precompile ran."""
+    opts = {f"t{s}": make_opt(pool, f"t{s}", s) for s in seeds}
+    results, errors, walls = {}, {}, {}
+    barrier = threading.Barrier(len(opts))
+
+    def tenant(name, opt):
+        try:
+            barrier.wait(timeout=SERVE_JOIN_S)
+            t0 = time.perf_counter()
+            results[name] = opt.run(n_iterations=n_iterations)
+            walls[name] = time.perf_counter() - t0
+            if shutdown:
+                opt.shutdown()
+        except BaseException as e:  # reported by the driving thread
+            errors[name] = e
+
+    def drive():
+        threads = [threading.Thread(target=tenant, args=item, daemon=True, name=item[0])
+                   for item in opts.items()]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_JOIN_S)
+            if th.is_alive():
+                raise AssertionError(f"{label}: tenant {th.name} did not finish in "
+                                     f"{SERVE_JOIN_S} s")
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, syncs = _syncs_of(torch, drive)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if errors:
+        name, err = next(iter(errors.items()))
+        raise AssertionError(f"{label}: tenant {name} failed: {err!r}") from err
+    pre = pool.precompile
+    if pre is None or not pre.wait(60) or pre.errors:
+        raise AssertionError(f"{label}: background precompile {getattr(pre, 'errors', None)}")
+    overlapped = sum(pre.started_mono <= j.mono["submitted"] <= pre.finished_mono
+                     for opt in opts.values() for j in opt.jobs)
+    finished = {t: sum(r.loss is not None for r in res.get_all_runs())
+                for t, res in results.items()}
+    brackets = len(opts) * n_iterations
+    snap = pool.snapshot()
+    rec = dict(tenants=len(opts), n_iterations=n_iterations, wall_s=wall,
+               finished_runs=sum(finished.values()),
+               runs_per_s=sum(finished.values()) / wall,
+               runs_per_s_by_tenant={t: finished[t] / walls[t] for t in finished},
+               wall_s_by_tenant=walls, buckets=snap["buckets"], rounds=snap["rounds"],
+               dispatches=snap["dispatches"], host_syncs=len(syncs),
+               host_syncs_per_bracket=len(syncs) / brackets,
+               peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               precompile_s=pre.finished_mono - pre.started_mono,
+               jobs_submitted_during_precompile=int(overlapped),
+               programs=program_stats(pool.programs()))
+    return opts, results, rec
+
+
+def serve_bohb_factory(dev, space_fn, max_budget=81.0, **kw):
+    import hpbandster_tpu_torch as h
+
+    def make(pool, tenant, seed):
+        return h.BOHB(configspace=space_fn(seed=seed), run_id=f"smoke-serve-{tenant}",
+                      tenant_id=tenant, executor=pool.executor_for(tenant), min_budget=1,
+                      max_budget=max_budget, eta=3, seed=seed, device=dev, **kw)
+
+    return make
+
+
+def serve_tenant_checks(torch, dev, label, opts, results, max_budget, n_iterations):
+    """Each tenant's runs per budget as planned, finite losses, and its
+    incumbent below the median best of equal-budget random searches; the
+    model-vs-random medians are reported."""
+    import types
+
+    from hpbandster_tpu_torch.ops.sweep import build_space_codec, codec_tables
+    from hpbandster_tpu_torch.workloads import toys
+
+    out = {}
+    for t, opt in opts.items():
+        res = results[t]
+        want = check_runs_per_budget(f"{label}_{t}", res, max_budget, n_iterations)
+        view = types.SimpleNamespace(codec_tables=codec_tables(
+            build_space_codec(opt.configspace), dev), active_mask_fn=None, forbidden_fn=None)
+        inc_loss = res.get_runs_by_id(res.get_incumbent_id())[-1].loss
+        rs_best = random_search_median_best(
+            torch, dev, toys.hartmann6, view,
+            int(sum(k * b for b, k in want.items()) // max_budget), max_budget)
+        if not inc_loss < rs_best:
+            raise AssertionError(f"{label}_{t}: incumbent {inc_loss} is not below the "
+                                 f"random searches' median best {rs_best}")
+        model_med, random_med = _stage0_medians(opt.iterations)
+        out[t] = dict(incumbent_loss=inc_loss, random_search_median_best=rs_best,
+                      stage0_median_model=model_med, stage0_median_random=random_med)
+    return out
+
+
+def drive_serve(torch, dev, label, continuous, n_iterations=10):
+    """4 ``BOHB`` tenants (seeds 0-3) at the toy setting on Hartmann-6
+    through one ``ServePool`` (``pack_window_s=0.05``, a scheduler quantum
+    of one bracket's cost; megabatched, or ``continuous=True,
+    lane_count=8``), each in its own thread, the
+    background precompile overlapping their stage-0 sampling. Gates: each
+    tenant's runs per budget and incumbent, the scorer launches equal to
+    the model waves over the tenants' Results, the precompile overlapping
+    the tenants' submissions, and the captures: at most the buckets times
+    {solo, packed} megabatched, at most the bucket families continuous;
+    megabatched, at least one packed bracket; continuous, each tenant's
+    lane incumbents equal the best final loss of its bucketed brackets."""
+    from hpbandster_tpu_torch.workloads import toys
+
+    objective = fresh_objective(toys.hartmann6)
+    pool = serve_pool(dev, objective, toys.hartmann6_space(seed=0), pack_window_s=0.05,
+                      continuous=continuous, lane_count=8,
+                      scheduler=bracket_quantum(81.0, n_iterations))
+    before = capture_counts()
+    opts, results, rec = serve_tenants(
+        torch, dev, label, pool, serve_bohb_factory(dev, toys.hartmann6_space, num_samples=64),
+        SERVE_SEEDS, n_iterations, shutdown=not continuous)
+    after = capture_counts()
+    captured = {k: after[k] - before[k] for k in after}
+    n_buckets = rec["buckets"]
+    if rec["jobs_submitted_during_precompile"] < 1:
+        raise AssertionError(f"{label}: no tenant job was submitted while the background "
+                             "precompile ran")
+    if continuous:
+        if captured["continuous_bracket"] > n_buckets or captured["fused_bucket"] or \
+                captured["megabatch_bracket"]:
+            raise AssertionError(f"{label}: captures {captured} for {n_buckets} families")
+        rec["lane_incumbents"] = check_lane_incumbents(label, pool, opts, results)
+        for opt in opts.values():
+            opt.shutdown()
+        if any(snap["occupied"] for snap in pool.snapshot()["lanes"]):
+            raise AssertionError(f"{label}: lanes still owned after every tenant left")
+    else:
+        if captured["fused_bucket"] + captured["megabatch_bracket"] > 2 * n_buckets or \
+                captured["continuous_bracket"]:
+            raise AssertionError(f"{label}: captures {captured} for {n_buckets} buckets")
+        if rec["dispatches"]["packed_brackets"] < 1:
+            raise AssertionError(f"{label}: no bracket was packed")
+    rec["graphs_captured"] = captured
+    rec["tenant_checks"] = serve_tenant_checks(torch, dev, label, opts, results, 81.0,
+                                               n_iterations)
+    check_wave_launches(label, [it for opt in opts.values() for it in opt.iterations])
+    print(f"{label} path " + json.dumps(rec), flush=True)
+    SERVE_RUNS[label] = (pool, opts, results, rec)
+    return results
+
+
+def check_lane_incumbents(label, pool, opts, results):
+    """Each tenant's lane incumbents (the device-resident carry, over the
+    lanes it owns in every family) equal the best final-stage loss of its
+    bucketed brackets in its ``Result``."""
+    lane_best = {}
+    for runner in pool._continuous_runners.values():
+        for owner, inc in zip(runner.lanes.owners, runner.lane_incumbents()):
+            if owner is not None and inc is not None:
+                lane_best[owner] = min(inc, lane_best.get(owner, float("inf")))
+    out = {}
+    for t, opt in opts.items():
+        finals = [d.results[it.budgets[-1]] for it in opt.iterations if len(it.budgets) >= 2
+                  for d in it.data.values() if d.results.get(it.budgets[-1]) is not None]
+        want = min(finals)
+        if lane_best.get(t) != want:
+            raise AssertionError(f"{label}: tenant {t}'s lane incumbent {lane_best.get(t)} "
+                                 f"!= its best final loss {want}")
+        out[t] = want
+    return out
+
+
+def check_serve_parity(torch, dev, label, n_iterations=10):
+    """Phase 5: each tenant of a serving path equals, bit for bit, the same
+    seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
+    objective: every run's loss and configuration."""
+    from hpbandster_tpu_torch.workloads import toys
+
+    pool, opts, results, _ = SERVE_RUNS[label]
+    make = serve_bohb_factory(dev, toys.hartmann6_space, num_samples=64)
+    rec = {}
+    for t, opt in opts.items():
+        solo_pool = serve_pool(dev, pool.backend.eval_fn, toys.hartmann6_space(seed=0),
+                               pack_window_s=0.0)
+        solo = make(solo_pool, t, int(t[1:]))
+        res = solo.run(n_iterations=n_iterations)
+        solo.shutdown()
+        want, got = _runs(res), _runs(results[t])
+        if got != want:
+            diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+            raise AssertionError(f"{label}: tenant {t}: {len(diff)} runs differ from its "
+                                 f"solo run, first {diff[:3]}")
+        rec[t] = dict(runs=len(got), solo_dispatches=solo_pool.snapshot()["dispatches"])
+    print(f"{label} solo compare " + json.dumps(dict(equal_bitwise=True, tenants=rec)),
+          flush=True)
+
+
+def drive_serve_teacher(torch, dev, n_iterations=4, seeds=(0, 1, 2)):
+    """3 tenants of the teacher at full width (``TeacherConfig()``, budgets
+    1..27, ``min_points_in_model=5``: ``bench.py:1054``'s setting) in one
+    megabatched ``ServePool`` (``pack_width=4``: the three tenants' lanes
+    and one pad lane), training inside the captured bucket graphs. Gated
+    on runs per budget, crash ranking and a finite incumbent per tenant;
+    reports each incumbent's validation accuracy. The objective is
+    ``batched_teacher``'s, so the solo bucket graphs that the pool's
+    precompile asks for are already captured; the packed graphs are
+    captured here."""
+    from hpbandster_tpu_torch.workloads import TARGET_VAL_ACCURACY, teacher_space
+
+    pool = serve_pool(dev, teacher_eval_fn(dev),
+                      teacher_space(seed=0), pack_window_s=0.05, pack_width=4,
+                      scheduler=bracket_quantum(27.0, n_iterations))
+    opts, results, rec = serve_tenants(
+        torch, dev, "serve_teacher", pool,
+        serve_bohb_factory(dev, teacher_space, max_budget=27.0, min_points_in_model=5),
+        seeds, n_iterations)
+    rec["tenant_checks"] = {}
+    for t, res in results.items():
+        chk = check_workload_sweep(f"serve_teacher_{t}", res, 1.0, 27.0, n_iterations, True)
+        chk["incumbent_val_accuracy"] = 1.0 - chk["incumbent_loss"]
+        rec["tenant_checks"][t] = chk
+    rec["execute_device_s"] = sum(p.get("replay_device_ms_total", 0.0)
+                                  for p in rec["programs"]) / 1e3
+    rec["target_val_accuracy"] = TARGET_VAL_ACCURACY
+    check_wave_launches("serve_teacher", [it for opt in opts.values() for it in opt.iterations])
+    print("serve_teacher path " + json.dumps(rec), flush=True)
+    return results
 
 
 # ------------------------------------------------------------ resident tier
@@ -2210,17 +2611,27 @@ def main(argv=None) -> int:
         "batched_h2bo": drive_batched_h2bo,
         "batched_resume": drive_batched_resume,
         "batched_teacher": drive_batched_teacher,
+        # the bucketed brackets and the serving tier
+        "batched_bohb_bucketed": drive_batched_bucketed,
+        "serve_megabatch": lambda torch, dev: drive_serve(
+            torch, dev, "serve_megabatch", continuous=False),
+        "serve_continuous": lambda torch, dev: drive_serve(
+            torch, dev, "serve_continuous", continuous=True),
+        "serve_teacher": drive_serve_teacher,
     }
-    launches, recorded, results = {}, [], {}
+    launches, recorded, results, seconds = {}, [], {}, {}
     for path, drive in paths.items():
         for name in cuda_kde.LAUNCHES:
             cuda_kde.LAUNCHES[name] = 0
         cuda_kde.RECORD = []
+        t0 = time.perf_counter()
         results[path] = drive(torch, dev)
+        seconds[path] = time.perf_counter() - t0
         launches[path] = dict(cuda_kde.LAUNCHES)
         recorded += [(path, name, inputs) for name, inputs in cuda_kde.RECORD]
         cuda_kde.RECORD = None
     print("main path launches " + json.dumps(launches), flush=True)
+    print("main path seconds " + json.dumps(seconds), flush=True)
     expected = {**MAIN_PATH_LAUNCHES, **BATCHED_EXPECTED}
     if launches != expected:
         raise AssertionError(
@@ -2253,6 +2664,9 @@ def main(argv=None) -> int:
     check_workload_parity("ensemble_resident", "ensemble_unrolled")
     check_cnn_against_cpu(torch, dev)
     check_ensemble_continuation(torch, dev)
+    check_bucketed_parity(torch, dev)
+    check_serve_parity(torch, dev, "serve_megabatch")
+    check_serve_parity(torch, dev, "serve_continuous")
     print_workload_accuracies()
     profile_resident_launches(torch, dev)
     measure_resident(torch, dev)

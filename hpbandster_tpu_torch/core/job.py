@@ -49,6 +49,9 @@ class Job:
         #: through the surviving pool)
         self.requeue_count: int = 0
         self.not_before_mono: float = 0.0
+        #: the serving-tier tenant whose master submitted this job (None
+        #: outside a ServePool)
+        self.tenant_id: Optional[str] = None
 
     def time_it(self, which_time: str) -> "Job":
         """Record a wall-clock timestamp ('submitted' | 'started' | 'finished')."""

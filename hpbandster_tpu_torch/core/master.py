@@ -8,6 +8,14 @@ registers results, updates the model and advances brackets. Batched
 executors (``parallel.BatchedExecutor``) buffer submitted jobs and evaluate
 them when the Master drains its ready queue and calls ``flush()``, which
 fires ``job_callback`` synchronously, under the Master's re-entrant lock.
+Before the first bracket ``run()`` announces the remaining schedule to an
+executor that can build programs for it (``prepare_schedule``), and
+``tenant_id=`` names the serving-tier tenant each submitted ``Job`` carries
+(``serve/pool.py``).
+
+The reference logs and ignores a failed schedule announcement; the port
+does so on the CPU only: where the executor runs on a card the failure
+raises, so a run never quietly loses the programs it was announced for.
 
 Not ported yet: the RPC ``Dispatcher`` that ``executor=None`` builds, the
 fleet collector and the write-ahead result journal with ``resume()``
@@ -51,6 +59,7 @@ class Master:
         checkpoint_interval: float = 30.0,
         wal_path: Optional[str] = None,
         collector: Any = None,
+        tenant_id: Optional[str] = None,
     ):
         if executor is None:
             raise _not_ported("executor=None (the RPC Dispatcher and its workers)")
@@ -60,6 +69,8 @@ class Master:
             raise _not_ported("collector= (the fleet observatory)")
         self.run_id = run_id
         self.config_generator = config_generator
+        #: serving-tier identity: stamped on every submitted Job
+        self.tenant_id = tenant_id
         self.working_directory = working_directory
         self.logger = logger or logging.getLogger("hpbandster_tpu_torch.master")
         self.result_logger = result_logger
@@ -165,6 +176,7 @@ class Master:
             "budgets": tuple(it.budgets),
             "stage": it.stage,
         }
+        job.tenant_id = self.tenant_id
         job.time_it("submitted")
         with self.thread_cond:
             self.num_running_jobs += 1
@@ -220,7 +232,27 @@ class Master:
                 if it.config_sampler_batch is None:
                     it.config_sampler_batch = iteration_kwargs["config_sampler_batch"]
         n_remaining = max(n_iterations - len(self.iterations), 0)
+        self._announce_schedule(n_remaining)
         return self._run_loop(n_remaining, iteration_kwargs)
+
+    def _announce_schedule(self, n_remaining: int) -> None:
+        """Hand the remaining brackets' shapes (``iteration_plan``) to an
+        executor that builds programs for them (``prepare_schedule``), so
+        the build overlaps the stage-0 sampling that follows."""
+        plan_of = getattr(self, "iteration_plan", None)
+        prepare = getattr(self.executor, "prepare_schedule", None)
+        if not (callable(plan_of) and callable(prepare) and n_remaining > 0):
+            return
+        start = len(self.iterations)
+        try:
+            prepare([plan_of(i) for i in range(start, start + n_remaining)])
+        except Exception:
+            device = getattr(self.executor, "device", None)
+            if device is not None and device.type == "cuda":
+                raise
+            self.logger.exception(
+                "executor schedule preparation failed; continuing with "
+                "per-shape programs")
 
     def _run_loop(
         self, n_remaining: int, iteration_kwargs: Dict[str, Any]

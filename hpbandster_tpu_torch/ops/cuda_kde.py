@@ -22,10 +22,13 @@ launches, so a run can show that it went through the kernels; setting
 ``RECORD`` to a list keeps every launch's ``(name, inputs)``, so a run can
 hold each kernel against its plain twin at the shapes it really gave it.
 A launch made while the current stream captures a CUDA graph only records
-the kernel into the graph: it counts in ``CAPTURED``, and the graph runner
+the kernel into the graph: it counts in ``CAPTURED`` and in the capture's
+own record (:func:`counting_capture`, per thread), and the graph runner
 (``ops/graphs.py``) adds a graph's captured launches to ``LAUNCHES`` at
-every replay. A recorded input of a captured launch holds the values of
-the graph's latest replay.
+every replay (:func:`add_launches`). The counts take a lock, so launches
+from several host threads at once are neither lost nor attributed to
+another thread's capture. A recorded input of a captured launch holds the
+values of the graph's latest replay.
 
 Each kernel's launch geometry comes from shapes alone
 (:func:`kde_score_geometry`, :func:`kde_moments_geometry`): the wrappers
@@ -43,7 +46,8 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+import threading
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -78,6 +82,8 @@ __all__ = [
     "bandwidths_from_moments",
     "noop_launch",
     "prepare_capture",
+    "counting_capture",
+    "add_launches",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -99,15 +105,49 @@ _LIB = None
 _MOMENTS_LIB = None
 
 
+#: guards every count above and the RECORD list: host threads launch at once
+_COUNT_LOCK = threading.Lock()
+#: this thread's open capture record (:func:`counting_capture`)
+_CAPTURE = threading.local()
+
+
 def _count_launch(name: str, inputs) -> None:
-    """Count one launch of ``name``: in ``LAUNCHES`` when it runs now, in
-    ``CAPTURED`` when the current stream records it into a graph."""
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED[name] += 1
-    else:
-        LAUNCHES[name] += 1
-    if RECORD is not None:
-        RECORD.append((name, inputs))
+    """Count one launch of ``name``: in ``LAUNCHES`` when it runs now; in
+    ``CAPTURED`` and this thread's capture record when the current stream
+    records it into a graph."""
+    capturing = torch.cuda.is_current_stream_capturing()
+    record = getattr(_CAPTURE, "counts", None)
+    with _COUNT_LOCK:
+        if capturing:
+            CAPTURED[name] += 1
+            if record is not None:
+                record[name] += 1
+        else:
+            LAUNCHES[name] += 1
+        if RECORD is not None:
+            RECORD.append((name, inputs))
+
+
+@contextlib.contextmanager
+def counting_capture() -> Iterator[Dict[str, int]]:
+    """A fresh per-kernel record of the launches this thread captures
+    inside the ``with`` block: what one replay of that graph launches,
+    whatever other threads launch or capture meanwhile."""
+    counts = {name: 0 for name in CAPTURED}
+    outer = getattr(_CAPTURE, "counts", None)
+    _CAPTURE.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = outer
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count a replayed graph's launches (its :func:`counting_capture`
+    record) in ``LAUNCHES``."""
+    with _COUNT_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _kde_score_lib() -> ctypes.CDLL:

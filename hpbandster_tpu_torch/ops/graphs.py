@@ -1,68 +1,98 @@
-"""One round of the resident sweep as a CUDA graph, replayed round after
-round.
+"""Device programs captured once as CUDA graphs and replayed.
 
 New in the port, with no counterpart in ``hpbandster_tpu``: where the
-reference traces one HyperBand rotation round and drives it with
-``lax.scan`` inside one compiled program, the port captures the round's
-device work once into a ``torch.cuda.CUDAGraph`` and replays it
-``n_rounds`` times, so the host issues one launch per round instead of
-every small op of every bracket.
+reference compiles one XLA program and calls it (a resident sweep's round
+under ``lax.scan``, a bucket's bracket, a serving lane program), the port
+captures the program's device work once into a ``torch.cuda.CUDAGraph``
+and replays it, so the host issues one launch per call instead of every
+small op.
 
-A replay runs against the addresses captured, so whatever the round
-carries from one replay to the next (observation buffers and counts, the
-incumbent, the metrics, the round index, the per-round output buffers)
-lives in tensors made before the capture and updated in place. The round
-draws from a ``torch.Generator`` registered with the graph: each replay
-takes the generator's offset at replay time and advances it by the
-round's total, so the replayed rounds draw what eager rounds would, and
-eager work after the replays continues the same stream.
+A replay runs against the addresses captured, so whatever a program reads
+or carries from one replay to the next (observation buffers and counts,
+the incumbent, the metrics, the round index, static input and output
+buffers, a lane carry) lives in tensors made before the capture and
+updated in place. A program may draw from ``torch.Generator`` objects
+registered with the graph: each replay takes the generator's offset at
+replay time and advances it by the program's total, so the replays draw
+what eager calls would, and eager work after the replays continues the
+same stream.
 
-There is no warm-up round: capture records without running anything, and
-the kernels' libraries and the moments kernel's ticket counter are made
-ready beforehand (``cuda_kde.prepare_capture``). A capture or a replay
-that fails raises; nothing falls back to running the round eagerly.
+Captures run on a side stream in CUDA's thread-local capture mode, one at
+a time in the process (``CAPTURE_LOCK``): other host threads may launch
+kernels, allocate and fetch while a graph is captured (the serving tier
+captures in the background while tenants sample), and only the capturing
+thread must keep to capture-safe calls. A resident round has no warm-up
+(capture records without running anything, and the kernels' libraries and
+the moments kernel's ticket counter are made ready beforehand,
+``cuda_kde.prepare_capture``); a program without side effects may run
+once eagerly first (``warmup=True``), which readies the libraries and the
+objective's device constants on the capturing thread. A capture or a
+replay that fails raises; nothing falls back to running eagerly.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
 from hpbandster_tpu_torch.ops import cuda_kde
 
-__all__ = ["RoundGraph"]
+__all__ = ["RoundGraph", "CAPTURE_LOCK", "CAPTURES"]
+
+#: one capture at a time in the process
+CAPTURE_LOCK = threading.Lock()
+
+#: graphs captured in this process, by program name
+CAPTURES: Dict[str, int] = collections.Counter()
+
+#: replays whose device times a graph keeps (the latest ones)
+_KEPT_REPLAYS = 4096
 
 
 class RoundGraph:
     """``body()``'s CUDA work on ``device``, captured once.
 
     ``generators`` are the ``torch.Generator`` objects ``body`` draws from
-    besides the default one. :meth:`replay` runs the captured round and
-    counts its kernel launches in ``cuda_kde.LAUNCHES``; the capture itself
-    launches nothing. Times: ``capture_s`` and ``instantiate_s`` on the
-    host clock, :meth:`replay_ms` from CUDA events around each replay."""
+    besides the default one. ``warmup=True`` runs ``body()`` once eagerly
+    on the capture stream first (only for a body whose eager run changes
+    nothing that matters). :meth:`replay` runs the captured program and
+    counts its kernel launches in ``cuda_kde.LAUNCHES``; the capture
+    itself launches nothing. ``name`` keys the process's ``CAPTURES``
+    count. Times: ``capture_s`` and ``instantiate_s`` on the host clock,
+    :meth:`replay_ms` from CUDA events around each replay."""
 
     def __init__(self, body: Callable[[], None], device,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 warmup: bool = False, name: str = "resident_round"):
         device = torch.device(device)
         stream = torch.cuda.Stream(device)
         cuda_kde.prepare_capture(device, stream)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in generators:
             self.graph.register_generator_state(gen)
-        before = dict(cuda_kde.CAPTURED)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
-            body()
-        self.capture_s = time.perf_counter() - t0
-        #: kernel launches one replay makes, per kernel name
-        self.launches = {k: cuda_kde.CAPTURED[k] - before[k] for k in before}
-        t0 = time.perf_counter()
-        self.graph.instantiate()
-        self.instantiate_s = time.perf_counter() - t0
-        self._events: List[tuple] = []
+        with CAPTURE_LOCK:
+            stream.wait_stream(torch.cuda.current_stream(device))
+            if warmup:
+                with torch.cuda.stream(stream):
+                    body()
+            t0 = time.perf_counter()
+            with cuda_kde.counting_capture() as captured:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    body()
+            self.capture_s = time.perf_counter() - t0
+            #: kernel launches one replay makes, per kernel name
+            self.launches = dict(captured)
+            t0 = time.perf_counter()
+            self.graph.instantiate()
+            self.instantiate_s = time.perf_counter() - t0
+            CAPTURES[name] += 1
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self._events: collections.deque = collections.deque(maxlen=_KEPT_REPLAYS)
 
     def replay(self) -> None:
         start = torch.cuda.Event(enable_timing=True)
@@ -71,11 +101,12 @@ class RoundGraph:
         self.graph.replay()
         end.record()
         self._events.append((start, end))
-        for name, n in self.launches.items():
-            cuda_kde.LAUNCHES[name] += n
+        cuda_kde.add_launches(self.launches)
 
     def replay_ms(self) -> List[float]:
-        """Device milliseconds of each replay so far (waits for the last)."""
-        if self._events:
-            self._events[-1][1].synchronize()
-        return [s.elapsed_time(e) for s, e in self._events]
+        """Device milliseconds of each replay kept so far (waits for the
+        last)."""
+        events = list(self._events)
+        if events:
+            events[-1][1].synchronize()
+        return [s.elapsed_time(e) for s, e in events]

@@ -5,10 +5,11 @@ Ported from ``hpbandster_tpu/ops/sweep.py``: the space codec
 ``_decode_values``), the compiled conditions and forbidden clauses
 (``compile_active_mask``, ``compile_forbidden_mask``, and the in-sweep
 rejection resampling as ``resample_forbidden``), ``pow2_capacities``,
-``plan_additions``, ``_fit_kde_pair_device`` and the static and
+``plan_additions``, ``_fit_kde_pair_device``, the static and
 dynamic-count tiers of ``make_fused_sweep_fn`` (``init_obs_state``,
 ``trained_split``, ``dynamic_gate``, ``dynamic_proposals``, ``run_bracket``
-and the unrolled ``sweep``).
+and the unrolled ``sweep``), and the serving lanes' incumbent carry
+(``init_lane_state``, ``decode_lane_state``).
 
 The static tier keeps every observation count a Python int, so the model
 gate, the good/bad split sizes and the choice of the largest trained budget
@@ -76,6 +77,8 @@ __all__ = [
     "ResidentSweepOutputs",
     "DeviceMetrics",
     "init_device_metrics",
+    "init_lane_state",
+    "decode_lane_state",
     "resident_rotation",
     "unstack_resident_outputs",
     "make_fused_sweep_fn",
@@ -681,6 +684,37 @@ def init_device_metrics(
         best_final=torch.full((n_brackets,), float("nan"), dtype=_F32, device=device),
         rung_seq=torch.full((n_brackets, max_rungs), -1, **i32),
     )
+
+
+def init_lane_state(n_lanes: int, device=None) -> torch.Tensor:
+    """A fresh per-lane incumbent carry for a continuous-batching program
+    (``serve/continuous.py`` over ``ops.buckets.
+    fused_sh_bracket_bucketed_packed_carry``): one rank-space float32 per
+    lane on ``device``, +inf meaning the lane has observed nothing.
+
+    In rank space a real loss is itself and a crashed (NaN) evaluation is
+    ``_CRASH_RANK`` (behind every real loss, ahead of emptiness), so the
+    fold is one ``minimum`` with no NaN case. :func:`decode_lane_state` maps
+    it back on the host."""
+    return torch.full((int(n_lanes),), float("inf"), dtype=_F32, device=device)
+
+
+def decode_lane_state(carry) -> List[Optional[float]]:
+    """Host decode of a rank-space lane carry: per lane the running
+    incumbent loss, NaN for a lane that has only crashed, None for a lane
+    that has observed nothing."""
+    if isinstance(carry, torch.Tensor):
+        carry = carry.detach().cpu().numpy()
+    out: List[Optional[float]] = []
+    for v in np.asarray(carry, np.float32):
+        v = float(v)
+        if v == float("inf"):
+            out.append(None)
+        elif v >= float(_CRASH_RANK):
+            out.append(float("nan"))
+        else:
+            out.append(v)
+    return out
 
 
 def resident_rotation(plans: Sequence[BracketPlan]) -> Tuple[int, int, int]:

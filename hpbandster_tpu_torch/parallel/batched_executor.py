@@ -12,16 +12,25 @@ Two evaluation modes:
   is one backend call.
 * **bracket fusion** (``fuse_brackets=True``, default): when the buffer
   holds a complete stage-0 wave of a bracket, the whole bracket (every
-  stage and every promotion) runs on the device in one dispatch
-  (``ops.fused.make_fused_bracket_fn``). Later stages are then served from
-  a cache when the Master's own promotion rule re-queues the survivors. If
-  the host promotes a different set (H2BO's learning-curve rule), the
-  configs it promotes that the device did not fall back to stage batching:
-  fusion never changes a result.
+  stage and every promotion) runs on the device in one dispatch. Later
+  stages are then served from a cache when the Master's own promotion rule
+  re-queues the survivors. If the host promotes a different set (H2BO's
+  learning-curve rule), the configs it promotes that the device did not
+  fall back to stage batching: fusion never changes a result.
 
-The reference's shape-bucketed brackets (``bucket_brackets``) are not
-ported yet (ROADMAP A6), and XLA's persistent compile cache has no
-counterpart here.
+With ``bucket_brackets=True`` (the default, as in the reference) a fused
+bracket runs on its shape's bucket program (``ops/buckets.py``): when the
+Master announces the remaining schedule (``prepare_schedule``), the
+schedule's shapes pad up to a small bucket set whose programs build in the
+background (on a card, one CUDA graph per bucket), overlapped with stage-0
+sampling. A shape the set does not cover runs on its own per-shape program
+(``ops.fused.make_fused_bracket_fn``). Bucketing never changes a result.
+
+Where the reference falls back to the per-shape program on any bucketed
+failure, the port does so on the CPU only: on a card a failed bucketed
+dispatch, or a failed schedule preparation, raises, so a run meant for the
+graphs never quietly runs without them. XLA's persistent compile cache has
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,6 +41,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from hpbandster_tpu_torch.core.job import Job
+from hpbandster_tpu_torch.ops.bracket import BracketPlan
+from hpbandster_tpu_torch.ops.buckets import (
+    build_bucket_set,
+    make_bucketed_bracket_fn,
+    member_counts_for,
+    precompile_buckets,
+    slice_member_stages,
+)
 from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
@@ -51,16 +68,17 @@ class BatchedExecutor:
         configspace: ConfigurationSpace,
         fuse_brackets: bool = True,
         parallel_brackets: int = 1,
-        bucket_brackets: bool = False,
+        bucket_brackets: bool = True,
         logger: Optional[logging.Logger] = None,
     ):
-        if bucket_brackets:
-            raise NotImplementedError(
-                "BatchedExecutor(bucket_brackets=True) is not ported yet "
-                "(ROADMAP A6: bucketed programs)")
         self.backend = backend
         self.configspace = configspace
         self.fuse_brackets = bool(fuse_brackets) and hasattr(backend, "eval_fn")
+        #: shape-bucketed fused brackets (ops/buckets.py), built when the
+        #: Master announces the schedule (prepare_schedule)
+        self.bucket_brackets = bool(bucket_brackets) and self.fuse_brackets
+        #: the backend's device; on a card bucketed failures raise
+        self.device = getattr(backend, "device", None)
         # >1 pipelines brackets: bracket k+1's stage-0 wave is sampled (from
         # a one-bracket-stale model) and dispatched before bracket k's
         # results are fetched
@@ -76,6 +94,13 @@ class BatchedExecutor:
         #: found none there (stage batched instead)
         self.fused_cache_hits = 0
         self.fused_cache_misses = 0
+        #: of the fused brackets, those served by a shared bucket program
+        self.bucketed_brackets_run = 0
+        #: every plan prepare_schedule has seen (the bucket set rebuilds over
+        #: the union, so a second run() widens it rather than resetting it)
+        self._bucket_plans: List[BracketPlan] = []
+        self._bucket_set = None
+        self._bucket_precompile = None
 
     # -------------------------------------------------------- executor seam
     def start(self, new_result_callback, new_worker_callback) -> None:
@@ -120,6 +145,66 @@ class BatchedExecutor:
             for j in jobs
         ]).astype(np.float32)
 
+    def _strict(self) -> bool:
+        """On a card a bucketed failure raises instead of falling back."""
+        return self.device is not None and self.device.type == "cuda"
+
+    # -------------------------------------------------------- bucketed path
+    def prepare_schedule(self, plans) -> None:
+        """The Master's schedule announcement: the remaining brackets'
+        shapes, known before any sampling. Builds the bucket set over every
+        plan seen so far and starts the background build of its programs,
+        so the build overlaps the optimizer's stage-0 sampling."""
+        if not self.bucket_brackets:
+            return
+        fusable = [p for p in plans if len(p.num_configs) >= 2]
+        if not fusable:
+            return
+        self._bucket_plans.extend(fusable)
+        self._bucket_set = build_bucket_set(self._bucket_plans)
+        self._bucket_precompile = precompile_buckets(
+            self.backend.eval_fn, self._bucket_set, d=self.configspace.dim,
+            device=self.device, background=True,
+        )
+        self.logger.debug(
+            "bucket set prepared: %d shapes -> %d programs",
+            len(self._bucket_set.assignment), len(self._bucket_set.buckets),
+        )
+
+    def _bucket_runner_for(self, info):
+        """The ``(runner, plan, entry)`` serving this bracket shape, or None
+        when bucketing is off or unprepared, or does not cover the shape."""
+        if self._bucket_set is None:
+            return None
+        placed = self._bucket_set.lookup(info["num_configs"], info["budgets"])
+        if placed is None:
+            return None
+        bucket_idx, entry = placed
+        runner = make_bucketed_bracket_fn(
+            self.backend.eval_fn, self._bucket_set.buckets[bucket_idx], device=self.device)
+        plan = BracketPlan(num_configs=tuple(info["num_configs"]),
+                           budgets=tuple(info["budgets"]))
+        return runner, plan, entry
+
+    def _dispatch_bucketed(self, info, vectors):
+        """Launch a bracket on its bucket program; returns its fetch, or
+        None where no bucket covers it or (on the CPU only) the bucketed
+        dispatch failed and the per-shape program takes over."""
+        bucketed = self._bucket_runner_for(info)
+        if bucketed is None:
+            return None
+        runner, plan, entry = bucketed
+        try:
+            packed = runner.dispatch(vectors, member_counts_for(runner.bucket, plan, entry))
+        except Exception:
+            if self._strict():
+                raise
+            self.logger.exception(
+                "bucketed dispatch failed; falling back to the per-shape fused program")
+            return None
+        self.bucketed_brackets_run += 1
+        return lambda: slice_member_stages(runner.unpack(packed), plan, entry)
+
     # ---------------------------------------------------------- fused path
     def _try_fuse(self, jobs: List[Job]) -> Optional[List[Job]]:
         """Fuse every complete stage-0 bracket wave found in ``jobs``, all
@@ -149,24 +234,27 @@ class BatchedExecutor:
             vectors = self._vectors(jobs_sorted)
             for j in jobs_sorted:
                 j.time_it("started")
-            runner = make_fused_bracket_fn(
-                self.backend.eval_fn, info["num_configs"], info["budgets"],
-                device=getattr(self.backend, "device", None),
-            )
-            try:
-                packed = runner.dispatch(vectors)
-            except Exception as e:  # contain: only this wave crashes
-                self._crash_wave(jobs_sorted, e, "fused dispatch")
-                crashed = True
-                continue
-            dispatched.append((iteration, info, jobs_sorted, runner, packed))
+            fetch = self._dispatch_bucketed(info, vectors)
+            if fetch is None:
+                runner = make_fused_bracket_fn(
+                    self.backend.eval_fn, info["num_configs"], info["budgets"],
+                    device=self.device,
+                )
+                try:
+                    packed = runner.dispatch(vectors)
+                except Exception as e:  # contain: only this wave crashes
+                    self._crash_wave(jobs_sorted, e, "fused dispatch")
+                    crashed = True
+                    continue
+                fetch = lambda runner=runner, packed=packed: runner.fetch(packed)  # noqa: E731
+            dispatched.append((iteration, info, jobs_sorted, fetch))
 
         if not dispatched and not crashed:
             return None  # nothing fused, nothing consumed: stage-batch
 
-        for iteration, info, jobs_sorted, runner, packed in dispatched:
+        for iteration, info, jobs_sorted, fetch in dispatched:
             try:
-                stages = runner.fetch(packed)
+                stages = fetch()
             except Exception as e:
                 self._crash_wave(jobs_sorted, e, "fused fetch")
                 continue

@@ -378,6 +378,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.core.warmstart",
     "hpbandster_tpu_torch.ops._build",
     "hpbandster_tpu_torch.ops.bracket",
+    "hpbandster_tpu_torch.ops.buckets",
     "hpbandster_tpu_torch.ops.cuda_kde",
     "hpbandster_tpu_torch.ops.fused",
     "hpbandster_tpu_torch.ops.graphs",
@@ -397,6 +398,11 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.parallel",
     "hpbandster_tpu_torch.parallel.backends",
     "hpbandster_tpu_torch.parallel.batched_executor",
+    "hpbandster_tpu_torch.serve",
+    "hpbandster_tpu_torch.serve.continuous",
+    "hpbandster_tpu_torch.serve.megabatch",
+    "hpbandster_tpu_torch.serve.pool",
+    "hpbandster_tpu_torch.serve.scheduler",
     "hpbandster_tpu_torch.space",
     "hpbandster_tpu_torch.space.conditions",
     "hpbandster_tpu_torch.space.forbidden",
@@ -516,8 +522,9 @@ def test_unported_tiers_raise():
             opt.run(n_iterations=2, **kw)
     assert opt.iterations == []
 
-    # the Master-driven tier: the RPC host tier, meshes, promotion rules,
-    # bucketed brackets and the write-ahead journal wait for later slices
+    # the Master-driven tier and the serving tier: the RPC host tier,
+    # meshes, promotion rules and the write-ahead journal wait for later
+    # slices
     from hpbandster_tpu_torch import BOHB, BatchedExecutor, HyperBand, VmapBackend
     from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
 
@@ -534,8 +541,18 @@ def test_unported_tiers_raise():
         BOHB(executor=executor(), wal_path="wal.jsonl", **common)
     with pytest.raises(NotImplementedError, match="A5b"):
         BOHB(executor=executor(), promotion_rule="asha", **common)
-    with pytest.raises(NotImplementedError, match="A6"):
-        BatchedExecutor(VmapBackend(branin, device="cpu"), cs, bucket_brackets=True)
+    from hpbandster_tpu_torch.ops.buckets import build_bucket_set
+    from hpbandster_tpu_torch.serve import ContinuousRunner, ServePool, make_lane_mesh
+
+    with pytest.raises(NotImplementedError, match="A7"):
+        build_bucket_set(plans_for(2), mesh_size=2)
+    with pytest.raises(NotImplementedError, match="A7"):
+        make_lane_mesh(2)
+    with pytest.raises(NotImplementedError, match="A7"):
+        ServePool(VmapBackend(branin, device="cpu"), cs, continuous=True, lane_mesh=object())
+    bucket = build_bucket_set(plans_for(2)).buckets[0]
+    with pytest.raises(NotImplementedError, match="A7"):
+        ContinuousRunner(branin, bucket, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         VmapBackend(branin, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
