@@ -97,12 +97,33 @@ Phases, each fatal on failure:
    ranking, a finite incumbent, its accuracy reported); each prints wall,
    runs per second in total and per tenant, packed and solo brackets,
    every graph's capture, instantiate and replay times, host syncs per
-   bracket and peak memory. The launch counts of every path are gated
+   bracket and peak memory; then the promotion rules and the journal, each
+   path with its counts reset and read the same way and an obs journal
+   attached (``obs.configure(journal_path=...)``): ``batched_bohb_asha``
+   (``BOHB(promotion_rule="asha")`` at the ``batched_bohb`` setting: at
+   every rung the union of the journaled promotions contains the sync
+   rule's top ``floor(n / eta)`` of the rung's candidates, stage 0 runs as
+   planned and later rungs at least as planned; one scorer launch per
+   model-based pick, ASHA samples one config at a time),
+   ``batched_bohb_pareto`` (every record's mask equals the Pareto mask on
+   the card and on the host over its losses and costs, a rung with at
+   least 8 runs at its budget ranked on the run-time histogram's p50; with
+   ``cost_fn = 1`` the run equals ``batched_bohb`` bit for bit),
+   ``batched_bohb_lc_earlystop`` (in-trace refit, both kernels: every
+   top-k config it terminated had a prediction above the cut; with
+   ``margin = inf`` the run equals ``batched_bohb_in_trace`` bit for bit)
+   and ``fused_journal`` (the static and resident ``FusedBOHB.run()`` and
+   ``run_incumbent`` journaled, each equal to its earlier run with no sink,
+   one ``sweep_chunk`` per chunk, the ``device_telemetry`` record equal to
+   the run's ``last_device_telemetry``, a ``sweep_incumbent`` record); on
+   every journal ``replay_records`` under each rule is byte-identical
+   across two calls and the incumbent's ``config_lineage`` resolves. The
+   launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
-   launch, of at least ``BATCHED_MIN_S`` candidates, per stage-0 wave with a
-   model-based pick, and with the in-trace moments fit one moments launch
-   beside it);
+   launch, of at least ``BATCHED_MIN_S`` candidates, per sampling wave with
+   a model-based pick (under ASHA one of 64 per model-based pick), and with
+   the in-trace moments fit one moments launch beside it);
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
@@ -128,7 +149,9 @@ Phases, each fatal on failure:
    the bucketed run must equal the same run with
    ``bucket_brackets=False`` bit for bit, and each serving tenant its own
    seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
-   objective;
+   objective; then ``batched_bohb``'s wall with no sink and with a journal,
+   in turns, and the records each journal holds (``obs overhead``, no
+   claim);
 6. hold each kernel against its plain version on every input the main
    paths gave it (a launch captured into a CUDA graph holds its latest
    replay's inputs), with the arguments the path passed (for the masked
@@ -161,11 +184,14 @@ device, and starts no process that outlives it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -717,12 +743,15 @@ def check_runs_per_budget(name, res, max_budget, n_iterations, stage0_only=False
     return want
 
 
-def check_sweep(torch, dev, name, opt, res, fn, max_budget, n_iterations):
+def check_sweep(torch, dev, name, opt, res, fn, max_budget, n_iterations, want=None):
     """The correctness checks of one sweep: runs per budget equal the
     HyperBand plan, all losses finite, the incumbent strictly below the
     median best of equal-budget random searches, model-based picks better
-    than random picks. Returns the numbers it checked."""
-    want = check_runs_per_budget(name, res, max_budget, n_iterations)
+    than random picks. ``want``: runs per budget the caller checked itself
+    (a rule that does not run the plan), the random searches' budget.
+    Returns the numbers it checked."""
+    if want is None:
+        want = check_runs_per_budget(name, res, max_budget, n_iterations)
     total_budget = sum(k * b for b, k in want.items())
     losses = [r.loss for r in res.get_all_runs()]
     inc_loss = res.get_runs_by_id(res.get_incumbent_id())[-1].loss
@@ -779,7 +808,12 @@ def drive_static_path(torch, dev, max_budget=81.0, n_iterations=10, num_samples=
             raise AssertionError(f"{name}: kde_score launched {launches} times")
         print("static path " + json.dumps(rec), flush=True)
         runs.append(rec)
+        STATIC_RUNS[name] = (opt, res, rec)
     return runs
+
+
+#: the static path's runs by objective: (optimizer, result, record)
+STATIC_RUNS = {}
 
 
 @contextlib.contextmanager
@@ -1079,11 +1113,16 @@ BATCHED_MIN_S = 128 * 64
 FUSION_RTOL = 1e-5
 
 
-def model_waves(iterations):
-    """Stage-0 waves that had a model-based pick: each ran one scorer
-    launch."""
+def model_waves(iterations, per_config=False):
+    """Sampling waves (the configs an iteration sampled at one stage) that
+    had a model-based pick: each ran one scorer launch. ``per_config``: a
+    rule that samples one config at a time (ASHA) ran one per model-based
+    pick."""
+    if per_config:
+        return sum(bool(d.config_info.get("model_based_pick"))
+                   for it in iterations for d in it.data.values())
     return sum(
-        any(d.config_info.get("model_based_pick") for c, d in it.data.items() if c[1] == 0)
+        len({c[1] for c, d in it.data.items() if d.config_info.get("model_based_pick")})
         for it in iterations)
 
 
@@ -1108,13 +1147,13 @@ def batched_optimizer(dev, cls_name, objective="hartmann6", max_budget=81.0,
                                 min_budget=1, max_budget=max_budget, eta=3, seed=seed, **kw)
 
 
-def run_batched(torch, dev, opt, n_iterations):
+def run_batched(torch, dev, opt, n_iterations, **run_kw):
     """``opt.run()`` with its synchronizing CUDA calls counted; returns
     ``(result, record)``: wall seconds, finished runs per second (the
     reference's ``bench_batched`` measure), host syncs per bracket and by
     source line, model waves, and the executor's fusion counts."""
     t0 = time.perf_counter()
-    res, syncs = _syncs_of(torch, opt.run, n_iterations=n_iterations)
+    res, syncs = _syncs_of(torch, opt.run, n_iterations=n_iterations, **run_kw)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     opt.shutdown()
@@ -1134,7 +1173,7 @@ def run_batched(torch, dev, opt, n_iterations):
         fused_cache_misses=ex.fused_cache_misses)
 
 
-def batched_sweep_checks(torch, dev, label, opt, res, max_budget, n_iterations):
+def batched_sweep_checks(torch, dev, label, opt, res, max_budget, n_iterations, want=None):
     """:func:`check_sweep` on a Master-driven run: runs per budget, finite
     losses, the incumbent below the random searches' median best, model
     picks beating random picks. The random searches draw through the
@@ -1148,26 +1187,28 @@ def batched_sweep_checks(torch, dev, label, opt, res, max_budget, n_iterations):
         codec_tables=codec_tables(build_space_codec(opt.configspace), dev),
         active_mask_fn=None, forbidden_fn=None, iterations=opt.iterations)
     fn = toys.hartmann6 if opt.configspace.dim == 6 else toys.branin
-    return check_sweep(torch, dev, label, view, res, fn, max_budget, n_iterations)
+    return check_sweep(torch, dev, label, view, res, fn, max_budget, n_iterations, want)
 
 
-def check_wave_launches(label, iterations, moments=False):
+def check_wave_launches(label, iterations, moments=False, per_config=False):
     """The path's expected launches from its iterations (one scorer launch
-    per model wave), no pick that fell back from a failed model, and every
-    scorer launch recorded in the path scoring at least ``BATCHED_MIN_S``
-    candidates."""
+    per model wave, or per model-based pick with ``per_config``), no pick
+    that fell back from a failed model, and every scorer launch recorded in
+    the path scoring at least ``BATCHED_MIN_S`` candidates (one proposal's
+    64 with ``per_config``)."""
     from hpbandster_tpu_torch.ops import cuda_kde
 
-    waves = model_waves(iterations)
+    waves = model_waves(iterations, per_config)
     if waves < 1:
-        raise AssertionError(f"{label}: no stage-0 wave had a model-based pick")
+        raise AssertionError(f"{label}: no sampling wave had a model-based pick")
     if any(d.config_info.get("sample_reason") == "model_failure"
            for it in iterations for d in it.data.values()):
         raise AssertionError(f"{label}: a model-based proposal fell back to random")
+    min_s = 64 if per_config else BATCHED_MIN_S
     small = [inputs[0].shape[0] for name, inputs in cuda_kde.RECORD
-             if name == "kde_score" and inputs[0].shape[0] < BATCHED_MIN_S]
+             if name == "kde_score" and inputs[0].shape[0] < min_s]
     if small:
-        raise AssertionError(f"{label}: scorer launches below S = {BATCHED_MIN_S}: {small}")
+        raise AssertionError(f"{label}: scorer launches below S = {min_s}: {small}")
     BATCHED_EXPECTED[label] = {"kde_score": waves, "kde_moments": waves if moments else 0}
 
 
@@ -1236,6 +1277,7 @@ def drive_batched_in_trace(torch, dev, max_budget=81.0, n_iterations=10):
                                     max_budget, n_iterations))
     check_wave_launches("batched_bohb_in_trace", opt.iterations, moments=True)
     print("batched_bohb_in_trace path " + json.dumps(rec), flush=True)
+    BATCHED_RUNS["batched_bohb_in_trace"] = (opt, res, rec)
     return res
 
 
@@ -1326,6 +1368,326 @@ def drive_batched_teacher(torch, dev, n_iterations=4):
     print("batched_teacher path " + json.dumps(rec), flush=True)
     BATCHED_RUNS["batched_teacher"] = (opt, res, rec)
     return res
+
+
+# ------------------------------------------ promotion rules and the journal
+#: the directory the journaled paths write into (made in main, removed at
+#: its end); path -> the records its journal holds
+JOURNAL_DIR = None
+JOURNAL_RECORDS = {}
+#: the rules the replay harness re-scores every journal under
+REPLAY_RULES = ("successive_halving", "asha", "pareto", "lc_earlystop")
+
+
+@contextlib.contextmanager
+def journal(label):
+    """The obs journal attached for one run: yields nothing, then keeps the
+    journal's records under ``label``."""
+    from hpbandster_tpu_torch import obs
+
+    path = os.path.join(JOURNAL_DIR, f"{label}.jsonl")
+    with obs.configure(journal_path=path):
+        yield
+    JOURNAL_RECORDS[label] = obs.read_journal(path)
+
+
+def check_journal(label, records, res):
+    """Every journal: ``replay_records`` under each rule byte-identical
+    across two calls, and ``config_lineage`` of the run's incumbent
+    resolving to its final result. Returns the record counts."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.promote.replay import format_replay, replay_records
+
+    for rule in REPLAY_RULES:
+        a, b = replay_records(records, rule), replay_records(records, rule)
+        if (json.dumps(a, sort_keys=True) != json.dumps(b, sort_keys=True)
+                or format_replay(a) != format_replay(b)):
+            raise AssertionError(f"{label}: replay under {rule} is not byte-identical")
+    inc = res.get_incumbent_id()
+    lineage = obs.config_lineage(records).get(tuple(inc))
+    final = res.get_runs_by_id(inc)[-1]
+    if lineage is None or lineage["results"].get(float(final.budget)) != final.loss:
+        raise AssertionError(f"{label}: the incumbent {inc}'s lineage does not resolve")
+    counts = {}
+    for r in records:
+        counts[r["event"]] = counts.get(r["event"], 0) + 1
+    return dict(records=len(records), decisions=counts.get("promotion_decision", 0),
+                incumbent_rungs=len(lineage["rungs"]))
+
+
+def decisions(records, rule):
+    """The journal's promotion records, each decided by ``rule``."""
+    out = [r for r in records if r["event"] == "promotion_decision"]
+    if not out or any(r["rule"] != rule for r in out):
+        raise AssertionError(f"no or foreign promotion records under {rule}: "
+                             f"{sorted({r['rule'] for r in out})}")
+    return out
+
+
+def _nan(values):
+    return np.array([np.nan if v is None else v for v in values], np.float64)
+
+
+def check_asha(label, opt, records):
+    """ASHA: at every rung the union of the promoted masks over its records
+    contains the sync rule's top ``floor(n / eta)`` of the rung's full
+    candidate losses; stage 0 runs as planned and every later rung at least
+    as planned (an early promotion keeps its slot)."""
+    from hpbandster_tpu_torch.ops.bracket import sh_promotion_mask_np
+
+    promoted = {}
+    for r in decisions(records, "asha"):
+        got = promoted.setdefault((r["iteration"], r["rung"]), set())
+        got.update(tuple(c) for c, p in zip(r["config_ids"], r["promoted"]) if p)
+    want, over = {}, 0
+    for it in opt.iterations:
+        for rung, budget in enumerate(it.budgets):
+            ids = [c for c, d in it.data.items() if budget in d.results]
+            n_plan = it.num_configs[rung]
+            if len(ids) != n_plan if rung == 0 else len(ids) < n_plan:
+                raise AssertionError(f"{label}: bracket {it.HPB_iter} ran {len(ids)} "
+                                     f"configs at rung {rung}, plan {n_plan}")
+            over += len(ids) - n_plan
+            want[budget] = want.get(budget, 0) + len(ids)
+            if rung == len(it.budgets) - 1:
+                continue
+            losses = _nan([it.data[c].results[budget] for c in ids])
+            top = sh_promotion_mask_np(losses, int(len(ids) // opt.eta)) & ~np.isnan(losses)
+            missing = {ids[i] for i in np.flatnonzero(top)} - promoted.get(
+                (it.HPB_iter, rung), set())
+            if missing:
+                raise AssertionError(f"{label}: bracket {it.HPB_iter} rung {rung}: the sync "
+                                     f"top-k {sorted(missing)} was never promoted")
+    return want, over
+
+
+def run_cost_histogram(records, budget):
+    """The ``master.job_run_s.b<budget>`` histogram as it stood, rebuilt
+    from the journal's ``job_finished`` run times (a fresh registry)."""
+    from hpbandster_tpu_torch import obs
+
+    hist = obs.MetricsRegistry().histogram("h")
+    for r in records:
+        if r["event"] == "job_finished" and r["budget"] == budget and r.get("run_s") is not None:
+            hist.observe(r["run_s"])
+    return hist
+
+
+def check_pareto(torch, dev, label, opt, records):
+    """Pareto: every record's mask equals ``pareto_promotion_mask`` on the
+    card and ``pareto_promotion_mask_np`` over the record's (losses, costs)
+    at the rung's plan, its ranks ``pareto_rank_np``; a rung with at least
+    ``COST_FEED_MIN_COUNT`` runs at its budget before it ranked on the
+    run-time histogram's p50 (rebuilt from the journal), uniform."""
+    from hpbandster_tpu_torch.obs.device_metrics import COST_FEED_MIN_COUNT
+    from hpbandster_tpu_torch.ops.bracket import (
+        pareto_promotion_mask,
+        pareto_promotion_mask_np,
+        pareto_rank_np,
+    )
+
+    fed = spans = 0
+    for i, r in enumerate(records):
+        if r["event"] != "promotion_decision":
+            continue
+        if r["rule"] != "pareto":
+            raise AssertionError(f"{label}: a record of rule {r['rule']}")
+        k = opt.iterations[r["iteration"]].num_configs[r["rung"] + 1]
+        obj = np.stack([_nan(r["losses"]), _nan(r["costs"])], axis=1)
+        mask = np.asarray(r["promoted"])
+        host = pareto_promotion_mask_np(obj, k)
+        card = pareto_promotion_mask(torch.as_tensor(obj.astype(np.float32), device=dev),
+                                     k).cpu().numpy()
+        ranks = [None if np.isnan(l) else int(x) for x, l in zip(pareto_rank_np(obj), obj[:, 0])]
+        if not (np.array_equal(host, mask) and np.array_equal(card, mask)
+                and ranks == r["pareto_rank"]):
+            raise AssertionError(f"{label}: record {r['iteration']}/{r['rung']}: mask "
+                                 f"{mask.tolist()}, host {host.tolist()}, card "
+                                 f"{card.tolist()}, ranks {r['pareto_rank']} vs {ranks}")
+        hist = run_cost_histogram(records[:i], r["budget"])
+        if hist.count >= COST_FEED_MIN_COUNT:
+            if set(r["costs"]) != {hist.quantile(0.5)}:
+                raise AssertionError(f"{label}: record {r['iteration']}/{r['rung']} costs "
+                                     f"{r['costs']}, feed p50 {hist.quantile(0.5)}")
+            fed += 1
+        else:
+            spans += 1
+    return dict(decisions_on_feed=fed, decisions_on_spans=spans)
+
+
+def check_lc_earlystop(label, opt, records, margin=0.0):
+    """Learning-curve early stop: every config of a rung's top-k that it
+    terminated had a prediction above the cut (the best final-budget loss
+    journaled before the decision, plus ``margin``)."""
+    from hpbandster_tpu_torch.ops.bracket import sh_promotion_mask_np
+
+    target = opt.max_budget
+    best, stopped = None, 0
+    for r in records:
+        if r["event"] == "job_finished" and r["budget"] == target and r["loss"] is not None:
+            best = r["loss"] if best is None else min(best, r["loss"])
+        if r["event"] != "promotion_decision":
+            continue
+        if r["rule"] != "lc_earlystop":
+            raise AssertionError(f"{label}: a record of rule {r['rule']}")
+        k = opt.iterations[r["iteration"]].num_configs[r["rung"] + 1]
+        top = sh_promotion_mask_np(_nan(r["losses"]), k)
+        for i in np.flatnonzero(top & ~np.asarray(r["promoted"])):
+            pred = r["scores"][i]
+            if best is None or pred is None or not pred > best + margin:
+                raise AssertionError(f"{label}: {r['config_ids'][i]} terminated with "
+                                     f"prediction {pred} against the cut {best}")
+            stopped += 1
+    return dict(terminated_top_k=stopped)
+
+
+def same_runs(label, res, want):
+    """A run equal to another bit for bit: every (config, budget)'s loss and
+    configuration."""
+    got = _runs(res)
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"{label}: {len(diff)} runs differ, first {diff[:3]}")
+    return len(got)
+
+
+def drive_batched_rule(torch, dev, rule, n_iterations=10):
+    """``BOHB(promotion_rule=rule)`` at the ``batched_bohb`` setting with a
+    journal: the sweep gates, the rule's gates, the journal's replay and
+    lineage, one scorer launch per model wave (per model-based pick under
+    ASHA); then the rule's degenerate twin bit for bit against the
+    barrier run it reduces to: Pareto with ``cost_fn = 1`` against
+    ``batched_bohb``, early stop with ``margin = inf`` against
+    ``batched_bohb_in_trace``."""
+    from hpbandster_tpu_torch import obs
+
+    label = f"batched_bohb_{rule}"
+    in_trace = rule == "lc_earlystop"
+    flags = (env_flags(HPB_PALLAS_KDE_FIT="1", HPB_USE_PALLAS="1") if in_trace
+             else contextlib.nullcontext())
+    with flags:
+        # Pareto's cost feed holds this run's run times only
+        obs.get_metrics().reset()
+        opt = batched_optimizer(dev, "BOHB", promotion_rule=rule, in_trace_refit=in_trace)
+        with journal(label):
+            res, rec = run_batched(torch, dev, opt, n_iterations)
+        records = JOURNAL_RECORDS[label]
+        want = None
+        if rule == "asha":
+            want, rec["over_promoted"] = check_asha(label, opt, records)
+        elif rule == "pareto":
+            rec.update(check_pareto(torch, dev, label, opt, records))
+        else:
+            rec.update(check_lc_earlystop(label, opt, records))
+        rec.update(batched_sweep_checks(torch, dev, label, opt, res, 81.0, n_iterations,
+                                        want=want))
+        rec.update(check_journal(label, records, res))
+        iterations = list(opt.iterations)
+        if rule != "asha":
+            twin, base, kw = (("pareto_unit_cost", "batched_bohb", {"cost_fn": lambda d, b: 1.0})
+                              if rule == "pareto" else
+                              ("lc_infinite_margin", "batched_bohb_in_trace",
+                               {"margin": float("inf")}))
+            opt2 = batched_optimizer(dev, "BOHB", promotion_rule=rule, in_trace_refit=in_trace)
+            with journal(f"{label}_{twin}"):
+                res2, _ = run_batched(torch, dev, opt2, n_iterations, iteration_kwargs=kw)
+            rec[f"{twin}_equal_runs"] = same_runs(f"{label} {twin}", res2,
+                                                  _runs(BATCHED_RUNS[base][1]))
+            iterations += opt2.iterations
+    check_wave_launches(label, iterations, moments=in_trace, per_config=rule == "asha")
+    print(f"{label} path " + json.dumps(rec), flush=True)
+    BATCHED_RUNS[label] = (opt, res, rec)
+    return res
+
+
+def check_telemetry_record(label, records, opt, plain):
+    """The journal's one ``device_telemetry`` record equals the run's
+    ``last_device_telemetry`` and, without the measured-time keys, the
+    same run's with no sink."""
+    tele = [r for r in records if r["event"] == "device_telemetry"]
+    if len(tele) != 1:
+        raise AssertionError(f"{label}: {len(tele)} device_telemetry records")
+    rec = {k: v for k, v in tele[0].items()
+           if k not in ("event", "trace_id", "t_wall", "t_mono")}
+    if rec != json.loads(json.dumps(opt.last_device_telemetry)):
+        raise AssertionError(f"{label}: the journaled telemetry is not the run's")
+    if _timing_free(rec) != _timing_free(json.loads(json.dumps(plain))):
+        raise AssertionError(f"{label}: the telemetry differs from the run with no sink")
+
+
+def drive_fused_journal(torch, dev, n_iterations=10):
+    """``FusedBOHB`` with a journal, each run against the same run with no
+    sink from its earlier path, bit for bit: the static Hartmann-6 sweep
+    (``static``), the resident sweep (``resident``) and ``run_incumbent``
+    (``incumbent``). One ``sweep_chunk`` per chunk, the device telemetry
+    journaled as decoded, the incumbent journaled, the replays and the
+    lineage of the static run's incumbent."""
+    from hpbandster_tpu_torch import FusedBOHB
+    from hpbandster_tpu_torch.workloads.toys import hartmann6, hartmann6_space
+
+    out = {}
+    opt = FusedBOHB(configspace=hartmann6_space(seed=0), eval_fn=hartmann6, min_budget=1,
+                    max_budget=81, eta=3, num_samples=64, seed=0, device=dev)
+    with journal("fused_journal_static"):
+        res = opt.run(n_iterations=n_iterations)
+    static_opt, static_res, static_rec = STATIC_RUNS["hartmann6"]
+    out["static_equal_runs"] = same_runs("fused_journal static", res, _runs(static_res))
+    records = JOURNAL_RECORDS["fused_journal_static"]
+    out["static"] = check_journal("fused_journal static", records, res)
+    with moments_fit_flag():
+        opt_r = chunked_optimizer(dev)
+        with journal("fused_journal_resident"):
+            res_r = opt_r.run(n_iterations=n_iterations, resident=True, device_metrics=True)
+        opt_i = chunked_optimizer(dev)
+        with journal("fused_journal_incumbent"):
+            inc = opt_i.run_incumbent(n_iterations=n_iterations, device_metrics=True)
+    plain_r, plain_res_r, _ = RESIDENT_RUNS["resident"]
+    compare_sweeps("fused_journal resident", n_iterations, opt_r, res_r, plain_r, plain_res_r)
+    check_telemetry_record("fused_journal resident", JOURNAL_RECORDS["fused_journal_resident"],
+                           opt_r, plain_r.last_device_telemetry)
+    out["resident"] = check_journal("fused_journal resident",
+                                    JOURNAL_RECORDS["fused_journal_resident"], res_r)
+    plain_i, plain_out, _ = RESIDENT_RUNS["incumbent"]
+    if inc["incumbent"] != plain_out["incumbent"]:
+        raise AssertionError(f"fused_journal incumbent: {inc['incumbent']} != "
+                             f"{plain_out['incumbent']}")
+    inc_records = JOURNAL_RECORDS["fused_journal_incumbent"]
+    check_telemetry_record("fused_journal incumbent", inc_records, opt_i,
+                           plain_out["device_telemetry"])
+    (payload,) = [r for r in inc_records if r["event"] == "sweep_incumbent"]
+    if (payload["loss"] != inc["incumbent"]["loss"]
+            or payload["vector"] != inc["incumbent"]["vector"]):
+        raise AssertionError(f"fused_journal incumbent: journaled {payload}")
+    for name, recs, chunks in (("static", records, len(opt.run_stats)),
+                               ("resident", JOURNAL_RECORDS["fused_journal_resident"],
+                                len(opt_r.run_stats)),
+                               ("incumbent", inc_records, 1)):
+        got = sum(r["event"] == "sweep_chunk" for r in recs)
+        if got != chunks:
+            raise AssertionError(f"fused_journal {name}: {got} sweep_chunk records for "
+                                 f"{chunks} chunks")
+    out["incumbent_records"] = len(inc_records)
+    BATCHED_EXPECTED["fused_journal"] = {
+        "kde_score": static_rec["kde_score_launches"] + 2 * n_iterations,
+        "kde_moments": 2 * n_iterations}
+    print("fused_journal path " + json.dumps(out), flush=True)
+    return res
+
+
+def measure_obs_overhead(torch, dev, n_iterations=10):
+    """``batched_bohb``'s run with no sink and with a journal, in turns
+    (none, journal, journal, none), walls printed; no claim. Also the
+    records each journaled path wrote."""
+    walls = {"none": [], "journal": []}
+    for i, sink in enumerate(("none", "journal", "journal", "none")):
+        opt = batched_optimizer(dev, "BOHB")
+        ctx = journal(f"obs_overhead_{i}") if sink == "journal" else contextlib.nullcontext()
+        with ctx:
+            _, rec = run_batched(torch, dev, opt, n_iterations)
+        walls[sink].append(rec["wall_s"])
+    print("obs overhead " + json.dumps(dict(
+        batched_bohb_wall_s=walls,
+        records_per_journal={k: len(v) for k, v in JOURNAL_RECORDS.items()})), flush=True)
 
 
 # ------------------------------------------------------------- serving tier
@@ -2557,6 +2919,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     dev = torch.device("cuda", 0)
+    global JOURNAL_DIR
+    JOURNAL_DIR = tempfile.mkdtemp(prefix="chip_smoke_journal_")
+    atexit.register(shutil.rmtree, JOURNAL_DIR, True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2611,6 +2976,12 @@ def main(argv=None) -> int:
         "batched_h2bo": drive_batched_h2bo,
         "batched_resume": drive_batched_resume,
         "batched_teacher": drive_batched_teacher,
+        # the promotion rules and the journal
+        "batched_bohb_asha": lambda torch, dev: drive_batched_rule(torch, dev, "asha"),
+        "batched_bohb_pareto": lambda torch, dev: drive_batched_rule(torch, dev, "pareto"),
+        "batched_bohb_lc_earlystop": lambda torch, dev: drive_batched_rule(
+            torch, dev, "lc_earlystop"),
+        "fused_journal": drive_fused_journal,
         # the bucketed brackets and the serving tier
         "batched_bohb_bucketed": drive_batched_bucketed,
         "serve_megabatch": lambda torch, dev: drive_serve(
@@ -2671,6 +3042,7 @@ def main(argv=None) -> int:
     profile_resident_launches(torch, dev)
     measure_resident(torch, dev)
     measure_conditional_host_work(torch, dev)
+    measure_obs_overhead(torch, dev)
 
     # phase 6: kernels against plain versions on the main paths' own inputs
     held = check_recorded_launches(torch, recorded)

@@ -1,7 +1,8 @@
 """hpbandster_tpu_torch: the PyTorch/CUDA port of ``hpbandster_tpu``.
 
 The port mirrors the JAX package's layout (``space/``, ``ops/``, ``core/``,
-``models/``, ``parallel/``, ``optimizers/``, ``workloads/``, ``serve/``); each module names the file it was ported
+``models/``, ``parallel/``, ``optimizers/``, ``workloads/``, ``serve/``,
+``obs/``, ``promote/``); each module names the file it was ported
 from. It imports torch, numpy and the standard library, never jax and never
 the JAX package. Its kernels are hand-written CUDA C++ under ``csrc/``,
 built with ``nvcc`` at first launch.

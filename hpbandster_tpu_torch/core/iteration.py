@@ -10,8 +10,12 @@ A struct-of-arrays view (:meth:`BaseIteration.loss_matrix`) exposes the
 bracket's state as NaN-masked arrays.
 
 Ported from ``hpbandster_tpu/core/iteration.py``: host bookkeeping, no jax.
-The observability events (``obs.emit*``) are left out until the port has an
-observability layer.
+Every config's birth (``config_sampled``) and every rung's promotion
+(``bracket_promotion`` and the ``promotion_decision`` audit record, with
+the rule's scores, Pareto ranks and costs) go to the port's event bus
+(``hpbandster_tpu_torch.obs``); the cost accessors (``reported_cost``,
+``wall_span_cost``, ``measured_cost``, ``promotion_cost``) give the cost
+column, paid for only when a sink listens.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.job import ConfigId, Job
 
 __all__ = ["Status", "Datum", "BaseIteration"]
@@ -112,6 +117,14 @@ class BaseIteration:
         self.actual_num_configs = [0] * len(num_configs)
         self.is_finished = False
         self.num_running = 0
+        #: a promotion rule that ranks by something other than the raw
+        #: losses (H2BO extrapolation) stashes its per-candidate scores
+        #: here from _advance_to_next_stage; they ride the audit record
+        self.last_promotion_scores: Optional[List[Optional[float]]] = None
+        #: multi-objective rules (promote/pareto.py) additionally stash
+        #: the per-candidate Pareto domination counts here — the audit
+        #: record then shows the front structure the decision ranked by
+        self.last_pareto_ranks: Optional[List[Optional[int]]] = None
 
     # ------------------------------------------------------------- properties
     @property
@@ -151,6 +164,12 @@ class BaseIteration:
         self.actual_num_configs[self.stage] += 1
         if self.result_logger is not None:
             self.result_logger.new_config(config_id, config, config_info)
+        # the audit trail's birth record: the one place a config receives
+        # its id, so the generator's decision details (model vs random,
+        # KDE budget, l/g score — riding config_info) get linked to it
+        obs.emit_config_sampled(
+            config_id, self.budgets[self.stage], config_info
+        )
         return config_id
 
     def get_next_run(self) -> Optional[Tuple[ConfigId, Dict[str, Any], float]]:
@@ -260,7 +279,10 @@ class BaseIteration:
             )
             return True
 
+        self.last_promotion_scores = None
+        self.last_pareto_ranks = None
         advance = self._advance_to_next_stage(config_ids, losses)
+        rung = self.stage
         self.stage += 1
         next_budget = self.budgets[self.stage]
         for cid, promote in zip(config_ids, advance):
@@ -274,6 +296,32 @@ class BaseIteration:
                     Status.CRASHED if d.results.get(budget) is None
                     else Status.TERMINATED
                 )
+        obs.emit_bracket_promotion(
+            self.HPB_iter, rung, self.promotion_rule,
+            promoted=int(np.sum(advance)), candidates=len(config_ids),
+            budget=budget, next_budget=next_budget,
+        )
+        # the audit twin: full per-candidate detail (losses, mask, cut
+        # threshold, rule scores, measured costs) — what report's regret
+        # table and the promote/replay.py harness re-score
+        obs.emit_promotion_decision(
+            self.HPB_iter, rung, budget, next_budget,
+            config_ids=config_ids,
+            losses=[None if np.isnan(l) else float(l) for l in losses],
+            promoted=[bool(a) for a in advance],
+            rule=self.promotion_rule,
+            scores=self.last_promotion_scores,
+            pareto_rank=self.last_pareto_ranks,
+            # bus-gated: the emitter discards everything when no sink is
+            # attached, so the O(n) cost measurement must not be paid
+            # eagerly on the no-sink fast path
+            costs=(
+                [self.promotion_cost(cid, budget) for cid in config_ids]
+                if obs.get_bus().active else None
+            ),
+        )
+        self.last_promotion_scores = None
+        self.last_pareto_ranks = None
         self.logger.debug(
             "iteration %d advanced to stage %d (%d promoted)",
             self.HPB_iter, self.stage, int(np.sum(advance)),
@@ -285,6 +333,70 @@ class BaseIteration:
     ) -> np.ndarray:
         """bool[n] promotion mask — implemented by subclasses."""
         raise NotImplementedError
+
+    def reported_cost(
+        self, config_id: ConfigId, budget: float
+    ) -> Optional[float]:
+        """The explicit ``cost`` an evaluation reported in its info
+        payload (a worker measuring device seconds, not wall) — the only
+        genuinely PER-CANDIDATE cost measurement; None when the
+        evaluation reported none. Split out of :meth:`measured_cost` so
+        cost-aware promotion (promote/pareto.py) can prefer a reported
+        measurement, then an obs-histogram aggregate, and fall back to
+        the wall span only when neither exists."""
+        d = self.data.get(config_id)
+        if d is None:
+            return None
+        info = d.infos.get(budget)
+        if isinstance(info, dict):
+            cost = info.get("cost")
+            if isinstance(cost, (int, float)) and np.isfinite(cost):
+                return float(cost)
+        return None
+
+    def wall_span_cost(
+        self, config_id: ConfigId, budget: float
+    ) -> Optional[float]:
+        """The started->finished wall span the job's timestamp schema
+        records — the noisiest cost estimate (queue/dispatch jitter
+        included), kept as the last-resort fallback."""
+        d = self.data.get(config_id)
+        if d is None:
+            return None
+        ts = d.time_stamps.get(budget) or {}
+        try:
+            span = float(ts["finished"]) - float(ts["started"])
+        except (KeyError, TypeError, ValueError):
+            return None
+        return span if np.isfinite(span) and span >= 0 else None
+
+    def measured_cost(
+        self, config_id: ConfigId, budget: float
+    ) -> Optional[float]:
+        """Measured evaluation cost (seconds) of one config at one rung,
+        or None when unmeasured.
+
+        Priority: an explicit ``cost`` the evaluation reported in its
+        info payload (:meth:`reported_cost`), then the started->finished
+        wall span (:meth:`wall_span_cost`). This is the cost column
+        multi-objective promotion ranks (promote/pareto.py) and what
+        rides ``promotion_decision.costs`` so a recorded journal stays
+        Pareto-replayable.
+        """
+        cost = self.reported_cost(config_id, budget)
+        if cost is not None:
+            return cost
+        return self.wall_span_cost(config_id, budget)
+
+    def promotion_cost(
+        self, config_id: ConfigId, budget: float
+    ) -> Optional[float]:
+        """The cost column the audit record journals. Default: the
+        measured cost. A rule ranking by a custom cost (ParetoIteration's
+        ``cost_fn``) overrides this so ``promotion_decision.costs``
+        carries the numbers the decision ACTUALLY used — the replay
+        harness's Pareto re-scoring depends on that fidelity."""
+        return self.measured_cost(config_id, budget)
 
     # ------------------------------------------------------- array interface
     def loss_matrix(self) -> Tuple[List[ConfigId], np.ndarray]:

@@ -17,18 +17,28 @@ The reference logs and ignores a failed schedule announcement; the port
 does so on the CPU only: where the executor runs on a card the failure
 raises, so a run never quietly loses the programs it was announced for.
 
+Every job gets a trace identity at submission; its submission, its result
+(``job_finished`` / ``job_failed``, under the job's own trace) and the
+bracket bookkeeping it triggers go to the event bus
+(``hpbandster_tpu_torch.obs``) under the master's tenant and run, and each
+result's run time feeds the ``master.job_run_s`` histogram and its
+budget-keyed twin ``master.job_run_s.b<budget>``, the cost feed of Pareto
+promotion (``obs.budget_cost_from_obs``).
+
 Not ported yet: the RPC ``Dispatcher`` that ``executor=None`` builds, the
 fleet collector and the write-ahead result journal with ``resume()``
-(ROADMAP A9), and the observability events (A8).
+(ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.iteration import BaseIteration
 from hpbandster_tpu_torch.core.job import ConfigId, Job
 from hpbandster_tpu_torch.core.result import Result
@@ -145,7 +155,35 @@ class Master:
         ``update_model=False`` records the observation but defers the model
         refit to the next proposal (burst deliveries from batched
         executors)."""
-        with self.thread_cond:
+        # every tier funnels its results through here, so job_finished /
+        # job_failed are emitted here, before the lock (sinks do I/O), and
+        # under the job's own trace: a batched executor delivers many jobs
+        # from one thread
+        loss = job.loss
+        run_s = job.mono_duration("started", "finished")
+        with obs.use_tenant(self.tenant_id), obs.use_trace(job.trace):
+            obs.emit(
+                obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
+                config_id=list(job.id),
+                budget=job.kwargs.get("budget"),
+                worker=job.worker_name,
+                queue_s=job.mono_duration("submitted", "started"),
+                run_s=run_s,
+                # non-finite losses journal as null (strict JSON)
+                loss=loss if math.isfinite(loss) else None,
+            )
+        if isinstance(run_s, (int, float)):
+            obs.get_metrics().histogram("master.job_run_s").observe(run_s)
+            # the budget-keyed twin: the per-budget cost aggregate Pareto
+            # promotion ranks by (obs.budget_cost_from_obs)
+            budget = job.kwargs.get("budget")
+            if isinstance(budget, (int, float)):
+                obs.get_metrics().histogram(
+                    f"master.job_run_s.b{float(budget):g}"
+                ).observe(run_s)
+        # the promotion records process_results() emits carry the tenant;
+        # the run scopes the straggler-ledger drain to this sweep
+        with obs.use_tenant(self.tenant_id), obs.use_run(self.run_id), self.thread_cond:
             self.num_running_jobs -= 1
             if self.result_logger is not None:
                 self.result_logger(job)
@@ -177,11 +215,15 @@ class Master:
             "stage": it.stage,
         }
         job.tenant_id = self.tenant_id
+        # the job's trace identity: every event of its story carries it
+        job.trace = obs.new_trace(self.run_id)
         job.time_it("submitted")
-        with self.thread_cond:
-            self.num_running_jobs += 1
-            self.jobs.append(job)
-        self.executor.submit_job(job)
+        with obs.use_tenant(self.tenant_id), obs.use_trace(job.trace):
+            obs.emit(obs.JOB_SUBMITTED, config_id=list(config_id), budget=budget)
+            with self.thread_cond:
+                self.num_running_jobs += 1
+                self.jobs.append(job)
+            self.executor.submit_job(job)
 
     def active_iterations(self) -> List[int]:
         return [i for i, it in enumerate(self.iterations) if not it.is_finished]
@@ -233,7 +275,10 @@ class Master:
                     it.config_sampler_batch = iteration_kwargs["config_sampler_batch"]
         n_remaining = max(n_iterations - len(self.iterations), 0)
         self._announce_schedule(n_remaining)
-        return self._run_loop(n_remaining, iteration_kwargs)
+        # the drive loop runs under the tenant: config_sampled and
+        # bracket_created records carry it
+        with obs.use_tenant(self.tenant_id):
+            return self._run_loop(n_remaining, iteration_kwargs)
 
     def _announce_schedule(self, n_remaining: int) -> None:
         """Hand the remaining brackets' shapes (``iteration_plan``) to an
@@ -314,9 +359,12 @@ class Master:
         ``path``."""
         from hpbandster_tpu_torch.core.checkpoint import save_checkpoint
 
+        t0 = time.monotonic()
         with self.thread_cond:
             save_checkpoint(self, path)
         self._last_checkpoint_mono = time.monotonic()
+        obs.emit(obs.CHECKPOINT_WRITTEN, path=path,
+                 duration_s=round(time.monotonic() - t0, 6))
 
     def load_checkpoint(self, path: str) -> None:
         """Restore state saved by :meth:`save_checkpoint` into this (fresh)

@@ -27,6 +27,9 @@ same way. The one-at-a-time ``get_config`` draws from its own generator,
 seeded from ``seed``, as the reference's draws from a jax key chain that
 never touches ``self.rng``.
 
+Each refit, on the host or in-trace, emits a ``kde_refit`` event and
+advances the ``kde.refits`` counter (``hpbandster_tpu_torch.obs``).
+
 On a CUDA device a failed model-based proposal raises; the reference's
 fallback to a random configuration is kept for CPU tensors only.
 """
@@ -34,11 +37,13 @@ fallback to a random configuration is kept for CPU tensors only.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.device import resolve_device, upload
 from hpbandster_tpu_torch.models.base import base_config_generator
@@ -213,6 +218,7 @@ class BOHBKDE(base_config_generator):
         n_bad = max(self.min_points_in_model, ((100 - self.top_n_percent) * n) // 100)
         idx = np.argsort(train_losses, kind="stable")
 
+        t0 = time.monotonic()
         good = self.impute_conditional_data(train_configs[idx[:n_good]])
         bad = self.impute_conditional_data(train_configs[idx[-n_bad:]])
         if good.shape[0] <= good.shape[1] or bad.shape[0] <= bad.shape[1]:
@@ -220,6 +226,12 @@ class BOHBKDE(base_config_generator):
 
         self.kde_models[budget] = (self._make_kde(good), self._make_kde(bad))
         self._device_kdes.pop(budget, None)
+        obs.emit(
+            obs.KDE_REFIT,
+            budget=budget, n_obs=n, n_good=n_good, n_bad=n_bad,
+            duration_s=round(time.monotonic() - t0, 6),
+        )
+        obs.get_metrics().counter("kde.refits").inc()
 
     def _make_kde(self, data: np.ndarray) -> KDE:
         """The host fit in float64 numpy, padded to a power of two of at
@@ -248,6 +260,7 @@ class BOHBKDE(base_config_generator):
         buffers go up (a power of two of at least 64 rows), the fit, the
         scoring and the selection run on the device, and the ``n`` vectors
         (and scores, on the per-proposal layout) come back in one fetch."""
+        t0 = time.monotonic()
         vecs = np.asarray(self.configs[budget], np.float64)
         losses = np.asarray(self.losses[budget], np.float32)
         n_obs = len(losses)
@@ -274,10 +287,19 @@ class BOHBKDE(base_config_generator):
             out = cuda_kde.refit_propose_batch_seeded(
                 *args, min_bandwidth_fit=self.min_bandwidth,
                 impute_seed=impute_seed, draws=self.draws)
-            return out.cpu().numpy(), None
-        vecs_d, scores_d = kde_ops.refit_propose_batch_seeded(
-            *args, impute_seed=impute_seed, draws=self.draws)
-        return self._fetch_scored(vecs_d, scores_d)
+            fetched = out.cpu().numpy(), None
+        else:
+            vecs_d, scores_d = kde_ops.refit_propose_batch_seeded(
+                *args, impute_seed=impute_seed, draws=self.draws)
+            fetched = self._fetch_scored(vecs_d, scores_d)
+        # the refit happened on the device: the journal still sees it
+        obs.emit(
+            obs.KDE_REFIT,
+            budget=budget, n_obs=n_obs, n_good=n_good, n_bad=n_bad,
+            duration_s=round(time.monotonic() - t0, 6), in_trace=True,
+        )
+        obs.get_metrics().counter("kde.refits").inc()
+        return fetched
 
     @staticmethod
     def _fetch_scored(vecs: torch.Tensor, scores: torch.Tensor):

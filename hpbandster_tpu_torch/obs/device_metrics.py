@@ -17,13 +17,22 @@ overflow. A loss equal to a bin's upper bound lands IN that bin
 counted in the crash counters. Quantiles decode as bucket upper bounds;
 a quantile landing in the overflow bin decodes as None.
 
-The reference's ``publish_device_metrics`` and ``emit_device_telemetry``
-feed its observability bus, which the port has not yet.
+The bus half: :func:`publish_device_metrics` republishes a decoded record
+as registry gauges (``sweep.device_metrics.*``, the ``sweep.rung.<budget>.*``
+family and the ``sweep.budget_cost_s.<budget>`` cost gauges);
+:func:`emit_device_telemetry` journals it as a ``device_telemetry`` event;
+:func:`device_section_from_records` / :func:`format_device_section` fold a
+journal's records into one section; :func:`device_metric_fields` parses the
+gauges back; :func:`budget_cost_from_obs` is the per-budget cost feed
+Pareto promotion ranks by (``promote/pareto.py``).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from hpbandster_tpu_torch.obs import events as E
+from hpbandster_tpu_torch.obs.metrics import MetricsRegistry, get_metrics
 
 __all__ = [
     "N_BINS",
@@ -37,6 +46,13 @@ __all__ = [
     "decode_device_metrics",
     "merge_rungs",
     "finite_or_none",
+    "device_metric_fields",
+    "publish_device_metrics",
+    "emit_device_telemetry",
+    "device_section_from_records",
+    "format_device_section",
+    "budget_cost_from_obs",
+    "COST_FEED_MIN_COUNT",
 ]
 
 #: total bin count, underflow (bin 0) and overflow (bin N_BINS-1) included
@@ -47,6 +63,10 @@ LOG10_HI = 6.0
 #: decoded-record schema version (bump on any layout change so journal
 #: readers can tell records apart)
 SCHEMA_VERSION = 1
+
+#: minimum observation count before a registry histogram is trusted as a
+#: cost feed (below it, one noisy span would masquerade as an aggregate)
+COST_FEED_MIN_COUNT = 8
 
 
 def device_metrics_default() -> bool:
@@ -111,6 +131,26 @@ def finite_or_none(v: Any) -> Optional[float]:
         if v == v and v not in (float("inf"), float("-inf")):
             return v
     return None
+
+
+#: the gauge namespace publish_device_metrics mints totals under —
+#: device_metric_fields is its ONE parser
+GAUGE_PREFIX = "sweep.device_metrics."
+
+
+def device_metric_fields(gauges) -> Dict[str, float]:
+    """``{field: value}`` for every ``sweep.device_metrics.*`` gauge in
+    a metrics/gauges mapping — THE one parser of the gauge names
+    :func:`publish_device_metrics` mints. The collector's endpoint rows
+    and ``watch --snapshot``'s device part both read through it, so a
+    renamed or added field cannot make the two surfaces disagree."""
+    out: Dict[str, float] = {}
+    for name, value in (gauges or {}).items():
+        if isinstance(name, str) and name.startswith(GAUGE_PREFIX):
+            v = finite_or_none(value)
+            if v is not None:
+                out[name[len(GAUGE_PREFIX):]] = v
+    return out
 
 
 def _plan_shapes(plans) -> List[Tuple[Tuple[int, ...], Tuple[float, ...]]]:
@@ -347,3 +387,171 @@ def decode_device_metrics(
     if execute_s is not None:
         rec["execute_s"] = round(float(execute_s), 6)
     return rec
+
+
+def publish_device_metrics(
+    decoded: Dict[str, Any],
+    registry: Optional[MetricsRegistry] = None,
+) -> None:
+    """Republish one decoded record as registry gauges.
+
+    * ``sweep.device_metrics.{evaluations,crashes,promotions,model_fits,
+      rounds,crash_rate}`` — sweep-level totals (dotted names flatten in
+      the Prometheus rendering);
+    * ``sweep.rung.<budget>.{evals,crashes,promotions,loss_p50,
+      loss_p95}`` — per-rung families, re-expressed by ``obs/export.py``
+      as ``sweep_rung_<field>{budget=...}``;
+    * ``sweep.budget_cost_s.<budget>`` — the per-evaluation device-cost
+      estimate (present when the decoder was given ``execute_s``), the
+      gauge half of :func:`budget_cost_from_obs`'s feed.
+
+    Like the per-sweep transfer gauges these describe the LAST sweep;
+    scraping mid-run sees the previous sweep's values.
+    """
+    reg = registry if registry is not None else get_metrics()
+    for field, key in (
+        ("evaluations", "evaluations"), ("crashes", "crashes"),
+        ("promotions", "promotions"), ("model_fits", "model_fits"),
+        ("rounds", "rounds_completed"),
+    ):
+        v = decoded.get(key)
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            reg.gauge(f"sweep.device_metrics.{field}").set(float(v))
+    rate = finite_or_none(decoded.get("crash_rate"))
+    if rate is not None:
+        reg.gauge("sweep.device_metrics.crash_rate").set(rate)
+    for rung in decoded.get("rungs") or []:
+        b = finite_or_none(rung.get("budget"))
+        if b is None:
+            continue
+        for field in ("evals", "crashes", "promotions"):
+            v = rung.get(field)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                reg.gauge(f"sweep.rung.{b:g}.{field}").set(float(v))
+        for field in ("loss_p50", "loss_p95"):
+            v = finite_or_none(rung.get(field))
+            if v is not None:
+                reg.gauge(f"sweep.rung.{b:g}.{field}").set(v)
+        cost = finite_or_none(rung.get("est_cost_s"))
+        if cost is not None:
+            reg.gauge(f"sweep.budget_cost_s.{b:g}").set(cost)
+
+
+def emit_device_telemetry(decoded: Dict[str, Any]) -> None:
+    """Journal one decoded record as a ``device_telemetry`` event — the
+    record ``summarize``/``report``/``obs top`` consume and the anomaly
+    rules (``nan_burst``, ``bracket_skew``) read device crash counters
+    from. A no-op with no sink attached, like every emit."""
+    if not E.get_bus().active:
+        return
+    E.emit(E.DEVICE_TELEMETRY, **decoded)
+
+
+def device_section_from_records(
+    records: Sequence[Dict[str, Any]],
+) -> Optional[Dict[str, Any]]:
+    """Fold a journal's ``device_telemetry`` records into the section
+    ``summarize`` and ``report`` both render — ONE aggregation so the
+    two views of a journal cannot drift. Deterministic in record
+    content; None when the journal carries no device telemetry."""
+    recs = [
+        r for r in records
+        if isinstance(r, dict) and r.get("event") == E.DEVICE_TELEMETRY
+    ]
+    if not recs:
+        return None
+    totals = {
+        "sweeps": len(recs), "evaluations": 0, "crashes": 0,
+        "promotions": 0, "model_fits": 0, "rounds_completed": 0,
+    }
+    for r in recs:
+        for key in (
+            "evaluations", "crashes", "promotions", "model_fits",
+            "rounds_completed",
+        ):
+            v = r.get(key)
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                totals[key] += int(v)
+    totals["crash_rate"] = (
+        round(totals["crashes"] / totals["evaluations"], 6)
+        if totals["evaluations"] else None
+    )
+    totals["rungs"] = merge_rungs([r.get("rungs") for r in recs])
+    # each record's running-best tail is that sweep's final incumbent
+    bests = [
+        finite_or_none((r.get("incumbent_after") or [None])[-1]) for r in recs
+    ]
+    bests = [b for b in bests if b is not None]
+    totals["best_loss"] = round(min(bests), 6) if bests else None
+    return totals
+
+
+def format_device_section(section: Dict[str, Any]) -> List[str]:
+    """Text lines for one :func:`device_section_from_records` section —
+    shared by the summarize and report renderers."""
+    lines = [
+        "device telemetry: %d sweep(s), %d evals, %d crashed%s, "
+        "%d model fits, %d rounds"
+        % (
+            section["sweeps"], section["evaluations"], section["crashes"],
+            (
+                " (%.2f%%)" % (100.0 * section["crash_rate"])
+                if isinstance(section.get("crash_rate"), (int, float))
+                else ""
+            ),
+            section["model_fits"], section["rounds_completed"],
+        )
+    ]
+    for rung in section.get("rungs") or []:
+        p50 = rung.get("loss_p50")
+        p95 = rung.get("loss_p95")
+        lines.append(
+            "  rung budget=%g: %d evals, %d crashed, %d promoted, "
+            "loss p50<=%s p95<=%s"
+            % (
+                rung.get("budget"), rung.get("evals", 0),
+                rung.get("crashes", 0), rung.get("promotions", 0),
+                "%.4g" % p50 if isinstance(p50, (int, float)) else "?",
+                "%.4g" % p95 if isinstance(p95, (int, float)) else "?",
+            )
+        )
+    if section.get("best_loss") is not None:
+        lines.append("  best final loss (device): %.6g" % section["best_loss"])
+    return lines
+
+
+def budget_cost_from_obs(
+    budget: float,
+    registry: Optional[MetricsRegistry] = None,
+    min_count: int = COST_FEED_MIN_COUNT,
+) -> Optional[float]:
+    """The obs-histogram cost feed for one budget, or None when no feed
+    exists.
+
+    Priority: the master's budget-keyed evaluation-time histogram
+    (``master.job_run_s.b<budget>`` p50, trusted once it holds
+    ``min_count`` observations — the aggregate measurement, immune to
+    one straggling span), then the ``sweep.budget_cost_s.<budget>``
+    gauge the device-telemetry decoder publishes (fused/resident sweeps,
+    where per-job host timing is fiction). ``promote/pareto.py`` ranks
+    its cost objective from this feed and falls back to per-job wall
+    spans only when it returns None.
+    """
+    b = finite_or_none(budget)
+    if b is None:
+        return None
+    reg = registry if registry is not None else get_metrics()
+    snap = reg.snapshot()
+    hist = (snap.get("histograms") or {}).get(f"master.job_run_s.b{b:g}")
+    if isinstance(hist, dict):
+        count = hist.get("count")
+        p50 = finite_or_none(hist.get("p50"))
+        if (
+            isinstance(count, (int, float)) and count >= max(int(min_count), 1)
+            and p50 is not None
+        ):
+            return p50
+    gauge = finite_or_none(
+        (snap.get("gauges") or {}).get(f"sweep.budget_cost_s.{b:g}")
+    )
+    return gauge

@@ -4,8 +4,11 @@ Ported from ``hpbandster_tpu/ops/bracket.py``: ``max_sh_iterations``,
 ``budget_ladder``, ``BracketPlan``, ``hyperband_bracket``,
 ``hyperband_schedule``, the promotion rule on the tensor's device
 (``sh_promotion_mask``, ``sh_promotion_mask_compiled``), its host twin
-``sh_promotion_mask_np``, the resampling variant ``sh_resample_mask`` and
-``power_law_extrapolate`` (the H2BO promotion score, in tensor ops). The
+``sh_promotion_mask_np``, the resampling variant ``sh_resample_mask``, the
+Pareto promotion rule on the tensor's device (``pareto_rank``,
+``pareto_promotion_mask``) with its host twins (``pareto_rank_np``,
+``pareto_promotion_mask_np``) and ``power_law_extrapolate`` (the H2BO
+promotion score, in tensor ops). The
 schedule is plain Python, so the port keeps it identical; the fused
 bracket's own promotion lives in ``ops/fused.py``.
 
@@ -31,6 +34,10 @@ __all__ = [
     "sh_promotion_mask_compiled",
     "sh_promotion_mask_np",
     "sh_resample_mask",
+    "pareto_rank",
+    "pareto_promotion_mask",
+    "pareto_rank_np",
+    "pareto_promotion_mask_np",
     "power_law_extrapolate",
 ]
 
@@ -145,6 +152,72 @@ def sh_promotion_mask_np(losses: np.ndarray, k) -> np.ndarray:
     clean = np.where(np.isnan(losses), np.float32(np.inf), losses)
     ranks = np.argsort(np.argsort(clean, kind="stable"), kind="stable")
     return ranks < k
+
+
+def pareto_rank(objectives: torch.Tensor) -> torch.Tensor:
+    """Domination-count Pareto ranking on the tensor's device:
+    ``objectives f32[n, m]`` (all minimized) -> ``i32[n]``, rank 0 the
+    Pareto front. ``rank[j]`` counts the rows that dominate row ``j`` (all
+    objectives <= and at least one <). A NaN loss (column 0: a crashed
+    config) infs its whole row, so a config that crashed cheaply cannot
+    ride its low cost onto the front; a NaN in a later column alone (an
+    unmeasured cost) infs only that entry. O(n^2 m) pairwise compares:
+    rungs are bracket-sized."""
+    obj = torch.as_tensor(objectives).to(torch.float32)
+    crashed = torch.isnan(obj[:, 0])
+    clean = torch.where(torch.isnan(obj) | crashed[:, None],
+                        torch.full_like(obj, math.inf), obj)
+    # dominates[i, j]: row i dominates row j
+    le = (clean[:, None, :] <= clean[None, :, :]).all(dim=-1)
+    lt = (clean[:, None, :] < clean[None, :, :]).any(dim=-1)
+    return (le & lt).sum(dim=0).to(torch.int32)
+
+
+def pareto_promotion_mask(objectives: torch.Tensor, k) -> torch.Tensor:
+    """Pareto-front top-``k`` promotion on the tensor's device.
+
+    ``objectives f32[n, m]``: column 0 the rung loss (NaN = crashed), the
+    others measured costs (NaN = unmeasured, ranked as +inf). Selection
+    order is (domination count, loss rank, row index): fronts peel first,
+    ties inside a front resolve by the loss column's stable double argsort,
+    so with one objective the rule is :func:`sh_promotion_mask`. Crashed
+    rows never promote, whatever ``k``."""
+    obj = torch.as_tensor(objectives).to(torch.float32)
+    loss = obj[:, 0]
+    ranks = pareto_rank(obj)
+    clean_loss = torch.where(torch.isnan(loss), torch.full_like(loss, math.inf), loss)
+    loss_order = torch.argsort(torch.argsort(clean_loss, stable=True), stable=True)
+    # lexicographic (pareto rank, loss rank) by two stable sorts, the
+    # secondary key first: no composite integer key to overflow
+    by_loss = torch.argsort(loss_order, stable=True)
+    final_perm = by_loss[torch.argsort(ranks[by_loss], stable=True)]
+    positions = torch.argsort(final_perm, stable=True)
+    return (positions < k) & ~torch.isnan(loss)
+
+
+def pareto_rank_np(objectives: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of :func:`pareto_rank`: the same float32
+    comparisons, the same counts."""
+    obj = np.asarray(objectives, dtype=np.float32)
+    crashed = np.isnan(obj[:, 0])
+    clean = np.where(np.isnan(obj) | crashed[:, None], np.float32(np.inf), obj)
+    le = (clean[:, None, :] <= clean[None, :, :]).all(axis=-1)
+    lt = (clean[:, None, :] < clean[None, :, :]).any(axis=-1)
+    return (le & lt).sum(axis=0).astype(np.int32)
+
+
+def pareto_promotion_mask_np(objectives: np.ndarray, k) -> np.ndarray:
+    """Host twin of :func:`pareto_promotion_mask` (stable argsorts, float32
+    comparisons): the same masks bit for bit."""
+    obj = np.asarray(objectives, dtype=np.float32)
+    loss = obj[:, 0]
+    ranks = pareto_rank_np(obj)
+    clean_loss = np.where(np.isnan(loss), np.float32(np.inf), loss)
+    loss_order = np.argsort(np.argsort(clean_loss, kind="stable"), kind="stable")
+    by_loss = np.argsort(loss_order, kind="stable")
+    final_perm = by_loss[np.argsort(ranks[by_loss], kind="stable")]
+    positions = np.argsort(final_perm, kind="stable")
+    return (positions < k) & ~np.isnan(loss)
 
 
 def power_law_extrapolate(

@@ -4,15 +4,18 @@ Ported from ``hpbandster_tpu/optimizers/bohb.py``: the reference's knob
 surface (eta, budgets, min_points_in_model, top_n_percent, num_samples,
 random_fraction, bandwidth_factor, min_bandwidth, in_trace_refit), with the
 proposals on ``device`` (``None`` means ``cuda``; see
-``models/bohb_kde.py``). ``promotion_rule=`` (the reference's ``promote``
-package) is not ported yet (ROADMAP A5b); an explicit ``iteration_class``
-still selects the promotion rule.
+``models/bohb_kde.py``). ``promotion_rule=`` names a rule of
+``hpbandster_tpu_torch.promote`` (``asha``, ``pareto``, ``lc_earlystop``,
+``successive_halving`` / ``sync``, ``successive_halving_jax``) and selects
+its iteration class; without it an explicit ``iteration_class`` does. Each
+new bracket emits ``bracket_created`` to the event bus.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.master import Master
 from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
 from hpbandster_tpu_torch.models.bohb_kde import BOHBKDE
@@ -44,11 +47,13 @@ class BOHB(Master):
     ):
         if configspace is None:
             raise ValueError("you have to provide a valid ConfigurationSpace object")
-        # before Master.__init__, which starts the executor
+        # a rule name resolves to its iteration class before
+        # Master.__init__ starts the executor: an unknown name must not
+        # leave a started executor behind
         if promotion_rule is not None:
-            raise NotImplementedError(
-                f"promotion_rule={promotion_rule!r} is not ported yet (ROADMAP "
-                "A5b: promotion rules); pass iteration_class= instead")
+            from hpbandster_tpu_torch.promote import resolve_rule
+
+            iteration_class = resolve_rule(promotion_rule)
         cg = BOHBKDE(
             configspace=configspace,
             min_points_in_model=min_points_in_model,
@@ -63,7 +68,7 @@ class BOHB(Master):
         )
         super().__init__(config_generator=cg, **kwargs)
         self.device = cg.device
-        self.promotion_rule = None
+        self.promotion_rule = promotion_rule
         self.iteration_class = iteration_class
 
         self.configspace = configspace
@@ -86,7 +91,10 @@ class BOHB(Master):
                 "random_fraction": random_fraction,
                 "bandwidth_factor": bandwidth_factor,
                 "min_bandwidth": min_bandwidth,
-                "promotion_rule": getattr(iteration_class, "promotion_rule", None),
+                "promotion_rule": (
+                    promotion_rule
+                    or getattr(iteration_class, "promotion_rule", None)
+                ),
             }
         )
 
@@ -101,9 +109,20 @@ class BOHB(Master):
         self, iteration: int, iteration_kwargs: Dict[str, Any]
     ) -> SuccessiveHalving:
         plan = self.iteration_plan(iteration)
-        # an iteration class that ranks on a device ranks on the optimizer's
-        extra = ({"device": self.device}
-                 if getattr(self.iteration_class, "wants_device", False) else {})
+        obs.emit_bracket_created(
+            iteration, plan.num_configs, plan.budgets,
+            eta=self.eta, random_fraction=self.config.get("random_fraction"),
+        )
+        # what an iteration class asks for by class attribute: ASHA the
+        # ladder's eta, learning-curve early stopping a sweep-wide
+        # incumbent reader for its cut, a device rule the optimizer's device
+        extra: Dict[str, Any] = {}
+        if getattr(self.iteration_class, "wants_eta", False):
+            extra["eta"] = self.eta
+        if getattr(self.iteration_class, "wants_cut_fn", False):
+            extra["cut_fn"] = self.best_loss_at
+        if getattr(self.iteration_class, "wants_device", False):
+            extra["device"] = self.device
         return self.iteration_class(
             HPB_iter=iteration,
             num_configs=list(plan.num_configs),

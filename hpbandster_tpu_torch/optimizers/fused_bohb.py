@@ -12,9 +12,16 @@ CUDA graphs on a card); after each chunk the host replays its brackets
 into the standard ``SuccessiveHalving`` / ``Datum`` / ``Result``
 bookkeeping, so analysis code sees the structures the reference produces.
 
-Not ported yet: meshes and multiprocess runs, streamed warm uploads, the
-pipelined replay of chunks, and the observability events (the decoded
-device telemetry is kept, not published).
+Each chunk journals one ``sweep_chunk`` record, each replayed bracket its
+``bracket_created``, ``config_sampled``, job and promotion records, a
+checkpoint ``checkpoint_written``, and ``run_incumbent`` its
+``sweep_incumbent`` payload (``hpbandster_tpu_torch.obs``); the decoded
+device telemetry is published as gauges and journaled as one
+``device_telemetry`` record per call. Every emit runs on the host between
+device calls, never inside a captured graph.
+
+Not ported yet: meshes and multiprocess runs, streamed warm uploads and the
+pipelined replay of chunks.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.convert import dynamic_obs_from_numpy, warm_obs_from_numpy
 from hpbandster_tpu_torch.core.checkpoint import (
     load_fused_checkpoint,
@@ -39,7 +47,10 @@ from hpbandster_tpu_torch.device import resolve_device
 from hpbandster_tpu_torch.obs.device_metrics import (
     decode_device_metrics,
     device_metrics_default,
+    emit_device_telemetry,
+    publish_device_metrics,
 )
+from hpbandster_tpu_torch.obs.trace import current_trace, new_trace, use_trace
 from hpbandster_tpu_torch.ops.bracket import (
     BracketPlan,
     budget_ladder,
@@ -62,6 +73,28 @@ from hpbandster_tpu_torch.ops.sweep import (
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
 __all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]
+
+
+def _publish_telemetry(decoded: Dict[str, Any], trace) -> None:
+    """One decoded device-telemetry record to the bus: the gauges, the
+    ``device_telemetry`` journal record under the sweep's trace, and one
+    ``kde_refit`` event for the fits that happened on the device, which the
+    host model's own refit events never see."""
+    publish_device_metrics(decoded)
+    with use_trace(trace):
+        emit_device_telemetry(decoded)
+        fits = decoded.get("model_fits")
+        if isinstance(fits, (int, float)) and fits > 0 and obs.get_bus().active:
+            obs.emit(obs.KDE_REFIT, source="device", fits=int(fits))
+
+
+def _nbytes(out) -> int:
+    """Bytes of a fetched output: numpy arrays in a (nested) tuple."""
+    if isinstance(out, np.ndarray):
+        return int(out.nbytes)
+    if isinstance(out, (tuple, list)):
+        return sum(_nbytes(x) for x in out)
+    return 0
 
 
 def _fetch(out):
@@ -363,6 +396,9 @@ class FusedBOHB:
         #: each chunk's fetched metrics and plans, decoded together at the end
         dm_parts: List[Any] = []
         dm_execute_s = 0.0
+        # one trace for this call's whole sweep: every chunk record and the
+        # telemetry record share it (an active trace, a serving layer's, wins)
+        sweep_trace = current_trace() or new_trace(self.run_id)
         while plans:
             chunk_plans, plans = plans[:chunk], plans[chunk:]
             seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
@@ -422,6 +458,22 @@ class FusedBOHB:
                             graph_replay_ms=graph.replay_ms())
             dm_execute_s += execute_s
             self.run_stats.append(stat)
+            with use_trace(sweep_trace):
+                obs.emit(
+                    "sweep_chunk",
+                    duration_s=stat["execute_fetch_s"],
+                    # a graph's capture and instantiation; an eager sweep
+                    # compiles nothing
+                    compile_s=(graph.capture_s + graph.instantiate_s
+                               if graph is not None else 0.0),
+                    compile_cache_hit=False,
+                    evaluations=stat["evaluations"],
+                    brackets=stat["brackets"],
+                    seq=stat["chunk_index"],
+                    h2d_bytes=int(upload_bytes),
+                    d2h_bytes=_nbytes(outputs) + (
+                        _nbytes(dm_parts[-1][0]) if use_dm else 0),
+                )
             job_info = {
                 "fused_chunk": stat["chunk_index"],
                 "chunk_execute_s": execute_s,
@@ -443,6 +495,7 @@ class FusedBOHB:
             self.last_device_telemetry = decode_device_metrics(
                 dm_parts, execute_s=dm_execute_s
             )
+            _publish_telemetry(self.last_device_telemetry, sweep_trace)
         return Result(list(self.iterations) + self.warmstart_iteration, self.config)
 
     def run_incumbent(
@@ -506,10 +559,34 @@ class FusedBOHB:
                 "transfers_d2h": len(fetched),
             },
         }
+        transfers = out["transfers"]
+        inc_trace = current_trace() or new_trace(self.run_id)
+        with use_trace(inc_trace):
+            # the resident sweep is one chunk
+            obs.emit(
+                "sweep_chunk",
+                duration_s=execute_s,
+                compile_s=0.0,
+                compile_cache_hit=False,
+                evaluations=out["evaluations"],
+                brackets=list(range(len(plans))),
+                seq=0,
+            )
+            obs.emit_sweep_incumbent(
+                vector=out["incumbent"]["vector"],
+                loss=out["incumbent"]["loss"],
+                bracket=out["incumbent"]["bracket"],
+                per_bracket_loss=out["incumbent"]["per_bracket_loss"],
+                evaluations=out["evaluations"],
+                d2h_bytes=transfers["transfer_bytes_d2h"],
+                h2d_bytes=transfers["transfer_bytes_h2d"],
+                host_syncs=transfers["transfers_h2d"] + transfers["transfers_d2h"],
+            )
         if dm is not None:
             self.last_device_telemetry = decode_device_metrics(
                 dm, plans=plans, execute_s=execute_s
             )
+            _publish_telemetry(self.last_device_telemetry, inc_trace)
             out["device_telemetry"] = self.last_device_telemetry
         return out
 
@@ -559,7 +636,10 @@ class FusedBOHB:
         """Write the fused-tier checkpoint (``core/checkpoint.py``): warm
         observations, bracket rotation, RNG state and replayed bookkeeping
         at the last chunk boundary."""
+        t0 = time.monotonic()
         save_fused_checkpoint(self, path)
+        obs.emit(obs.CHECKPOINT_WRITTEN, path=path,
+                 duration_s=round(time.monotonic() - t0, 6))
 
     def load_checkpoint(self, path: str) -> None:
         """Restore into a freshly constructed optimizer (same constructor
@@ -597,6 +677,12 @@ class FusedBOHB:
         def no_sampler(budget):  # replay adds every config explicitly
             raise RuntimeError("fused replay must not sample fresh configs")
 
+        # the replayed bracket announces its plan, as the Master's do; its
+        # config_sampled and promotion records come from the bookkeeping
+        obs.emit_bracket_created(
+            b_i, plan.num_configs, plan.budgets,
+            eta=self.eta, random_fraction=self.random_fraction,
+        )
         it = _ReplayIteration(
             HPB_iter=b_i,
             num_configs=list(plan.num_configs),
@@ -645,6 +731,13 @@ class FusedBOHB:
                 job.result = None
                 job.exception = f"non-finite loss {loss!r} at budget {budget}"
             job.time_it("finished")
+            # the loss-carrying result record; no run_s, since the
+            # evaluation ran inside a device chunk (sweep_chunk times it)
+            obs.emit(
+                obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
+                config_id=list(config_id), budget=budget,
+                loss=float(loss) if np.isfinite(loss) else None,
+            )
             if self.result_logger is not None:
                 self.result_logger(job)
             it.register_result(job)

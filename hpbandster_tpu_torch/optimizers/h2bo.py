@@ -13,6 +13,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.iteration import BaseIteration
 from hpbandster_tpu_torch.core.job import ConfigId
 from hpbandster_tpu_torch.models.learning_curves import PowerLawModel
@@ -30,8 +31,6 @@ class LCExtrapolationIteration(BaseIteration):
     def __init__(self, *args, lc_model=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.lc_model = lc_model or PowerLawModel()
-        #: the scores the last promotion ranked by (None where crashed)
-        self.last_promotion_scores = None
 
     def _advance_to_next_stage(
         self, config_ids: List[ConfigId], losses: np.ndarray
@@ -54,6 +53,7 @@ class LCExtrapolationIteration(BaseIteration):
         scores = np.where(np.isnan(extrapolated), losses, extrapolated)
         # crashed configs (NaN raw loss) stay NaN: never promoted
         scores = np.where(np.isnan(losses), np.nan, scores)
+        # the audit record shows what the decision ranked by
         self.last_promotion_scores = [
             None if np.isnan(s) else float(s) for s in scores
         ]
@@ -70,6 +70,10 @@ class H2BO(BOHB):
         self, iteration: int, iteration_kwargs: Dict[str, Any]
     ) -> LCExtrapolationIteration:
         plan = self.iteration_plan(iteration)
+        obs.emit_bracket_created(
+            iteration, plan.num_configs, plan.budgets,
+            eta=self.eta, random_fraction=self.config.get("random_fraction"),
+        )
         return LCExtrapolationIteration(
             HPB_iter=iteration,
             num_configs=list(plan.num_configs),

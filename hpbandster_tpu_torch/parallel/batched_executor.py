@@ -31,6 +31,10 @@ failure, the port does so on the CPU only: on a card a failed bucketed
 dispatch, or a failed schedule preparation, raises, so a run meant for the
 graphs never quietly runs without them. XLA's persistent compile cache has
 no counterpart here.
+
+Each fused dispatch, fused fetch and stage batch is a span on the event bus
+(``fused_dispatch``, ``fused_fetch``, ``stage_batch``): host regions around
+the device calls, never inside a captured graph.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.ops.bracket import BracketPlan
 from hpbandster_tpu_torch.ops.buckets import (
@@ -186,7 +191,7 @@ class BatchedExecutor:
                            budgets=tuple(info["budgets"]))
         return runner, plan, entry
 
-    def _dispatch_bucketed(self, info, vectors):
+    def _dispatch_bucketed(self, iteration, info, vectors):
         """Launch a bracket on its bucket program; returns its fetch, or
         None where no bucket covers it or (on the CPU only) the bucketed
         dispatch failed and the per-shape program takes over."""
@@ -195,7 +200,9 @@ class BatchedExecutor:
             return None
         runner, plan, entry = bucketed
         try:
-            packed = runner.dispatch(vectors, member_counts_for(runner.bucket, plan, entry))
+            with obs.span("fused_dispatch", iteration=iteration, n=len(vectors),
+                          bucketed=True):
+                packed = runner.dispatch(vectors, member_counts_for(runner.bucket, plan, entry))
         except Exception:
             if self._strict():
                 raise
@@ -234,14 +241,16 @@ class BatchedExecutor:
             vectors = self._vectors(jobs_sorted)
             for j in jobs_sorted:
                 j.time_it("started")
-            fetch = self._dispatch_bucketed(info, vectors)
+            fetch = self._dispatch_bucketed(iteration, info, vectors)
             if fetch is None:
                 runner = make_fused_bracket_fn(
                     self.backend.eval_fn, info["num_configs"], info["budgets"],
                     device=self.device,
                 )
                 try:
-                    packed = runner.dispatch(vectors)
+                    with obs.span("fused_dispatch", iteration=iteration,
+                                  n=len(jobs_sorted)):
+                        packed = runner.dispatch(vectors)
                 except Exception as e:  # contain: only this wave crashes
                     self._crash_wave(jobs_sorted, e, "fused dispatch")
                     crashed = True
@@ -254,7 +263,8 @@ class BatchedExecutor:
 
         for iteration, info, jobs_sorted, fetch in dispatched:
             try:
-                stages = fetch()
+                with obs.span("fused_fetch", iteration=iteration):
+                    stages = fetch()
             except Exception as e:
                 self._crash_wave(jobs_sorted, e, "fused fetch")
                 continue
@@ -312,7 +322,8 @@ class BatchedExecutor:
             for j in group:
                 j.time_it("started")
             try:
-                losses = self.backend.evaluate(vectors, budget)
+                with obs.span("stage_batch", n=len(group), budget=budget):
+                    losses = self.backend.evaluate(vectors, budget)
             except Exception as e:  # a backend failure crashes the wave
                 self.logger.exception("batched evaluation failed at budget %g", budget)
                 losses = np.full(len(group), np.nan)

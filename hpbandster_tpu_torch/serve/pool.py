@@ -31,8 +31,16 @@ bracket failed raises from its flush, and a failed schedule preparation
 raises, so serving never quietly loses its device programs (a failed
 stage batch crashes its wave on both, as in ``BatchedExecutor``). A
 background build that fails keeps its error, and the next dispatch of that
-program raises it. The reference's per-tenant metrics and events wait for
-the port's ``obs`` layer; its persistent compile cache has no counterpart.
+program raises it. The reference's persistent compile cache has no
+counterpart.
+
+Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
+``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
+``continuous_fetch``, ``stage_batch``), each admitted item a
+``serve_admission`` event, and the pool keeps the reference's metrics of
+rounds, queue depth, per-tenant queue waits and finished configs (its
+lane-occupancy gauges wait for the lane events, ROADMAP A8). Each tenant's
+master emits its own job and promotion records under its ``tenant_id``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.ops.bracket import BracketPlan
 from hpbandster_tpu_torch.ops.buckets import (
@@ -145,6 +154,7 @@ class _TenantExecutor:
             job.exception = job.exception or (
                 f"non-finite loss {loss!r} at budget {job.kwargs['budget']}")
         self.total_evaluated += 1
+        obs.get_metrics().counter(f"serve.tenant.{self.tenant_id}.configs_done").inc()
         # burst delivery, deferred refit: BatchedExecutor._finish's contract
         self._new_result_callback(job, update_model=False)
 
@@ -420,6 +430,8 @@ class ServePool:
             for it in items:
                 it.enqueue_mono = now
             q.extend(items)
+            obs.get_metrics().gauge("serve.queue_items").set(
+                sum(len(qq) for qq in self._queues.values()))
             self._cond.notify_all()
 
         first_wait = True
@@ -455,6 +467,18 @@ class ServePool:
             for tenant, item in selected:
                 self._queues[tenant].remove(item)
             self._rounds += 1
+            m = obs.get_metrics()
+            m.counter("serve.rounds").inc()
+            m.gauge("serve.queue_items").set(
+                sum(len(qq) for qq in self._queues.values()))
+        wait_now = time.monotonic()
+        bus_active = obs.get_bus().active
+        for tenant, item in selected:
+            wait_s = max(wait_now - item.enqueue_mono, 0.0)
+            m.histogram("serve.queue_wait_s").observe(wait_s)
+            m.histogram(f"serve.tenant.{tenant}.queue_wait_s").observe(wait_s)
+            if bus_active:
+                obs.emit("serve_admission", wait_s=round(wait_s, 6), tenant=tenant)
         try:
             self._run_items([item for _, item in selected])
         finally:
@@ -496,7 +520,8 @@ class ServePool:
                         pending.append(self._dispatch_solo(chunk[0], bucket))
             for fetch, chunk_items in pending:
                 try:
-                    fetch()
+                    with obs.span("serve_fetch", n_brackets=len(chunk_items)):
+                        fetch()
                 except Exception as e:
                     self.logger.exception("serve fetch failed")
                     for it in chunk_items:
@@ -526,8 +551,11 @@ class ServePool:
                 entries = [PackEntry(it.tenant, it.vectors, it.plan, it.entry)
                            for it in chunk]
                 try:
-                    fetch = runner.dispatch_chunk(
-                        entries, d, waiting=len(group) - (i + len(chunk)))
+                    with obs.span("continuous_chunk", n_brackets=len(chunk),
+                                  family=runner.family,
+                                  tenants=len({it.tenant for it in chunk})):
+                        fetch = runner.dispatch_chunk(
+                            entries, d, waiting=len(group) - (i + len(chunk)))
                 except Exception as e:
                     self.logger.exception("continuous chunk failed")
                     for it in chunk:
@@ -538,7 +566,8 @@ class ServePool:
                 pending.append((fetch, chunk))
         for fetch, chunk in pending:
             try:
-                results = fetch()
+                with obs.span("continuous_fetch", n_brackets=len(chunk)):
+                    results = fetch()
             except Exception as e:
                 self.logger.exception("continuous fetch failed")
                 for it in chunk:
@@ -554,7 +583,9 @@ class ServePool:
             runner = make_mega_runner(self.backend.eval_fn, bucket,
                                       pack_width=self.pack_width, device=self.device)
             self._note_program(runner)
-            packed = runner.dispatch(entries, d)
+            with obs.span("megabatch_dispatch", n_brackets=len(chunk),
+                          tenants=len({it.tenant for it in chunk})):
+                packed = runner.dispatch(entries, d)
         except Exception as e:
             self.logger.exception("megabatch dispatch failed")
             for it in chunk:
@@ -578,7 +609,8 @@ class ServePool:
             runner = make_bucketed_bracket_fn(self.backend.eval_fn, bucket,
                                               device=self.device)
             self._note_program(runner)
-            packed = runner.dispatch(item.vectors, counts)
+            with obs.span("fused_dispatch", n=len(item.jobs), bucketed=True):
+                packed = runner.dispatch(item.vectors, counts)
         except Exception as e:
             self.logger.exception("solo bucket dispatch failed")
             item.error = f"solo bucket dispatch failed: {e!r}"
@@ -603,7 +635,9 @@ class ServePool:
         budget = float(group[0].budget)
         vectors = np.concatenate([it.vectors for it in group])
         try:
-            losses = np.asarray(self.backend.evaluate(vectors, budget))
+            with obs.span("stage_batch", n=len(vectors), budget=budget,
+                          tenants=len({it.tenant for it in group})):
+                losses = np.asarray(self.backend.evaluate(vectors, budget))
         except Exception as e:
             self.logger.exception("serve stage batch failed at budget %g", budget)
             for it in group:

@@ -370,7 +370,19 @@ PORT_MODULES = [
     "hpbandster_tpu_torch",
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
+    "hpbandster_tpu_torch.obs",
+    "hpbandster_tpu_torch.obs.audit",
     "hpbandster_tpu_torch.obs.device_metrics",
+    "hpbandster_tpu_torch.obs.events",
+    "hpbandster_tpu_torch.obs.journal",
+    "hpbandster_tpu_torch.obs.metrics",
+    "hpbandster_tpu_torch.obs.report",
+    "hpbandster_tpu_torch.obs.trace",
+    "hpbandster_tpu_torch.promote",
+    "hpbandster_tpu_torch.promote.asha",
+    "hpbandster_tpu_torch.promote.earlystop",
+    "hpbandster_tpu_torch.promote.pareto",
+    "hpbandster_tpu_torch.promote.replay",
     "hpbandster_tpu_torch.core.checkpoint",
     "hpbandster_tpu_torch.core.master",
     "hpbandster_tpu_torch.core.result",
@@ -523,8 +535,7 @@ def test_unported_tiers_raise():
     assert opt.iterations == []
 
     # the Master-driven tier and the serving tier: the RPC host tier,
-    # meshes, promotion rules and the write-ahead journal wait for later
-    # slices
+    # meshes and the write-ahead journal wait for later slices
     from hpbandster_tpu_torch import BOHB, BatchedExecutor, HyperBand, VmapBackend
     from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
 
@@ -539,8 +550,11 @@ def test_unported_tiers_raise():
         BOHB(**common)  # executor=None would build the RPC Dispatcher
     with pytest.raises(NotImplementedError, match="A9"):
         BOHB(executor=executor(), wal_path="wal.jsonl", **common)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        BOHB(executor=executor(), promotion_rule="asha", **common)
+    # promotion rules are ported: a rule name selects its iteration class
+    from hpbandster_tpu_torch.promote.asha import ASHAIteration
+
+    assert BOHB(executor=executor(), promotion_rule="asha",
+                **common).iteration_class is ASHAIteration
     from hpbandster_tpu_torch.ops.buckets import build_bucket_set
     from hpbandster_tpu_torch.serve import ContinuousRunner, ServePool, make_lane_mesh
 
