@@ -4,9 +4,11 @@
     python3 chip_smoke.py            # needs one CUDA card
     python3 chip_smoke.py --profile  # also profiles device time: static,
                                      # chunked and resident Hartmann-6 and
-                                     # conditional sweeps, the moment
-                                     # kernel at its scale checks, and
-                                     # each training workload's sweep
+                                     # conditional sweeps, chunked_long
+                                     # against its sequential-replay twin,
+                                     # the moment kernel at its scale
+                                     # checks, and each training
+                                     # workload's sweep
 
 Phases, each fatal on failure:
 
@@ -54,7 +56,26 @@ Phases, each fatal on failure:
    recount from its ``Result``: evaluations and promotions per rung as
    planned, no crash, each histogram the binning of that rung's losses,
    each bracket's best final loss the minimum of its final rung, rung
-   stamps increasing in execution order; then the training workloads at
+   stamps increasing in execution order; then the sweep cache and the
+   chunk pipeline, each path with its counts reset and read the same way
+   and ``HPB_PALLAS_KDE_FIT=1`` (the sweep cache is emptied before every
+   path, so each captures its own graphs): ``chunked_long``
+   (``run(n_iterations=50, chunk_brackets=5)``: every chunk a captured
+   program, captures equal to the distinct chunk keys reckoned on the host
+   from the plans and the pow2 capacities, the other chunks cache hits
+   with a ``build_compile_s`` of 0.0, ``replay_overlap_s`` on every row
+   but the first, the sweep gates; each chunk's times printed),
+   ``sweep_cache`` (the resident sweep at 10 brackets by two fresh
+   optimizers of one seed, the second a hit equal to the first with equal
+   telemetry; a third seed on the hit equal to its run on a graph captured
+   afresh; ``run_incumbent`` twice, a hit with an equal payload) and
+   ``runtime_ledger`` (chunked_long's ``sweep.transfer_bytes.*`` and
+   ``sweep.host_syncs`` gauges equal to its warm uploads and the bytes its
+   plans fetch; one ``DeviceSampler`` census; a chunked run with
+   ``profile_dir`` from a cold cache, its graphs captured under the
+   profiler, and again on the cached graphs, each trace naming
+   ``kde_score``; the roofline's rows against the capture ledger and the
+   card's peaks); then the training workloads at
    the reference's full widths (``bench.py``'s settings), each sweep with
    its counts reset and read the same way: the CNN (``CNNConfig()``,
    budgets 3..81) static for 5 brackets, whose incumbent must reach
@@ -127,7 +148,12 @@ Phases, each fatal on failure:
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
-   incumbent); each resident run must equal, bit for bit, a same-seed
+   incumbent); ``chunked_long`` must equal, bit for bit, its run with a
+   checkpoint (replay in turn), its run with the sweep cache cleared
+   before each chunk and its run with eager chunks; two threads running
+   seeds 0 and 1 at once (resident, then chunks of 2) on the same cached
+   sweeps must hit the cache and equal each seed's run alone bit for bit;
+   each resident run must equal, bit for bit, a same-seed
    unrolled dynamic-tier run of the same length (every observation vector
    and loss in order, model flags, configurations, runs), and
    ``run_incumbent`` the best final-stage row of the same-seed resident
@@ -151,7 +177,9 @@ Phases, each fatal on failure:
    seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
    objective; then ``batched_bohb``'s wall with no sink and with a journal,
    in turns, and the records each journal holds (``obs overhead``, no
-   claim);
+   claim); then the cached paths' runs back to back on one sweep cache
+   that nothing empties (``cache_memory``: entries, allocated and reserved
+   bytes after each, the peaks, the bytes the full cache pins);
 6. hold each kernel against its plain version on every input the main
    paths gave it (a launch captured into a CUDA graph holds its latest
    replay's inputs), with the arguments the path passed (for the masked
@@ -244,6 +272,13 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "resident_long": {"kde_score": 50, "kde_moments": 50},
                       "conditional_resident": {"kde_score": 10, "kde_moments": 20},
                       "incumbent": {"kde_score": 10, "kde_moments": 10},
+                      # the sweep cache and the chunk pipeline: 50 chunked
+                      # brackets; four resident runs of 10 and two
+                      # run_incumbent(10); two chunked runs of 10 (one
+                      # profiled)
+                      "chunked_long": {"kde_score": 50, "kde_moments": 50},
+                      "sweep_cache": {"kde_score": 60, "kde_moments": 60},
+                      "runtime_ledger": {"kde_score": 20, "kde_moments": 20},
                       # the training workloads: static sweeps score every
                       # bracket after the first; the dynamic tiers (the CNN
                       # with the moment-kernel fit, the ensemble without it)
@@ -849,13 +884,41 @@ def _syncs_of(torch, fn, *args, **kwargs):
     return out, [w for w in caught if "synchroniz" in str(w.message)]
 
 
+class CountedSweep:
+    """A built sweep whose calls count their synchronizing CUDA calls, its
+    build's with the first call's. A class rather than a closure, so that
+    a cached one holds no reference cycle and frees its graph as soon as
+    the cache drops it."""
+
+    def __init__(self, torch, sweep, build_syncs, per_chunk, note):
+        self._torch, self._sweep, self._build_syncs = torch, sweep, build_syncs
+        self._per_chunk, self._note = per_chunk, note
+
+    @property
+    def graph(self):
+        """The dynamic tiers' CUDA graph."""
+        return self._sweep.graph
+
+    def prepare(self):
+        _, syncs = _syncs_of(self._torch, self._sweep.prepare)
+        self._build_syncs.extend(syncs)
+
+    def __call__(self, *a, **k):
+        out, syncs = _syncs_of(self._torch, self._sweep, *a, **k)
+        self._note(self._build_syncs + syncs)
+        self._per_chunk.append(len(self._build_syncs) + len(syncs))
+        self._build_syncs.clear()
+        return out
+
+
 @contextlib.contextmanager
 def sync_counter(torch):
     """Counts the synchronizing CUDA calls of each chunk's sweep: its build
-    (``make_fused_sweep_fn``, which the optimizer calls per chunk) and its
-    device work, one window per chunk. The fetch of a chunk's outputs
-    comes after the call and is not counted. Yields ``(per-chunk counts,
-    counts by the source line that made the call)``."""
+    (``make_fused_sweep_fn`` and the graph's capture, charged to the chunk
+    that built the sweep; a chunk served from the sweep cache builds
+    nothing) and its device work, one window per chunk. The fetch of a
+    chunk's outputs comes after the call and is not counted. Yields
+    ``(per-chunk counts, counts by the source line that made the call)``."""
     from hpbandster_tpu_torch.optimizers import fused_bohb
 
     per_chunk, by_site = [], {}
@@ -868,16 +931,7 @@ def sync_counter(torch):
 
     def counting_build(*args, **kwargs):
         sweep, build_syncs = _syncs_of(torch, build, *args, **kwargs)
-
-        def counted(*a, **k):
-            out, syncs = _syncs_of(torch, sweep, *a, **k)
-            note(build_syncs + syncs)
-            per_chunk.append(len(build_syncs) + len(syncs))
-            counted.graph = sweep.graph  # the resident tier's CUDA graph
-            return out
-
-        counted.graph = None
-        return counted
+        return CountedSweep(torch, sweep, build_syncs, per_chunk, note)
 
     fused_bohb.make_fused_sweep_fn = counting_build
     try:
@@ -886,13 +940,13 @@ def sync_counter(torch):
         fused_bohb.make_fused_sweep_fn = build
 
 
-def chunked_optimizer(dev, max_budget=81.0, num_samples=64):
+def chunked_optimizer(dev, max_budget=81.0, num_samples=64, seed=0):
     from hpbandster_tpu_torch import FusedBOHB
     from hpbandster_tpu_torch.workloads.toys import hartmann6, hartmann6_space
 
     return FusedBOHB(configspace=hartmann6_space(seed=0), eval_fn=hartmann6,
                      min_budget=1, max_budget=max_budget, eta=3,
-                     num_samples=num_samples, seed=0, device=dev)
+                     num_samples=num_samples, seed=seed, device=dev)
 
 
 def run_chunked(torch, dev, label, make_opt, fn, max_budget=81.0, n_iterations=10):
@@ -2164,6 +2218,386 @@ def drive_incumbent(torch, dev, n_iterations=10):
     return out
 
 
+# ------------------------------------------- sweep cache and chunk pipeline
+#: the chunked_long run: its optimizer, result, transfer gauges and chunk
+#: keys, for its twins (phase 5) and the runtime_ledger path
+CHUNKED_LONG = {}
+#: chunked_long's schedule: the BOHB paper's toy setting for 50 brackets
+LONG_BRACKETS, LONG_CHUNK = 50, 5
+
+
+def chunk_keys(opt, n_iterations, chunk):
+    """Each chunk's sweep-cache key as the host reckons it: its bracket
+    shapes and its pow2 capacities (the warm counts at its boundary plus
+    its own additions)."""
+    from hpbandster_tpu_torch.ops.sweep import plan_additions, pow2_capacities
+
+    plans = [opt._plan(i) for i in range(n_iterations)]
+    warm, keys = {}, []
+    for c in range(0, n_iterations, chunk):
+        adds = plan_additions(plans[c:c + chunk])
+        caps = dict(warm)
+        for b, k in adds.items():
+            caps[b] = caps.get(b, 0) + k
+        keys.append((tuple((p.num_configs, p.budgets) for p in plans[c:c + chunk]),
+                     tuple(sorted(pow2_capacities(caps).items()))))
+        for b, k in adds.items():
+            warm[b] = warm.get(b, 0) + k
+    return keys
+
+
+def fetched_bytes(opt, n_iterations, d=6):
+    """The bytes a chunked run fetches, reckoned from its plans: per
+    bracket the stage-0 vectors (f32), the model flags (bool), and the
+    packed indices (int64) and losses (f32) of every stage."""
+    total = 0
+    for i in range(n_iterations):
+        p = opt._plan(i)
+        n0, evals = p.num_configs[0], sum(p.num_configs)
+        total += n0 * d * 4 + n0 + evals * (8 + 4)
+    return total
+
+
+def run_long(torch, dev, opt, **kw):
+    """``opt.run(n_iterations=50, chunk_brackets=5, **kw)`` to a
+    synchronize: (result, wall seconds)."""
+    t0 = time.perf_counter()
+    res = opt.run(n_iterations=LONG_BRACKETS, chunk_brackets=LONG_CHUNK, **kw)
+    torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def drive_chunked_long(torch, dev):
+    """``run(n_iterations=50, chunk_brackets=5)`` on Hartmann-6 with the
+    moment-kernel fit: every chunk a captured program, as many captures as
+    distinct chunk keys, the later chunks of a known key cache hits that
+    cost no build, every chunk after the first with its predecessor's
+    replay inside it, and the sweep gates. Prints each chunk's times.
+    Returns the result."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.ops import graphs
+    from hpbandster_tpu_torch.workloads.toys import hartmann6
+
+    with moments_fit_flag():
+        before = graphs.CAPTURES["sweep_chunk"]
+        opt = chunked_optimizer(dev)
+        res, wall = run_long(torch, dev, opt)
+        gauges = obs.get_metrics().snapshot()["gauges"]
+        captured = graphs.CAPTURES["sweep_chunk"] - before
+    keys = chunk_keys(opt, LONG_BRACKETS, LONG_CHUNK)
+    hits = [k in keys[:i] for i, k in enumerate(keys)]
+    stats = opt.run_stats
+    for row in stats:
+        print("chunked_long chunk " + json.dumps({k: row.get(k) for k in (
+            "chunk_index", "execute_fetch_s", "build_compile_s", "replay_overlap_s",
+            "compile_cache_hit", "warm_upload_bytes", "graph_replay_ms")}), flush=True)
+    checks = dict(
+        captured_programs=all("graph_replay_ms" in s and len(s["graph_replay_ms"]) == 1
+                              for s in stats),
+        captures_equal_keys=captured == len(set(keys)),
+        hits_as_reckoned=[s["compile_cache_hit"] for s in stats] == hits,
+        hits_cost_nothing=all(s["build_compile_s"] == 0.0 for s, h in zip(stats, hits) if h),
+        overlap_on_rows_1_on=[("replay_overlap_s" in s) for s in stats]
+        == [False] + [True] * (len(stats) - 1),
+    )
+    if not all(checks.values()):
+        raise AssertionError(f"chunked_long: {checks}; captures {captured}, keys "
+                             f"{len(set(keys))}, hits {hits}")
+    rec = dict(brackets=LONG_BRACKETS, chunk_brackets=LONG_CHUNK, wall_s=wall,
+               execute_fetch_s=sum(s["execute_fetch_s"] for s in stats),
+               build_compile_s=sum(s["build_compile_s"] for s in stats),
+               replay_overlap_s=sum(s.get("replay_overlap_s", 0.0) for s in stats),
+               captures=captured, distinct_keys=len(set(keys)), cache_hits=sum(hits),
+               **checks,
+               **check_sweep(torch, dev, "chunked_long", opt, res, hartmann6, 81.0,
+                             LONG_BRACKETS))
+    CHUNKED_LONG.update(opt=opt, res=res, gauges=gauges)
+    print("chunked_long path " + json.dumps(rec), flush=True)
+    return res
+
+
+def check_chunked_long_twins(torch, dev):
+    """Phase 5: chunked_long equals, bit for bit, the same run with a
+    checkpoint (the replay in turn, no overlap), the same run with the
+    sweep cache cleared before each chunk (a capture per chunk), and the
+    same run with the chunks run eagerly (no graph)."""
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    opt0, res0 = CHUNKED_LONG["opt"], CHUNKED_LONG["res"]
+    walls = {"pipelined": sum(s["execute_fetch_s"] for s in opt0.run_stats)}
+    with moments_fit_flag():
+        seq = chunked_optimizer(dev)
+        res, _ = run_long(torch, dev, seq,
+                          checkpoint_path=os.path.join(JOURNAL_DIR, "chunked_long.pkl"))
+        compare_sweeps("chunked_long", LONG_BRACKETS, opt0, res0, seq, res,
+                       kind="chunked_long sequential-replay parity")
+        if any("replay_overlap_s" in s for s in seq.run_stats):
+            raise AssertionError("chunked_long: the checkpointed run overlapped a replay")
+        cleared = chunked_optimizer(dev)
+        built = cleared._sweep_built
+
+        def built_afresh(*a, **k):
+            fused_bohb._SWEEP_CACHE.clear()
+            return built(*a, **k)
+
+        cleared._sweep_built = built_afresh
+        res, _ = run_long(torch, dev, cleared)
+        compare_sweeps("chunked_long", LONG_BRACKETS, opt0, res0, cleared, res,
+                       kind="chunked_long cache-cleared parity")
+        if any(s["compile_cache_hit"] for s in cleared.run_stats):
+            raise AssertionError("chunked_long: a chunk hit a cache cleared before it")
+        eager = chunked_optimizer(dev)
+        eager._eager_sweeps = True
+        res, _ = run_long(torch, dev, eager)
+        compare_sweeps("chunked_long", LONG_BRACKETS, opt0, res0, eager, res,
+                       kind="chunked_long eager parity")
+        if any("graph_replay_ms" in s for s in eager.run_stats):
+            raise AssertionError("chunked_long: an eager chunk replayed a graph")
+    for label, opt in (("sequential", seq), ("cache_cleared", cleared), ("eager", eager)):
+        walls[label] = sum(s["execute_fetch_s"] for s in opt.run_stats)
+    print("chunked_long twins execute_fetch_s " + json.dumps(walls), flush=True)
+
+
+def drive_sweep_cache(torch, dev, n_iterations=10):
+    """The resident sweep run by two fresh optimizers of equal settings and
+    seed (a miss, then a hit with an equal result and telemetry), a third
+    with another seed on the hit graph (equal to that seed's run on a graph
+    captured afresh, the cache cleared), and ``run_incumbent`` twice (a
+    hit, an equal payload); all with the moment-kernel fit. Prints the
+    miss's capture seconds against the hit's wall. Returns the first
+    result."""
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    runs = []
+    with moments_fit_flag():
+        for seed in (0, 0, 1):
+            opt = chunked_optimizer(dev, seed=seed)
+            t0 = time.perf_counter()
+            res = opt.run(n_iterations=n_iterations, resident=True, device_metrics=True)
+            torch.cuda.synchronize(dev)
+            runs.append((opt, res, time.perf_counter() - t0))
+        fused_bohb._SWEEP_CACHE.clear()
+        fresh = chunked_optimizer(dev, seed=1)
+        fresh_res = fresh.run(n_iterations=n_iterations, resident=True, device_metrics=True)
+        incs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = chunked_optimizer(dev).run_incumbent(n_iterations=n_iterations)
+            incs.append((out, time.perf_counter() - t0))
+    (miss, res_miss, wall_miss), (hit, res_hit, wall_hit), (reseeded, res_reseeded, _) = runs
+    hits = [o.run_stats[-1]["compile_cache_hit"] for o, _, _ in runs]
+    if hits != [False, True, True] or fresh.run_stats[-1]["compile_cache_hit"]:
+        raise AssertionError(f"sweep_cache: cache hits {hits}, fresh "
+                             f"{fresh.run_stats[-1]['compile_cache_hit']}")
+    compare_sweeps("sweep_cache", n_iterations, miss, res_miss, hit, res_hit,
+                   kind="sweep_cache hit parity")
+    if _timing_free(miss.last_device_telemetry) != _timing_free(hit.last_device_telemetry):
+        raise AssertionError("sweep_cache: the hit's telemetry differs from the miss's")
+    compare_sweeps("sweep_cache", n_iterations, fresh, fresh_res, reseeded, res_reseeded,
+                   kind="sweep_cache reseeded-hit parity")
+    (inc_miss, inc_miss_wall), (inc_hit, inc_hit_wall) = incs
+    if (inc_miss["compile_cache_hit"], inc_hit["compile_cache_hit"]) != (False, True) \
+            or inc_hit["incumbent"] != inc_miss["incumbent"]:
+        raise AssertionError(f"sweep_cache: run_incumbent hit {inc_hit['compile_cache_hit']}, "
+                             f"{inc_hit['incumbent']} != {inc_miss['incumbent']}")
+    rec = dict(
+        miss_build_capture_s=miss.run_stats[-1]["build_compile_s"],
+        miss_graph_capture_s=miss.run_stats[-1].get("graph_capture_s"),
+        miss_graph_instantiate_s=miss.run_stats[-1].get("graph_instantiate_s"),
+        miss_wall_s=wall_miss, hit_wall_s=wall_hit,
+        miss_execute_fetch_s=miss.run_stats[-1]["execute_fetch_s"],
+        hit_execute_fetch_s=hit.run_stats[-1]["execute_fetch_s"],
+        reseeded_hit_equals_fresh_capture=True,
+        incumbent_miss_build_capture_s=inc_miss["build_compile_s"],
+        incumbent_miss_wall_s=inc_miss_wall, incumbent_hit_wall_s=inc_hit_wall,
+        incumbent_transfers=inc_hit["transfers"])
+    print("sweep_cache path " + json.dumps(rec), flush=True)
+    return res_miss
+
+
+def check_sweep_cache_threads(torch, dev, n_iterations=10):
+    """Phase 5: two threads share the cached sweeps at once. Seeds 0 and 1
+    each run resident, then chunked (two brackets a chunk), first alone
+    (which fills the cache), then both together from two threads on the
+    same cached graphs: every threaded run is a cache hit and equals its
+    seed's run alone bit for bit."""
+    def both(seed, barrier=None):
+        out = []
+        for kw in (dict(resident=True, device_metrics=True), dict(chunk_brackets=2)):
+            opt = chunked_optimizer(dev, seed=seed)
+            if barrier is not None:
+                barrier.wait()
+            out.append((opt, opt.run(n_iterations=n_iterations, **kw)))
+        torch.cuda.synchronize(dev)
+        return out
+
+    with moments_fit_flag():
+        alone = {seed: both(seed) for seed in (0, 1)}
+        barrier = threading.Barrier(2)
+        with ThreadPoolExecutor(2) as pool:
+            futures = {seed: pool.submit(both, seed, barrier) for seed in (0, 1)}
+            shared = {seed: f.result() for seed, f in futures.items()}
+    hits = {seed: [o.run_stats[i]["compile_cache_hit"] for o, _ in runs
+                   for i in range(len(o.run_stats))] for seed, runs in shared.items()}
+    if not all(all(h) for h in hits.values()):
+        raise AssertionError(f"sweep_cache threads: a threaded run missed the cache: {hits}")
+    for seed in (0, 1):
+        for (opt_a, res_a), (opt_s, res_s), tier in zip(alone[seed], shared[seed],
+                                                         ("resident", "chunked")):
+            compare_sweeps("sweep_cache", n_iterations, opt_a, res_a, opt_s, res_s,
+                           kind=f"sweep_cache two-thread {tier} parity (seed {seed})")
+
+
+def measure_cache_memory(torch, dev):
+    """The device memory the sweep cache holds when nothing empties it: the
+    cached paths' runs back to back on one cache, as one user process
+    would run them (the main paths empty the cache before each path, so
+    each captures its own graphs). More distinct sweeps than the cache's
+    16 entries, so the oldest are evicted along the way. Prints, after
+    each run, the cache's entries and the allocator's allocated and
+    reserved bytes; the peaks over all runs; and the reserved bytes the
+    full cache pins (reserved after ``empty_cache()`` with the cache full,
+    less the same once it is emptied)."""
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    def workload(name, n_iterations, **kw):
+        return lambda: workload_optimizer(name, dev)[0].run(n_iterations=n_iterations, **kw)
+
+    resident = dict(resident=True, device_metrics=True)
+    runs = [
+        ("chunked", lambda: chunked_optimizer(dev).run(n_iterations=10, chunk_brackets=2)),
+        ("resident", lambda: chunked_optimizer(dev).run(n_iterations=10, **resident)),
+        ("resident_tail", lambda: chunked_optimizer(dev).run(n_iterations=12, **resident)),
+        ("resident_long", lambda: chunked_optimizer(dev).run(n_iterations=50, **resident)),
+        ("conditional_resident", lambda: cond_optimizer(dev).run(n_iterations=10, **resident)),
+        ("incumbent", lambda: chunked_optimizer(dev).run_incumbent(
+            n_iterations=10, device_metrics=True)),
+        ("chunked_long", lambda: run_long(torch, dev, chunked_optimizer(dev))),
+        ("cnn_unrolled", workload("cnn", 4, device_metrics=True, dynamic_counts=True)),
+        ("cnn_resident", workload("cnn", 4, **resident)),
+        ("ensemble_unrolled", workload("ensemble", 10, dynamic_counts=True)),
+        ("ensemble_resident", workload("ensemble", 10, resident=True)),
+    ]
+    fused_bohb._SWEEP_CACHE.clear()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = [dict(after="start", cache_entries=0,
+                 allocated_bytes=torch.cuda.memory_allocated(dev),
+                 reserved_bytes=torch.cuda.memory_reserved(dev))]
+    with moments_fit_flag():
+        for label, run in runs:
+            run()
+            torch.cuda.synchronize(dev)
+            rows.append(dict(after=label, cache_entries=len(fused_bohb._SWEEP_CACHE),
+                             allocated_bytes=torch.cuda.memory_allocated(dev),
+                             reserved_bytes=torch.cuda.memory_reserved(dev)))
+    torch.cuda.empty_cache()
+    full = torch.cuda.memory_reserved(dev)
+    entries = len(fused_bohb._SWEEP_CACHE)
+    fused_bohb._SWEEP_CACHE.clear()
+    torch.cuda.empty_cache()
+    emptied = torch.cuda.memory_reserved(dev)
+    rec = dict(runs=rows, peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+               cache_entries_at_end=entries, reserved_with_full_cache_bytes=full,
+               reserved_with_empty_cache_bytes=emptied, cache_pins_bytes=full - emptied)
+    print("cache_memory " + json.dumps(rec), flush=True)
+
+
+def drive_runtime_ledger(torch, dev, n_iterations=10):
+    """The runtime ledger on the card: chunked_long's transfer gauges
+    against its ``run_stats`` and the bytes its plans fetch; one device
+    census; a chunked run with ``profile_dir`` from a cold cache (its
+    graphs captured under the profiler), then again on the cached graphs,
+    each trace naming ``kde_score``; the roofline's rows against the
+    capture ledger and the card's peaks. Returns the cached profiled run's
+    result."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+    from hpbandster_tpu_torch.obs.profile import device_peaks, format_roofline, roofline_report
+    from hpbandster_tpu_torch.obs.runtime import DeviceSampler
+    from hpbandster_tpu_torch.workloads.toys import hartmann6
+
+    opt_long, gauges = CHUNKED_LONG["opt"], CHUNKED_LONG["gauges"]
+    stats = opt_long.run_stats
+    want = {
+        "sweep.transfer_bytes.h2d": float(sum(s["warm_upload_bytes"] for s in stats)),
+        "sweep.transfer_bytes.d2h": float(fetched_bytes(opt_long, LONG_BRACKETS)),
+        "sweep.host_syncs": float(sum(s["warm_upload_bytes"] > 0 for s in stats) + len(stats)),
+    }
+    got = {k: gauges.get(k) for k in want}
+    if got != want or not all(v > 0 for v in got.values()):
+        raise AssertionError(f"runtime_ledger: chunked_long's gauges {got} != {want}")
+    census = DeviceSampler(registry=obs.MetricsRegistry()).sample()
+    card = census["devices"]["0"]
+    if not (card["bytes_in_use"] > 0 and card["bytes_limit"] == torch.cuda.mem_get_info(0)[1]):
+        raise AssertionError(f"runtime_ledger: census {census}")
+    # profiled twice: from a cold cache (each chunk's graph captured inside
+    # the profiler), then on the graphs that run cached (replays only)
+    traced = {}
+    keys = chunk_keys(chunked_optimizer(dev), n_iterations, 5)
+    with moments_fit_flag():
+        fused_bohb._SWEEP_CACHE.clear()
+        for label, want_hits in (("cold", [k in keys[:i] for i, k in enumerate(keys)]),
+                                 ("cached", [True] * len(keys))):
+            trace_dir = tempfile.mkdtemp(prefix=f"trace_{label}_", dir=JOURNAL_DIR)
+            opt = chunked_optimizer(dev)
+            res = opt.run(n_iterations=n_iterations, chunk_brackets=5, profile_dir=trace_dir)
+            names = set()
+            for f in sorted(os.listdir(trace_dir)):
+                with open(os.path.join(trace_dir, f)) as fh:
+                    names |= {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+            hits = [s["compile_cache_hit"] for s in opt.run_stats]
+            if not any("kde_score" in n for n in names) or hits != want_hits:
+                raise AssertionError(f"runtime_ledger: the {label} profiled run's trace names "
+                                     f"no kde_score kernel, or its cache hits are {hits}")
+            traced[label] = dict(files=len(os.listdir(trace_dir)), cache_hits=hits,
+                                 build_compile_s=[s["build_compile_s"] for s in opt.run_stats],
+                                 kde_events=sorted(n for n in names if "kde_" in n)[:4])
+    replay_s = [ms / 1e3 for s in stats for ms in s["graph_replay_ms"]]
+    report = roofline_report(seconds_by_program={"sweep_chunk": float(np.median(replay_s))})
+    ledger = {(p["fn"], p["signature"]) for p in obs.get_compile_tracker().programs()}
+    rows = {(p["fn"], p["signature"]) for p in report["programs"]}
+    peaks = report["peak"]
+    if rows != ledger or not any(fn == "sweep_chunk" for fn, _ in rows) \
+            or peaks["kind"] != torch.cuda.get_device_name(0) \
+            or peaks["bytes_per_s"] is None or peaks["flops_per_s"] is None:
+        raise AssertionError(f"runtime_ledger: roofline rows {len(rows)} vs ledger "
+                             f"{len(ledger)}, peaks {peaks}")
+    print(format_roofline(report), flush=True)
+    rec = dict(gauges=got, census=census, traces=traced,
+               roofline_programs=report["program_count"], peaks=peaks,
+               checks=check_runs_per_budget("runtime_ledger", res, 81.0, n_iterations),
+               device_peaks_default=device_peaks()["kind"])
+    print("runtime_ledger path " + json.dumps(rec), flush=True)
+    return res
+
+
+def profile_chunked_long(torch, dev):
+    """``--profile``: device-busy milliseconds and the idle share of
+    chunked_long against its sequential-replay twin (checkpointed), both
+    on cached graphs, profiled in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with moments_fit_flag():
+        for label in ("pipelined", "sequential", "sequential", "pipelined"):
+            kw = ({} if label == "pipelined" else
+                  dict(checkpoint_path=os.path.join(JOURNAL_DIR, "profile_long.pkl")))
+            opt = chunked_optimizer(dev)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = run_long(torch, dev, opt, **kw)
+            busy = sum(_device_us(e) for e in prof.key_averages()
+                       if e.device_type.name == "CUDA") / 1e3
+            out.setdefault(label, []).append(dict(
+                wall_s=wall, device_busy_ms=busy, idle_share=1.0 - busy / 1e3 / wall,
+                execute_fetch_s=sum(s["execute_fetch_s"] for s in opt.run_stats),
+                replay_overlap_s=sum(s.get("replay_overlap_s", 0.0) for s in opt.run_stats)))
+    print("chunked_long profile " + json.dumps(out), flush=True)
+    return out
+
+
 def check_resident_parity(torch, dev, label, make_opt):
     """Phase 5: the resident run of ``label`` against a same-seed unrolled
     dynamic-tier run of the same length, bit for bit: every observation
@@ -2177,9 +2611,10 @@ def check_resident_parity(torch, dev, label, make_opt):
     return opt_u
 
 
-def compare_sweeps(label, n, opt_r, res_r, opt_u, res_u):
-    """A resident run against a same-seed unrolled dynamic-tier run, bit
-    for bit (fatal otherwise)."""
+def compare_sweeps(label, n, opt_r, res_r, opt_u, res_u, kind="resident parity"):
+    """A resident run against a same-seed unrolled dynamic-tier run (or
+    any run against its twin, printed as ``kind``), bit for bit (fatal
+    otherwise)."""
     def runs(r):
         return sorted((x.config_id, x.budget, x.loss) for x in r.get_all_runs())
 
@@ -2195,9 +2630,8 @@ def compare_sweeps(label, n, opt_r, res_r, opt_u, res_u):
                   configs=res_r.get_id2config_mapping() == res_u.get_id2config_mapping(),
                   model_flags=flags(res_r) == flags(res_u))
     if not all(checks.values()):
-        raise AssertionError(f"{label}: resident run differs from the unrolled dynamic "
-                             f"run: {checks}")
-    print("resident parity " + json.dumps(dict(path=label, brackets=n, **checks)), flush=True)
+        raise AssertionError(f"{label}: {kind} fails, the runs differ: {checks}")
+    print(f"{kind} " + json.dumps(dict(path=label, brackets=n, **checks)), flush=True)
 
 
 def check_stateful_resident(torch, dev, n_iterations=10):
@@ -2319,7 +2753,8 @@ def measure_resident(torch, dev, n_iterations=50, reps=5):
     replay (from the resident run), one eager round of the unrolled dynamic
     sweep (host clock to a synchronize, the same five brackets and buffer
     capacities), and wall, device-busy time and idle share of the resident
-    run against the unrolled dynamic run (profiled), with their unprofiled
+    run against the unrolled dynamic run (one captured graph; profiled, its
+    graph cached by the unprofiled run before it), with their unprofiled
     walls and execute+fetch seconds."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2350,6 +2785,7 @@ def measure_resident(torch, dev, n_iterations=50, reps=5):
                        profiled_execute_fetch_s=opt.run_stats[-1]["execute_fetch_s"])
             out[label] = rec
         opt = chunked_optimizer(dev)
+        opt._eager_sweeps = True  # an eager round, not a replay
         plans = [opt._plan(i) for i in range(n_iterations)]
         sweep = opt._sweep_fn(plans[:5], dynamic_counts=True,
                               capacities=pow2_capacities(plan_additions(plans)))
@@ -2910,6 +3346,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from hpbandster_tpu_torch.ops import cuda_kde
+    from hpbandster_tpu_torch.optimizers import fused_bohb
     from hpbandster_tpu_torch.workloads.toys import hartmann6
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2951,6 +3388,10 @@ def main(argv=None) -> int:
             torch, dev, "conditional_resident", cond_optimizer, cond_objective, 10,
             conditional=True),
         "incumbent": drive_incumbent,
+        # the sweep cache, the pipelined chunk replay and the runtime ledger
+        "chunked_long": drive_chunked_long,
+        "sweep_cache": drive_sweep_cache,
+        "runtime_ledger": drive_runtime_ledger,
         # the training workloads at the reference's widths
         "cnn": drive_cnn,
         "cnn_unrolled": lambda torch, dev: drive_cnn_tier(
@@ -2992,6 +3433,9 @@ def main(argv=None) -> int:
     }
     launches, recorded, results, seconds = {}, [], {}, {}
     for path, drive in paths.items():
+        # each path builds and captures its own sweeps (and records their
+        # launches); cached graphs hold their memory pools until dropped
+        fused_bohb._SWEEP_CACHE.clear()
         for name in cuda_kde.LAUNCHES:
             cuda_kde.LAUNCHES[name] = 0
         cuda_kde.RECORD = []
@@ -3024,6 +3468,8 @@ def main(argv=None) -> int:
     check_resume(torch, dev, "hartmann6_chunked", results["chunked"], chunked_optimizer)
     check_resume(torch, dev, "conditional_chunked", results["conditional_chunked"],
                  cond_optimizer)
+    check_chunked_long_twins(torch, dev)
+    check_sweep_cache_threads(torch, dev)
     for label, make_opt in (("resident", chunked_optimizer),
                             ("resident_tail", chunked_optimizer),
                             ("resident_long", chunked_optimizer),
@@ -3043,6 +3489,7 @@ def main(argv=None) -> int:
     measure_resident(torch, dev)
     measure_conditional_host_work(torch, dev)
     measure_obs_overhead(torch, dev)
+    measure_cache_memory(torch, dev)
 
     # phase 6: kernels against plain versions on the main paths' own inputs
     held = check_recorded_launches(torch, recorded)
@@ -3050,6 +3497,7 @@ def main(argv=None) -> int:
     profiled = {}
     if args.profile:
         profile_sweeps(torch, dev)
+        profile_chunked_long(torch, dev)
         profile_moments_device_time(torch, dev)
         profiled = profile_workloads(torch, dev)
     smi = subprocess.run(

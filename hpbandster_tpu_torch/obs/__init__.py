@@ -21,7 +21,12 @@ JAX package):
 * :mod:`~hpbandster_tpu_torch.obs.device_metrics` — the device metrics
   plane's decoder, its gauges and journal record, and the per-budget cost
   feed of Pareto promotion;
-* :mod:`~hpbandster_tpu_torch.obs.report` — ``promotion_hindsight``.
+* :mod:`~hpbandster_tpu_torch.obs.report` — ``promotion_hindsight``;
+* :mod:`~hpbandster_tpu_torch.obs.runtime` — the capture ledger (one
+  record per CUDA-graph capture), the host-link transfer counters and the
+  per-card memory sampler;
+* :mod:`~hpbandster_tpu_torch.obs.profile` — on-demand ``torch.profiler``
+  captures and the roofline over the capture ledger.
 
 Everything here is stdlib-only and costs ~nothing when no sink is
 attached, so the instrumentation stays on; attach a sink to look::
@@ -35,9 +40,9 @@ attached, so the instrumentation stays on; attach a sink to look::
         handle.close()
 
 Not ported yet (ROADMAP A8): the anomaly detector, SLOs and alerts, the
-fleet collector, the health endpoint, the runtime ledger, the exporter,
-the flight recorder (``timeline``), ``summarize`` and the CLI. The
-:func:`configure` arguments that attach them raise ``NotImplementedError``.
+fleet collector, the health endpoint, the exporter, the flight recorder
+(``timeline``), ``summarize`` and the CLI. The :func:`configure` arguments
+that attach them (``anomaly=``, ``slo=``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -116,6 +121,23 @@ from hpbandster_tpu_torch.obs.metrics import (  # noqa: F401
     MetricsRegistry,
     get_metrics,
 )
+from hpbandster_tpu_torch.obs.profile import (  # noqa: F401
+    ProfileSession,
+    device_peaks,
+    format_roofline,
+    get_profile_session,
+    roofline_report,
+)
+from hpbandster_tpu_torch.obs.runtime import (  # noqa: F401
+    CompileTracker,
+    DeviceSampler,
+    get_compile_tracker,
+    note_transfer,
+    publish_sweep_transfers,
+    runtime_snapshot,
+    start_device_sampler,
+    transfer_counters,
+)
 from hpbandster_tpu_torch.obs.trace import (  # noqa: F401
     DEFAULT_TENANT,
     TraceContext,
@@ -149,6 +171,11 @@ __all__ = [
     "decode_device_metrics", "publish_device_metrics",
     "emit_device_telemetry", "budget_cost_from_obs",
     "device_metrics_default",
+    "CompileTracker", "DeviceSampler", "get_compile_tracker",
+    "note_transfer", "publish_sweep_transfers", "transfer_counters",
+    "runtime_snapshot", "start_device_sampler",
+    "ProfileSession", "get_profile_session", "device_peaks",
+    "roofline_report", "format_roofline",
     "configure", "set_enabled", "enabled", "ObsHandle",
     "EVENT_TYPES", "JOB_SUBMITTED", "JOB_STARTED", "JOB_FINISHED",
     "JOB_FAILED", "WORKER_DISCOVERED", "WORKER_DROPPED",
@@ -183,16 +210,25 @@ class ObsHandle:
     """What :func:`configure` returns: the attached sinks + one close()."""
 
     def __init__(self, detachers: List[Callable[[], None]],
-                 journal: Optional[JsonlJournal], ring: Optional[RingBuffer]):
+                 journal: Optional[JsonlJournal], ring: Optional[RingBuffer],
+                 sampler: Optional[DeviceSampler] = None):
         self._detachers = detachers
         self.journal = journal
         self.ring = ring
+        self.sampler = sampler
 
     def close(self) -> None:
-        """Detach every sink and close the journal file (idempotent)."""
+        """Detach every sink, stop the sampler and close the journal file
+        (idempotent)."""
         for detach in self._detachers:
             detach()
         self._detachers = []
+        if self.sampler is not None:
+            from hpbandster_tpu_torch.obs.runtime import _clear_device_sampler
+
+            self.sampler.stop()
+            _clear_device_sampler(self.sampler)
+            self.sampler = None
         if self.journal is not None:
             self.journal.close()
 
@@ -211,7 +247,7 @@ def configure(
     identity: Union[bool, Dict[str, Any], None] = None,
     bus: Optional[EventBus] = None,
     anomaly: Any = None,
-    device_sampler: Any = None,
+    device_sampler: Union[bool, float, None] = None,
     slo: Any = None,
 ) -> ObsHandle:
     """Attach the standard sinks to ``bus`` (default: the process bus).
@@ -220,12 +256,14 @@ def configure(
     > 0`` additionally keeps the newest events in memory for post-mortems.
     ``identity`` stamps every journal record with this process's identity:
     ``True`` for the automatic ``{host, pid}`` pair, or a dict of extra
-    fields merged over it. ``anomaly``, ``device_sampler`` and ``slo``
+    fields merged over it. ``device_sampler`` starts the periodic per-card
+    memory sampler (``True`` for the default 10 s cadence, or a number of
+    seconds; :class:`~hpbandster_tpu_torch.obs.runtime.DeviceSampler`),
+    kept on the handle as ``handle.sampler``. ``anomaly`` and ``slo``
     attach modules the port has not yet and raise ``NotImplementedError``
     when set. Returns an :class:`ObsHandle`; close it to detach (tests and
     multi-run processes must, or sinks accumulate)."""
-    for name, value in (("anomaly=", anomaly), ("device_sampler=", device_sampler),
-                        ("slo=", slo)):
+    for name, value in (("anomaly=", anomaly), ("slo=", slo)):
         if value:
             raise _not_ported(name)
     bus = bus if bus is not None else get_bus()
@@ -246,4 +284,9 @@ def configure(
     if ring_capacity > 0:
         ring = RingBuffer(ring_capacity)
         detachers.append(bus.subscribe(ring))
-    return ObsHandle(detachers, journal, ring)
+    sampler = None
+    if device_sampler:
+        sampler = start_device_sampler(
+            interval_s=10.0 if device_sampler is True else float(device_sampler)
+        )
+    return ObsHandle(detachers, journal, ring, sampler)

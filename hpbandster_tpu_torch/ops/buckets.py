@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from hpbandster_tpu_torch.device import resolve_device, upload
+from hpbandster_tpu_torch.obs.runtime import note_transfer
 from hpbandster_tpu_torch.ops.bracket import BracketPlan
 from hpbandster_tpu_torch.ops.fused import _CRASH_RANK, stage_telemetry
 from hpbandster_tpu_torch.utils.lru import LRUCache
@@ -417,6 +418,14 @@ def _packed_row(idx: torch.Tensor, losses: torch.Tensor) -> torch.Tensor:
     return torch.cat([idx.to(_F32), losses], dim=-1)
 
 
+def fetch_packed(packed: torch.Tensor) -> np.ndarray:
+    """A packed row (or lanes of rows) on the host, counted as the
+    reference counts its fetched (idx, loss) pair: two buffers."""
+    flat = packed.cpu().numpy()
+    note_transfer("d2h", flat.nbytes, buffers=2)
+    return flat
+
+
 class StaticProgram:
     """A device program over static input buffers, run eagerly on the CPU
     and as one captured CUDA graph on a card: the plumbing the bucket, the
@@ -465,12 +474,13 @@ class StaticProgram:
         try:
             buffers = self._make_buffers(d)
             if self.device.type == "cuda":
-                from hpbandster_tpu_torch.ops.graphs import RoundGraph
+                from hpbandster_tpu_torch.ops.graphs import RoundGraph, shape_signature
 
                 def capture():
                     self._out = self._body(*buffers)
 
-                self.graph = RoundGraph(capture, self.device, warmup=True, name=self.name)
+                self.graph = RoundGraph(capture, self.device, warmup=True, name=self.name,
+                                        signature=shape_signature(*buffers))
         except BaseException as e:
             self._error = e
             raise
@@ -489,8 +499,14 @@ class StaticProgram:
                 buf.copy_(src)
             if self.graph is not None:
                 self.graph.replay()
-                return self._out.clone()
-            return self._body(*self._buffers)
+                out = self._out.clone()
+            else:
+                out = self._body(*self._buffers)
+            # counted after the launch, one buffer per input, as the
+            # reference counts its dispatches
+            note_transfer("h2d", sum(int(np.asarray(a).nbytes) for a in host_inputs),
+                          buffers=len(host_inputs))
+            return out
 
 
 #: process-wide runner cache: an (objective, bucket, device) combination
@@ -545,7 +561,7 @@ class _BucketRunner:
     def unpack(self, packed: torch.Tensor) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Fetch a dispatch (one transfer, which waits), cut into per-stage
         ``(idx, losses)`` at bucket widths."""
-        return unpack_flat(packed.cpu().numpy(), self.bucket.widths)
+        return unpack_flat(fetch_packed(packed), self.bucket.widths)
 
     def run_member(self, vectors: np.ndarray, plan: BracketPlan, entry: int):
         """Dispatch and fetch one member bracket; its true-shape per-stage

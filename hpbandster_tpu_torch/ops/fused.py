@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from hpbandster_tpu_torch.device import resolve_device, upload
+from hpbandster_tpu_torch.obs.runtime import note_transfer
 from hpbandster_tpu_torch.utils.lru import LRUCache
 
 __all__ = ["StatefulEval", "fused_sh_bracket", "make_fused_bracket_fn", "rank_key",
@@ -265,6 +266,8 @@ def make_fused_bracket_fn(
         return cached
 
     def dispatch(vectors) -> torch.Tensor:
+        vectors = np.asarray(vectors, np.float32)
+        note_transfer("h2d", vectors.nbytes)
         (v,) = upload(dev, vectors)
         idx, losses = _pack_stages(fused_sh_bracket(eval_fn, v, num_configs, budgets))
         # one tensor, one transfer at the fetch (indices are exact in f32)
@@ -272,6 +275,8 @@ def make_fused_bracket_fn(
 
     def fetch(packed: torch.Tensor):
         flat = packed.cpu().numpy()
+        # the reference fetches the (idx, loss) pair: two buffers
+        note_transfer("d2h", flat.nbytes, buffers=2)
         total = len(flat) // 2
         return _unpack_stages((flat[:total].astype(np.int64), flat[total:]), num_configs)
 

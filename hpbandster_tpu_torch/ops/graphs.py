@@ -28,6 +28,14 @@ the moments kernel's ticket counter are made ready beforehand,
 once eagerly first (``warmup=True``), which readies the libraries and the
 objective's device constants on the capturing thread. A capture or a
 replay that fails raises; nothing falls back to running eagerly.
+
+A graph is re-armable: its owner may replay it in later calls, after
+writing new inputs into the captured buffers with ``copy_`` and resetting
+what the program carries, and :meth:`RoundGraph.reseed` reseeds the
+registered generators, so a replay draws what a fresh capture under that
+seed would. Every capture is recorded in the capture ledger
+(``obs/runtime.py``): the graph's name as the label, its shape signature,
+and the capture and instantiate seconds.
 """
 
 from __future__ import annotations
@@ -39,9 +47,10 @@ from typing import Callable, Dict, List, Sequence
 
 import torch
 
+from hpbandster_tpu_torch.obs.runtime import get_compile_tracker
 from hpbandster_tpu_torch.ops import cuda_kde
 
-__all__ = ["RoundGraph", "CAPTURE_LOCK", "CAPTURES"]
+__all__ = ["RoundGraph", "CAPTURE_LOCK", "CAPTURES", "shape_signature"]
 
 #: one capture at a time in the process
 CAPTURE_LOCK = threading.Lock()
@@ -51,6 +60,15 @@ CAPTURES: Dict[str, int] = collections.Counter()
 
 #: replays whose device times a graph keeps (the latest ones)
 _KEPT_REPLAYS = 4096
+
+_DTYPES = {torch.float32: "f32", torch.int64: "i64", torch.int32: "i32", torch.bool: "bool"}
+
+
+def shape_signature(*tensors: torch.Tensor) -> str:
+    """``f32[64,6], i64[5]``: the shapes and dtypes of a program's inputs,
+    the signature its captures are recorded under."""
+    return ", ".join(f"{_DTYPES.get(t.dtype, str(t.dtype))}[{','.join(map(str, t.shape))}]"
+                     for t in tensors)
 
 
 class RoundGraph:
@@ -62,17 +80,20 @@ class RoundGraph:
     nothing that matters). :meth:`replay` runs the captured program and
     counts its kernel launches in ``cuda_kde.LAUNCHES``; the capture
     itself launches nothing. ``name`` keys the process's ``CAPTURES``
-    count. Times: ``capture_s`` and ``instantiate_s`` on the host clock,
-    :meth:`replay_ms` from CUDA events around each replay."""
+    count and, with ``signature``, the capture's ledger record. Times:
+    ``capture_s`` and ``instantiate_s`` on the host clock, :meth:`replay_ms`
+    from CUDA events around each replay."""
 
     def __init__(self, body: Callable[[], None], device,
                  generators: Sequence[torch.Generator] = (),
-                 warmup: bool = False, name: str = "resident_round"):
+                 warmup: bool = False, name: str = "resident_round",
+                 signature: str = ""):
         device = torch.device(device)
         stream = torch.cuda.Stream(device)
         cuda_kde.prepare_capture(device, stream)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        for gen in generators:
+        self.generators = tuple(generators)
+        for gen in self.generators:
             self.graph.register_generator_state(gen)
         with CAPTURE_LOCK:
             stream.wait_stream(torch.cuda.current_stream(device))
@@ -93,6 +114,14 @@ class RoundGraph:
             CAPTURES[name] += 1
         torch.cuda.current_stream(device).wait_stream(stream)
         self._events: collections.deque = collections.deque(maxlen=_KEPT_REPLAYS)
+        get_compile_tracker().record(name, signature, self.capture_s + self.instantiate_s)
+
+    def reseed(self, seed: int) -> None:
+        """Seed every registered generator with ``seed`` (offset 0): the
+        next replay draws what a fresh capture seeded with ``seed``
+        would."""
+        for gen in self.generators:
+            gen.manual_seed(int(seed))
 
     def replay(self) -> None:
         start = torch.cuda.Event(enable_timing=True)

@@ -17,9 +17,15 @@ are decided on the host with no device round trip. The dynamic-count tier
 keeps the counts on the device as int32 tensors over full-capacity buffers:
 the gate, the split and the budget choice are tensor arithmetic, every
 bracket fits and proposes, and ``torch.where`` keeps or discards the model's
-picks, so nothing inside a sweep waits on the host for a count. PyTorch runs
-eagerly, so the sweep is a Python loop of device ops rather than one
-compiled program, and it synchronises when the caller reads the outputs.
+picks, so nothing inside a sweep waits on the host for a count. On the CPU
+the sweep is a Python loop of eager ops. On a card the dynamic tiers run
+as captured CUDA graphs, the counterpart of the reference's compiled
+programs: a chunk's brackets as one graph, or the resident round. The
+callable that builds them is reusable: a later call copies its warm inputs
+into the captured buffers, reseeds the graph's generator and replays, so a
+cached sweep (``FusedBOHB``'s sweep cache) pays one capture. The static tier
+runs eagerly everywhere. A sweep synchronises when the caller reads the
+outputs.
 
 Random numbers enter through a draw seam (:class:`GeneratorDraws`): each
 bracket asks it for its uniform stage-0 vectors, its candidate set, its
@@ -35,6 +41,7 @@ upload from host memory is a synchronising copy.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -87,6 +94,43 @@ __all__ = [
 _F32 = torch.float32
 
 
+def _has_warm(b: float, warm_v, warm_l, warm_n) -> bool:
+    """Whether budget ``b`` has dynamic-tier warm inputs. A budget in the
+    capacities but in none of the warm dicts starts empty; one in only
+    some of them is a caller's bug."""
+    have = warm_n is not None and b in warm_n
+    have_v = warm_v is not None and b in warm_v
+    have_l = warm_l is not None and b in warm_l
+    if not (have == have_v == have_l):
+        raise ValueError(
+            f"inconsistent warm inputs for budget {b}: present in "
+            f"warm_n={have}, warm_v={have_v}, warm_l={have_l} — each "
+            "budget must appear in all three dicts or none"
+        )
+    return have
+
+
+def _copy_into(dst, src) -> None:
+    """Write ``src`` into ``dst`` in place, leaf by leaf: tensors, or
+    dicts, tuples and named tuples of them."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+
+
+def _sig(caps_sig: str, plans, flags: str) -> str:
+    """A captured sweep's signature in the capture ledger: capacities,
+    bracket shapes and modes, cut to 200 characters."""
+    out = (f"caps={caps_sig}; plans=" + "|".join(
+        "x".join(map(str, p.num_configs)) for p in plans) + flags)
+    return out if len(out) <= 200 else out[:197] + "..."
+
+
 def pow2_capacities(counts: dict, floor: int = 256) -> dict:
     """Per-budget buffer capacities of the dynamic-count tier: each count
     rounded up to a power of two, at least ``floor``. The one definition of
@@ -126,6 +170,11 @@ class SpaceCodec(NamedTuple):
     cards: np.ndarray     # int32[d] choices per discrete dim (0 = continuous)
     vartypes: np.ndarray  # int32[d] KDE vartype codes ('c'=0,'u'=1,'o'=2)
     logits: np.ndarray    # float32[d, kmax] sampling log-probs, -inf padded
+
+    @property
+    def signature(self) -> Tuple:
+        """Hashable identity for sweep caches."""
+        return tuple((a.tobytes(), a.shape) for a in self)
 
 
 def build_space_codec(configspace) -> SpaceCodec:
@@ -809,6 +858,77 @@ class GeneratorDraws:
         return self.stage0(b_i, n0)
 
 
+def _clone_tree(x):
+    """A copy of every tensor in ``x`` (tensors, or dicts, lists, tuples
+    and named tuples of them)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_clone_tree, x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(map(_clone_tree, x))
+    return x
+
+
+class _Sweep:
+    """The callable :func:`make_fused_sweep_fn` returns.
+
+    Where nothing is captured (the CPU, the static tier, ``_eager``) a
+    call runs ``eager(seed, warm_v, warm_l, warm_n, draws)``. On a card the
+    dynamic tiers' program is captured once (:meth:`prepare`, or the first
+    call) and every call runs it through the ``run`` that ``capture()``
+    returned. Calls on one sweep take turns: a call holds the sweep's lock
+    from writing its inputs into the captured buffers to copying the
+    outputs out of the graph's memory, and waits on the device for the
+    previous call's copies, so two threads sharing a cached sweep never
+    replay over each other's inputs or outputs, and a result stays valid
+    after later calls. The graph is held here and nowhere else, so a sweep
+    dropped from a cache frees its graph at once."""
+
+    def __init__(self, eager, capture, device):
+        self._eager = eager
+        self._capture = capture
+        self._device = device
+        self._lock = threading.Lock()
+        self._run = None
+        self._done = None  # the previous call's copies, as a CUDA event
+        #: the captured program (a :class:`~hpbandster_tpu_torch.ops.graphs.RoundGraph`)
+        #: once captured; None where nothing is captured
+        self.graph = None
+
+    def prepare(self) -> None:
+        """Capture the program now (a no-op where nothing is captured, and
+        once captured)."""
+        if self._capture is None:
+            return
+        with self._lock:
+            self._prepare_locked()
+
+    def _prepare_locked(self) -> None:
+        if self.graph is None:
+            self.graph, self._run = self._capture()
+
+    def __call__(self, seed, warm_v=None, warm_l=None, warm_n=None, draws=None):
+        if self._capture is None:
+            return self._eager(seed, warm_v, warm_l, warm_n, draws)
+        if draws is not None:
+            raise ValueError(
+                "the dynamic-count sweep on CUDA replays a captured program and "
+                "takes the default draws only"
+            )
+        with self._lock:
+            self._prepare_locked()
+            stream = torch.cuda.current_stream(self._device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            out = _clone_tree(self._run(seed, warm_v, warm_l, warm_n))
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+        return out
+
+
 def make_fused_sweep_fn(
     eval_fn: Optional[Callable[[torch.Tensor, float], torch.Tensor]],
     plans: Sequence[BracketPlan],
@@ -837,6 +957,7 @@ def make_fused_sweep_fn(
     incumbent_only: bool = False,
     device_metrics: bool = False,
     stateful_eval: Optional[StatefulEval] = None,
+    _eager: bool = False,
 ) -> Callable[..., List[SweepBracketOutput]]:
     """Build the sweep; returns
     ``fn(seed, warm_v=None, warm_l=None, warm_n=None, draws=None)``.
@@ -881,16 +1002,27 @@ def make_fused_sweep_fn(
     valid configuration (numpy, or a tensor already on ``device``); a
     redrawn row is not model-based. Every tier takes all three.
 
+    On CUDA the dynamic-count tier runs as one captured CUDA graph
+    (``ops/graphs.py``, name ``sweep_chunk``) replayed once per call: the
+    default draws only, since a replay cannot hand a bracket index to the
+    host. ``fn.prepare()`` captures it (the first call does if nobody did);
+    every call copies its warm inputs into the captured buffers, reseeds
+    the graph's generator with ``seed`` and replays, so ``fn`` serves any
+    number of calls with one capture. A call returns copies of the
+    outputs and state, so they stay valid after later calls, and calls
+    from several threads take turns (:class:`_Sweep`). ``_eager=True``
+    runs the same body eagerly on CUDA (the graph's twin in the card's
+    checks). On the CPU the body runs eagerly.
+
     ``resident=True`` (needs ``dynamic_counts=True``) runs the HyperBand
     rotation's repeating round of brackets round after round
     (:func:`resident_rotation`), the partial last round after them. On
-    CUDA the round is one captured CUDA graph replayed once per round
-    (``ops/graphs.py``): the default draws only, since a replay cannot
-    hand a bracket index to the host. On the CPU the same round body runs
-    eagerly. ``fn`` returns :class:`ResidentSweepOutputs`; flatten it with
+    CUDA the round is the captured graph, replayed once per round over
+    state that each call resets in place; the tail runs eagerly. ``fn``
+    returns :class:`ResidentSweepOutputs`; flatten it with
     :func:`unstack_resident_outputs`. It equals the unrolled dynamic tier
-    bit for bit on the same seed and capacities. After a call on CUDA,
-    ``fn.graph`` is the :class:`~hpbandster_tpu_torch.ops.graphs.RoundGraph`
+    bit for bit on the same seed and capacities. On CUDA ``fn.graph`` is
+    the :class:`~hpbandster_tpu_torch.ops.graphs.RoundGraph` once captured
     (capture, instantiate and replay times); otherwise None.
 
     ``incumbent_only=True`` makes ``fn`` return one
@@ -1060,17 +1192,7 @@ def make_fused_sweep_fn(
             return obs_v, obs_l, counts
         obs_v, obs_l, counts = {}, {}, {}
         for b, cap in caps.items():
-            # a budget in `capacities` but in none of the warm dicts starts
-            # empty; one in only some of them is a caller's bug
-            have = warm_n is not None and b in warm_n
-            have_v = warm_v is not None and b in warm_v
-            have_l = warm_l is not None and b in warm_l
-            if not (have == have_v == have_l):
-                raise ValueError(
-                    f"inconsistent warm inputs for budget {b}: present in "
-                    f"warm_n={have}, warm_v={have_v}, warm_l={have_l} — each "
-                    "budget must appear in all three dicts or none"
-                )
+            have = _has_warm(b, warm_v, warm_l, warm_n)
             # each budget's additions over the whole schedule are static, so
             # clamping the warm count to (capacity - additions) keeps every
             # later append inside the buffer: an oversized count drops its
@@ -1242,10 +1364,12 @@ def make_fused_sweep_fn(
         idx_packed, loss_packed = _pack_stages(stages)
         return SweepBracketOutput(out_vectors[:n0], mb_mask, idx_packed, loss_packed)
 
-    def resident_rounds(draws, row, obs_v, obs_l, counts, inc, metrics):
-        """The rotation's rounds, then the tail, writing each round's
-        outputs into ``[n_rounds, ...]`` buffers at a device round index.
-        Returns (the stacked buffers, the tail's outputs, the graph)."""
+    def make_round(draws, state, inc, metrics):
+        """The rotation's round over the carried state: the ``[n_rounds,
+        ...]`` output buffers it writes at a device round index, that
+        index, and the round's body (``r`` is the round for the draw
+        source; None inside a graph)."""
+        obs_v, obs_l, counts = state
         r_idx = torch.zeros(1, dtype=torch.int64, device=device)
         stacked = []
         if not incumbent_only:
@@ -1269,68 +1393,129 @@ def make_fused_sweep_fn(
                         buf.index_copy_(0, r_idx, leaf[None])
             r_idx.add_(1)
 
-        graph = None
-        if device.type == "cuda":
-            from hpbandster_tpu_torch.ops.graphs import RoundGraph
+        return r_idx, tuple(stacked), round_body
 
-            graph = RoundGraph(round_body, device, generators=[draws.generator])
-            for _ in range(n_rounds):
-                graph.replay()
-        else:
-            for r in range(n_rounds):
-                round_body(r)
+    def run_tail(draws, row, state, inc, metrics):
+        """The partial last round, eagerly, after the rounds."""
         tail = []
         for j, plan in enumerate(tail_plans):
             b_i = period * n_rounds + j
-            out = run_bracket(b_i, row(b_i), plan, draws, obs_v, obs_l, counts,
-                              inc, metrics)
+            out = run_bracket(b_i, row(b_i), plan, draws, *state, inc, metrics)
             if out is not None:
                 tail.append(out)
-        return tuple(stacked), tuple(tail), graph
+        return tuple(tail)
 
-    def sweep(seed, warm_v=None, warm_l=None, warm_n=None, draws=None):
-        sweep.graph = None
-        if draws is None:
-            draws = GeneratorDraws(
-                tables, int(seed), random_fraction, bandwidth_factor, min_bandwidth
-            )
-        elif resident and device.type == "cuda":
-            raise ValueError(
-                "the resident sweep on CUDA replays a captured round and takes "
-                "the default draws only"
-            )
-        obs_v, obs_l, counts = init_obs_state(warm_v, warm_l, warm_n)
-        inc = init_incumbent() if incumbent_only else None
-        metrics = (
-            init_device_metrics(len(plans), dm_rungs, N_BINS, device)
-            if device_metrics else None
-        )
-        # the brackets' rows for the incumbent and the metrics, made on the
-        # device rather than uploaded
-        rows = (torch.arange(len(plans), device=device)
-                if incumbent_only or device_metrics else None)
+    def run_unrolled(draws, row, state, inc, metrics):
+        return [run_bracket(b_i, row(b_i), plan, draws, *state, inc, metrics)
+                for b_i, plan in enumerate(plans)]
 
-        def row(b_i):
-            return None if rows is None else rows[b_i:b_i + 1]
-
-        if resident:
-            stacked, tail, sweep.graph = resident_rounds(
-                draws, row, obs_v, obs_l, counts, inc, metrics
-            )
-            result = ResidentSweepOutputs(stacked, tail)
-        else:
-            result = [
-                run_bracket(b_i, row(b_i), plan, draws, obs_v, obs_l, counts,
-                            inc, metrics)
-                for b_i, plan in enumerate(plans)
-            ]
+    def package(result, inc, metrics, state):
         if incumbent_only:
             best_key, best_loss, best_vec, best_bracket, per_bracket = inc
             result = SweepIncumbent(best_vec, best_loss[0], best_bracket[0], per_bracket)
         out = (result,) + ((metrics,) if device_metrics else ())
         if return_state:
-            out += ((obs_v, obs_l, counts),)
+            out += (state,)
         return out if len(out) > 1 else result
 
-    sweep.graph = None
-    return sweep
+    def row_fn():
+        # the brackets' rows for the incumbent and the metrics, made on the
+        # device rather than uploaded
+        rows = (torch.arange(len(plans), device=device)
+                if incumbent_only or device_metrics else None)
+        return lambda b_i: None if rows is None else rows[b_i:b_i + 1]
+
+    def fresh_metrics():
+        return (init_device_metrics(len(plans), dm_rungs, N_BINS, device)
+                if device_metrics else None)
+
+    def eager_sweep(seed, warm_v, warm_l, warm_n, draws):
+        if draws is None:
+            draws = GeneratorDraws(
+                tables, int(seed), random_fraction, bandwidth_factor, min_bandwidth
+            )
+        state = init_obs_state(warm_v, warm_l, warm_n)
+        inc = init_incumbent() if incumbent_only else None
+        metrics = fresh_metrics()
+        row = row_fn()
+        if resident:
+            _, stacked, round_body = make_round(draws, state, inc, metrics)
+            for r in range(n_rounds):
+                round_body(r)
+            result = ResidentSweepOutputs(stacked, run_tail(draws, row, state, inc, metrics))
+        else:
+            result = run_unrolled(draws, row, state, inc, metrics)
+        return package(result, inc, metrics, state)
+
+    def capture():
+        """On a card, the dynamic tiers' program captured once: the chunk's
+        brackets as one graph, or the resident round. Returns the graph and
+        ``run(seed, warm_v, warm_l, warm_n)``, which writes a call's inputs
+        into the buffers made here, reseeds, replays and returns the
+        outputs."""
+        from hpbandster_tpu_torch.ops.graphs import RoundGraph
+
+        draws = GeneratorDraws(tables, 0, random_fraction, bandwidth_factor, min_bandwidth)
+        row = row_fn()
+        caps_sig = ",".join(f"{b:g}:{c}" for b, c in sorted(caps.items()))
+        flags = "".join(f" {k}" for k, on in (("metrics", device_metrics),
+                                             ("incumbent", incumbent_only)) if on)
+        if resident:
+            # the carried state, reset in place by every call
+            state = init_obs_state(None, None, None)
+            inc = init_incumbent() if incumbent_only else None
+            metrics = fresh_metrics()
+            r_idx, stacked, round_body = make_round(draws, state, inc, metrics)
+            graph = RoundGraph(round_body, device, generators=[draws.generator],
+                               signature=_sig(caps_sig, round_plans, flags))
+
+            def run(seed, warm_v, warm_l, warm_n):
+                _copy_into(state, init_obs_state(warm_v, warm_l, warm_n))
+                if inc is not None:
+                    _copy_into(inc, init_incumbent())
+                if metrics is not None:
+                    _copy_into(metrics, fresh_metrics())
+                r_idx.zero_()
+                graph.reseed(seed)
+                for _ in range(n_rounds):
+                    graph.replay()
+                tail = run_tail(draws, row, state, inc, metrics)
+                return package(ResidentSweepOutputs(stacked, tail), inc, metrics, state)
+
+            return graph, run
+        # the warm inputs the captured chunk starts from; it builds its
+        # state, incumbent and metrics from them inside the graph
+        inp_v = {b: torch.zeros((cap, d), dtype=_F32, device=device) for b, cap in caps.items()}
+        inp_l = {b: torch.full((cap,), float("inf"), dtype=_F32, device=device)
+                 for b, cap in caps.items()}
+        inp_n = {b: torch.zeros((), dtype=torch.int32, device=device) for b in caps}
+        holder = {}
+
+        def chunk_body():
+            state = init_obs_state(inp_v, inp_l, inp_n)
+            inc = init_incumbent() if incumbent_only else None
+            metrics = fresh_metrics()
+            holder["out"] = package(run_unrolled(draws, row, state, inc, metrics),
+                                    inc, metrics, state)
+
+        graph = RoundGraph(chunk_body, device, generators=[draws.generator],
+                           name="sweep_chunk", signature=_sig(caps_sig, plans, flags))
+
+        def run(seed, warm_v, warm_l, warm_n):
+            for b in caps:
+                if _has_warm(b, warm_v, warm_l, warm_n):
+                    inp_v[b].copy_(torch.as_tensor(warm_v[b]))
+                    inp_l[b].copy_(torch.as_tensor(warm_l[b]))
+                    inp_n[b].copy_(torch.as_tensor(warm_n[b]))
+                else:
+                    inp_v[b].zero_()
+                    inp_l[b].fill_(float("inf"))
+                    inp_n[b].zero_()
+            graph.reseed(seed)
+            graph.replay()
+            return holder["out"]
+
+        return graph, run
+
+    graphed = device.type == "cuda" and dynamic_counts and not _eager
+    return _Sweep(eager_sweep, capture if graphed else None, device)

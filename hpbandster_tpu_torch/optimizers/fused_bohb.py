@@ -18,15 +18,28 @@ checkpoint ``checkpoint_written``, and ``run_incumbent`` its
 ``sweep_incumbent`` payload (``hpbandster_tpu_torch.obs``); the decoded
 device telemetry is published as gauges and journaled as one
 ``device_telemetry`` record per call. Every emit runs on the host between
-device calls, never inside a captured graph.
+device calls, never inside a captured graph. Each chunk's upload and fetch
+count in the transfer ledger (``obs/runtime.py``), and every ``run()`` and
+``run_incumbent`` publishes its host-link bill as the
+``sweep.transfer_bytes.*`` and ``sweep.host_syncs`` gauges.
 
-Not ported yet: meshes and multiprocess runs, streamed warm uploads and the
-pipelined replay of chunks.
+Built sweeps are cached process-wide (``_SWEEP_CACHE``, the counterpart of
+the reference's ``_SWEEP_EXE_CACHE``), keyed by objective, schedule, space,
+knobs and device: on a card a hit replays the captured graph with new
+seeds and warm inputs, so a chunk or ``run()`` call of a known shape pays
+no capture. The host replays chunk k into the bookkeeping while chunk k+1
+runs on the device (``run_stats`` ``replay_overlap_s``); with
+``checkpoint_path`` the replay runs in turn.
+
+Not ported yet: meshes and multiprocess runs, and streamed warm uploads.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -50,6 +63,11 @@ from hpbandster_tpu_torch.obs.device_metrics import (
     emit_device_telemetry,
     publish_device_metrics,
 )
+from hpbandster_tpu_torch.obs.runtime import (
+    note_transfer,
+    publish_sweep_transfers,
+    transfer_counters,
+)
 from hpbandster_tpu_torch.obs.trace import current_trace, new_trace, use_trace
 from hpbandster_tpu_torch.ops.bracket import (
     BracketPlan,
@@ -59,6 +77,7 @@ from hpbandster_tpu_torch.ops.bracket import (
     power_law_extrapolate,
 )
 from hpbandster_tpu_torch.ops.fused import StatefulEval, _unpack_stages
+from hpbandster_tpu_torch.ops.kde import _moments_fit_requested
 from hpbandster_tpu_torch.ops.sweep import (
     build_space_codec,
     codec_tables,
@@ -71,8 +90,17 @@ from hpbandster_tpu_torch.ops.sweep import (
     unstack_resident_outputs,
 )
 from hpbandster_tpu_torch.space import ConfigurationSpace
+from hpbandster_tpu_torch.utils.lru import LRUCache
+from hpbandster_tpu_torch.utils.profiling import trace
 
 __all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]
+
+#: process-wide built-sweep cache (the reference's ``_SWEEP_EXE_CACHE``
+#: policy): one build, and on a card one capture, per (objective, schedule,
+#: space, knobs, device). Values are sweep callables: a hit replays with
+#: new seeds and warm inputs, and calls on one entry from several threads
+#: take turns. Entries hold their graphs and memory pools until evicted.
+_SWEEP_CACHE: LRUCache = LRUCache(maxsize=16)
 
 
 def _publish_telemetry(decoded: Dict[str, Any], trace) -> None:
@@ -189,15 +217,19 @@ class FusedBOHB:
             compile_active_mask(configspace, self.codec_tables)
             if configspace.get_conditions() else None
         )
+        #: the conditions and forbidden clauses as they key the sweep cache
+        self._conditions_sig = tuple(repr(c) for c in configspace.get_conditions())
+        self._forbiddens_sig = ()
         self.forbidden_fn = self._fallback_vector = None
         if configspace.get_forbiddens():
             self.forbidden_fn = compile_forbidden_mask(configspace, self.codec_tables)
             # deterministic in the optimizer's seed, not the space's RNG
             fb_rng = np.random.default_rng(0xFB if seed is None else int(seed) ^ 0xFB)
             fb = configspace.to_vector(configspace.sample_configuration(rng=fb_rng))
-            self._fallback_vector = torch.as_tensor(
-                np.nan_to_num(np.asarray(fb, np.float32), nan=0.0), device=self.device
-            )
+            fb = np.nan_to_num(np.asarray(fb, np.float32), nan=0.0)
+            self._fallback_vector = torch.as_tensor(fb, device=self.device)
+            self._forbiddens_sig = tuple(
+                repr(c) for c in configspace.get_forbiddens()) + (fb.tobytes(),)
         d = int(self.codec.kind.shape[0])
         # fail fast on an objective of the wrong shape, before the sweep
         probe_v = torch.full((2, d), 0.5, dtype=torch.float32, device=self.device)
@@ -316,6 +348,7 @@ class FusedBOHB:
         self,
         n_iterations: int = 1,
         min_n_workers: int = 1,
+        profile_dir: Optional[str] = None,
         chunk_brackets: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
         dynamic_counts: Optional[bool] = None,
@@ -331,30 +364,43 @@ class FusedBOHB:
         taking all earlier observations as warm data: results stream into
         ``self.iterations`` (and the ``result_logger``) chunk by chunk, and a
         chunk that fails leaves every completed chunk in place. The host
-        replays each chunk right after it, before the next one starts.
+        bookkeeping is pipelined: chunk k's replay into the ``Result``
+        structures runs while chunk k+1 runs on the device (``run_stats``
+        records it as ``replay_overlap_s``), so streamed lines lag one
+        chunk. Built sweeps come from the process-wide cache: a chunk whose
+        shape was built before (in this run or an earlier one) reports
+        ``compile_cache_hit`` and a ``build_compile_s`` of 0.0.
 
-        ``checkpoint_path`` writes a checkpoint after every chunk; a fresh
+        ``profile_dir`` writes a ``torch.profiler`` trace of each chunk
+        there (``utils/profiling.py``).
+
+        ``checkpoint_path`` writes a checkpoint after every chunk, with the
+        chunk replayed first (the replay then runs in turn); a fresh
         optimizer with the same settings resumes from it with
         :meth:`load_checkpoint` and completes with the results of an
         uninterrupted run.
 
         ``dynamic_counts=None`` takes the tier from ``chunk_brackets``: set,
         the dynamic-count tier (counts on the device over pow2-bucketed
-        buffers, ``ops/sweep.py``); unset, the static tier. True or False
-        forces either. The two tiers draw from the same proposal
-        distribution but are distinct consumers of random numbers. Between
-        dynamic chunks the observation state stays on the device while the
-        buffer capacities are unchanged, and is uploaded from the host's
-        copy when they grow.
+        buffers, ``ops/sweep.py``; on a card each chunk one captured CUDA
+        graph, reused while the chunk's shape and capacities repeat); unset,
+        the static tier. True or False forces either. The two tiers draw
+        from the same proposal distribution but are distinct consumers of
+        random numbers. Between dynamic chunks the observation state stays
+        on the device while the buffer capacities are unchanged, and is
+        uploaded from the host's copy when they grow.
 
         ``resident=True`` runs the schedule as the resident sweep: the
         HyperBand rotation's round of brackets, on a card one captured CUDA
         graph replayed once per round (``ops/sweep.py``), then the partial
         last round; one fetch at the end. Its ``Result`` equals the
         unrolled dynamic tier's (``dynamic_counts=True``) on the same seed.
-        It replaces chunking and needs the dynamic-count tier. On a card its
-        ``run_stats`` row adds the graph's capture and instantiate seconds
-        and each replay's device milliseconds.
+        It replaces chunking and needs the dynamic-count tier.
+
+        ``run_stats`` rows carry the reference's fields (``build_compile_s``
+        is build + capture + instantiate seconds on a cache miss) and, on a
+        card, the graph's ``graph_capture_s``, ``graph_instantiate_s`` and
+        this call's replays' device milliseconds (``graph_replay_ms``).
 
         ``device_metrics`` turns the device metrics plane on: per-rung loss
         histograms, crash, evaluation and promotion counts, refit flags and
@@ -399,83 +445,131 @@ class FusedBOHB:
         # one trace for this call's whole sweep: every chunk record and the
         # telemetry record share it (an active trace, a serving layer's, wins)
         sweep_trace = current_trace() or new_trace(self.run_id)
+        link0 = transfer_counters() if plans else None
+        #: the previous chunk's deferred replay into the bookkeeping: it
+        #: runs while the next chunk runs on the device
+        pending_replay = None
+        overlap_s = None
+
+        def flush_replay():
+            """Run the deferred replay once. The slot is cleared first, so a
+            replay that fails never runs half of its brackets again."""
+            nonlocal pending_replay, overlap_s
+            if pending_replay is None:
+                return
+            job, pending_replay = pending_replay, None
+            t_r = time.perf_counter()
+            job()
+            overlap_s = time.perf_counter() - t_r
+
         while plans:
             chunk_plans, plans = plans[:chunk], plans[chunk:]
             seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
-            warm_counts = {b: len(l) for b, l in self._warm_l.items()}
-            run_caps = None
-            if dynamic:
-                # past-only capacities: warm counts at this boundary plus
-                # this chunk's additions, pow2-bucketed, so two runs that
-                # agree on history agree on every chunk's buffer shapes
-                run_caps = dict(warm_counts)
-                for b, k in plan_additions(chunk_plans).items():
-                    run_caps[b] = run_caps.get(b, 0) + k
-                run_caps = pow2_capacities(run_caps)
-                if dev_state is not None and run_caps == dev_caps:
-                    warm, upload_bytes = dev_state, 0
+            overlap_s = None
+            try:
+                warm_counts = {b: len(l) for b, l in self._warm_l.items()}
+                run_caps = None
+                if dynamic:
+                    # past-only capacities: warm counts at this boundary plus
+                    # this chunk's additions, pow2-bucketed, so two runs that
+                    # agree on history agree on every chunk's buffer shapes
+                    run_caps = dict(warm_counts)
+                    for b, k in plan_additions(chunk_plans).items():
+                        run_caps[b] = run_caps.get(b, 0) + k
+                    run_caps = pow2_capacities(run_caps)
+                    if dev_state is not None and run_caps == dev_caps:
+                        warm, upload_bytes = dev_state, 0
+                    else:
+                        warm, upload_bytes = self._dynamic_warm(run_caps, d)
+                        dev_state = None  # stale shapes: never reuse
                 else:
-                    warm, upload_bytes, _ = self._dynamic_warm(run_caps, d)
-            else:
-                warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
-                upload_bytes = sum(
-                    v.nbytes + self._warm_l[b].nbytes for b, v in self._warm_v.items()
-                )
-            sweep = self._sweep_fn(
-                chunk_plans, warm_counts=warm_counts, dynamic_counts=dynamic,
-                capacities=run_caps, return_state=dynamic, resident=resident,
-                device_metrics=use_dm,
-            )
-            t0 = time.perf_counter()
-            # (outputs[, metrics][, state]): a bare result when neither
-            parts = sweep(seed, *warm)
-            if not (dynamic or use_dm):
-                parts = (parts,)
-            if dynamic:
-                *parts, dev_state = parts
-                dev_caps = run_caps
-            outputs = _fetch(parts[0])
-            if use_dm:
-                dm_parts.append((_fetch(parts[1]), chunk_plans))
-            execute_s = time.perf_counter() - t0
-            if resident:
-                outputs = unstack_resident_outputs(
-                    outputs, resident_rotation(chunk_plans)[1]
-                )
+                    warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
+                    upload_bytes = sum(
+                        v.nbytes + self._warm_l[b].nbytes for b, v in self._warm_v.items()
+                    )
+                if upload_bytes:
+                    note_transfer("h2d", upload_bytes)
+                with trace(profile_dir), use_trace(sweep_trace):
+                    sweep, compile_s, cache_hit = self._sweep_built(
+                        chunk_plans, dynamic=dynamic, caps=run_caps,
+                        resident=resident, device_metrics=use_dm,
+                    )
+                    t0 = time.perf_counter()
+                    # (outputs[, metrics][, state]): a bare result when neither
+                    parts = sweep(seed, *warm)
+                    if not (dynamic or use_dm):
+                        parts = (parts,)
+                    if dynamic:
+                        *parts, new_state = parts
+                    # pipelining: the previous chunk's bookkeeping replays
+                    # here, while this chunk runs on the device
+                    flush_replay()
+                    outputs = _fetch(parts[0])
+                    if use_dm:
+                        dm_parts.append((_fetch(parts[1]), chunk_plans))
+                    execute_s = time.perf_counter() - t0
+                    if dynamic:
+                        dev_state, dev_caps = new_state, run_caps
+                d2h_bytes = _nbytes(outputs) + (_nbytes(dm_parts[-1][0]) if use_dm else 0)
+                note_transfer("d2h", d2h_bytes)
+                if resident:
+                    outputs = unstack_resident_outputs(
+                        outputs, resident_rotation(chunk_plans)[1]
+                    )
+            finally:
+                # a failure above must still land the completed previous
+                # chunk in self.iterations: its observations are already in
+                # the warm data, so a retry must not run it again. A replay
+                # failing here must not mask the error already raised.
+                in_flight = sys.exc_info()[1] is not None
+                try:
+                    flush_replay()
+                except Exception:
+                    if not in_flight:
+                        raise
+                    self.logger.exception(
+                        "deferred replay of the previous chunk failed while a "
+                        "later chunk was already failing; its results are "
+                        "missing from this Result")
             stat = {
                 "chunk_index": len(self.run_stats),
                 "brackets": list(range(done, done + len(chunk_plans))),
                 "evaluations": int(sum(sum(p.num_configs) for p in chunk_plans)),
+                "build_compile_s": compile_s,
+                "compile_cache_hit": cache_hit,
                 "execute_fetch_s": execute_s,
                 "dynamic_counts": dynamic,
                 # 0 when the previous chunk's device state carried them
                 "warm_upload_bytes": int(upload_bytes),
             }
+            if overlap_s is not None:
+                # the previous chunk's replay, run inside this chunk's window
+                stat["replay_overlap_s"] = overlap_s
             graph = getattr(sweep, "graph", None)  # a wrapped sweep may not carry it
             if graph is not None:
+                replays = resident_rotation(chunk_plans)[1] if resident else 1
                 stat.update(graph_capture_s=graph.capture_s,
                             graph_instantiate_s=graph.instantiate_s,
-                            graph_replay_ms=graph.replay_ms())
-            dm_execute_s += execute_s
+                            graph_replay_ms=graph.replay_ms()[-replays:])
+            if use_dm:
+                dm_execute_s += execute_s
             self.run_stats.append(stat)
             with use_trace(sweep_trace):
                 obs.emit(
                     "sweep_chunk",
-                    duration_s=stat["execute_fetch_s"],
-                    # a graph's capture and instantiation; an eager sweep
-                    # compiles nothing
-                    compile_s=(graph.capture_s + graph.instantiate_s
-                               if graph is not None else 0.0),
-                    compile_cache_hit=False,
+                    duration_s=execute_s,
+                    compile_s=compile_s,
+                    compile_cache_hit=cache_hit,
                     evaluations=stat["evaluations"],
                     brackets=stat["brackets"],
                     seq=stat["chunk_index"],
                     h2d_bytes=int(upload_bytes),
-                    d2h_bytes=_nbytes(outputs) + (
-                        _nbytes(dm_parts[-1][0]) if use_dm else 0),
+                    d2h_bytes=d2h_bytes,
                 )
             job_info = {
                 "fused_chunk": stat["chunk_index"],
+                "chunk_compile_s": compile_s,
+                "chunk_compile_cache_hit": cache_hit,
                 "chunk_execute_s": execute_s,
                 "chunk_evaluations": stat["evaluations"],
             }
@@ -485,22 +579,37 @@ class FusedBOHB:
                     (out.idx_packed, out.loss_packed), plan.num_configs
                 )
                 staged.append((b_i, plan, out, stages))
+                # folded now: the next chunk takes them as warm data
                 self._accumulate_obs(plan, out, stages)
-            for b_i, plan, out, stages in staged:
-                self._replay_bracket(b_i, plan, out, stages, job_info)
+
+            def replay_now(staged=staged, job_info=job_info):
+                for b_i, plan, out, stages in staged:
+                    self._replay_bracket(b_i, plan, out, stages, job_info)
+
             done += len(chunk_plans)
             if checkpoint_path is not None:
+                # a checkpoint holds replayed bookkeeping, so the replay
+                # runs in turn; its content never depends on when it runs
+                replay_now()
                 self.save_checkpoint(checkpoint_path)
+            else:
+                pending_replay = replay_now
+        if pending_replay is not None:
+            pending_replay()
+        if link0 is not None:
+            publish_sweep_transfers(link0)
         if dm_parts:
             self.last_device_telemetry = decode_device_metrics(
                 dm_parts, execute_s=dm_execute_s
             )
             _publish_telemetry(self.last_device_telemetry, sweep_trace)
+        self._write_timings_sidecar()
         return Result(list(self.iterations) + self.warmstart_iteration, self.config)
 
     def run_incumbent(
         self,
         n_iterations: int = 1,
+        profile_dir: Optional[str] = None,
         resident: bool = True,
         device_metrics: Optional[bool] = None,
     ) -> Dict[str, Any]:
@@ -509,13 +618,16 @@ class FusedBOHB:
         whose only output is the best final-stage configuration, with the
         optimizer's warm observations as its warm data. No per-config
         ``Result`` bookkeeping, and :attr:`iterations` does not advance: a
-        one-shot query, not a resumable run.
+        one-shot query, not a resumable run. The sweep comes from the
+        process-wide cache, as :meth:`run`'s chunks do; ``profile_dir``
+        writes a ``torch.profiler`` trace of it.
 
         Returns ``incumbent`` (``vector``, ``loss``, ``bracket``,
-        ``per_bracket_loss``), ``evaluations``, ``execute_fetch_s`` and
-        ``transfers``: the bytes and tensors this call moved each way
-        (``transfer_bytes_h2d``, ``transfer_bytes_d2h``, ``transfers_h2d``,
-        ``transfers_d2h``). ``device_metrics`` (default:
+        ``per_bracket_loss``), ``evaluations``, ``build_compile_s``,
+        ``compile_cache_hit``, ``execute_fetch_s`` and ``transfers``: the
+        transfer ledger's delta over this call (``transfer_bytes_h2d``,
+        ``transfer_bytes_d2h``, ``transfers_h2d``, ``transfers_d2h``), also
+        published as the ``sweep.*`` gauges. ``device_metrics`` (default:
         ``HPB_DEVICE_METRICS``) adds ``device_telemetry``, the decoded
         record, also kept as :attr:`last_device_telemetry`.
         """
@@ -531,18 +643,23 @@ class FusedBOHB:
             run_caps[b] = run_caps.get(b, 0) + k
         run_caps = pow2_capacities(run_caps)
         seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
-        warm, upload_bytes, uploads = self._dynamic_warm(run_caps, d)
-        sweep = self._sweep_fn(
-            plans, dynamic_counts=True, capacities=run_caps, resident=resident,
-            incumbent_only=True, device_metrics=use_dm,
-        )
-        t0 = time.perf_counter()
-        raw = sweep(seed, *warm)
-        inc, dm = (raw if use_dm else (raw, None))
-        inc = _fetch(inc)
-        dm = None if dm is None else _fetch(dm)
-        execute_s = time.perf_counter() - t0
+        link0 = transfer_counters()
+        warm, upload_bytes = self._dynamic_warm(run_caps, d)
+        note_transfer("h2d", upload_bytes)
+        with trace(profile_dir):
+            sweep, compile_s, cache_hit = self._sweep_built(
+                plans, dynamic=True, caps=run_caps, resident=resident,
+                incumbent_only=True, device_metrics=use_dm,
+            )
+            t0 = time.perf_counter()
+            raw = sweep(seed, *warm)
+            inc, dm = (raw if use_dm else (raw, None))
+            inc = _fetch(inc)
+            dm = None if dm is None else _fetch(dm)
+            execute_s = time.perf_counter() - t0
         fetched = list(inc) + ([] if dm is None else list(dm))
+        note_transfer("d2h", sum(a.nbytes for a in fetched), buffers=len(fetched))
+        transfers = publish_sweep_transfers(link0)
         out: Dict[str, Any] = {
             "incumbent": {
                 "vector": [float(x) for x in inc.vector],
@@ -551,23 +668,19 @@ class FusedBOHB:
                 "per_bracket_loss": [float(x) for x in inc.per_bracket_loss],
             },
             "evaluations": int(sum(sum(p.num_configs) for p in plans)),
+            "build_compile_s": compile_s,
+            "compile_cache_hit": cache_hit,
             "execute_fetch_s": execute_s,
-            "transfers": {
-                "transfer_bytes_h2d": int(upload_bytes),
-                "transfer_bytes_d2h": int(sum(a.nbytes for a in fetched)),
-                "transfers_h2d": int(uploads),
-                "transfers_d2h": len(fetched),
-            },
+            "transfers": transfers,
         }
-        transfers = out["transfers"]
         inc_trace = current_trace() or new_trace(self.run_id)
         with use_trace(inc_trace):
             # the resident sweep is one chunk
             obs.emit(
                 "sweep_chunk",
                 duration_s=execute_s,
-                compile_s=0.0,
-                compile_cache_hit=False,
+                compile_s=compile_s,
+                compile_cache_hit=cache_hit,
                 evaluations=out["evaluations"],
                 brackets=list(range(len(plans))),
                 seq=0,
@@ -590,6 +703,10 @@ class FusedBOHB:
             out["device_telemetry"] = self.last_device_telemetry
         return out
 
+    #: internal: build the dynamic tiers eagerly on a card (no CUDA graph),
+    #: the captured programs' twin in the card's checks; keys the cache
+    _eager_sweeps = False
+
     def _sweep_fn(self, plans, **modes):
         """``make_fused_sweep_fn`` over ``plans`` with this optimizer's
         settings and the given tier and modes."""
@@ -608,13 +725,73 @@ class FusedBOHB:
             forbidden_fn=self.forbidden_fn,
             fallback_vector=self._fallback_vector,
             stateful_eval=self.stateful_eval,
+            _eager=self._eager_sweeps,
             **modes,
         )
+
+    def _sweep_key(self, plans, dynamic=False, caps=None, resident=False,
+                   incumbent_only=False, device_metrics=False):
+        """The sweep cache's key: the reference's ``_sweep_key`` without
+        the mesh fields, with the device and the eager switch."""
+        if dynamic:
+            # counts are device inputs, so only the capacities (shapes) key
+            # the sweep; "state" marks the return_state sweep run() builds.
+            # The resolved HPB_PALLAS_KDE_FIT flag keys too: a graph bakes
+            # in the fit path it was captured with
+            obs_term = ("dynamic", "state", tuple(sorted(caps.items())),
+                        bool(resident), bool(incumbent_only), _moments_fit_requested())
+        else:
+            obs_term = tuple(sorted((b, len(l)) for b, l in self._warm_l.items()))
+        return (
+            (self.eval_fn, self.stateful_eval),
+            tuple((tuple(p.num_configs), tuple(p.budgets)) for p in plans),
+            self.codec.signature,
+            self.num_samples,
+            self.random_fraction,
+            self.top_n_percent,
+            self.min_points_in_model,
+            self.bandwidth_factor,
+            self.min_bandwidth,
+            obs_term,
+            self.promotion_rank_fn,
+            self._conditions_sig,
+            self._forbiddens_sig,
+            bool(device_metrics),
+            self.device,
+            self._eager_sweeps,
+        )
+
+    def _sweep_built(self, plans, dynamic=False, caps=None, resident=False,
+                     incumbent_only=False, device_metrics=False):
+        """The built sweep for ``plans`` from the cache, and what building
+        it cost: ``(sweep, build_capture_s, cache_hit)``. A miss builds the
+        sweep and, on a card, captures its graph here, so the capture is
+        charged to ``build_capture_s`` (build + capture + instantiate
+        seconds) and never to the chunk's execute time; a hit costs 0.0."""
+        key = self._sweep_key(plans, dynamic=dynamic, caps=caps, resident=resident,
+                              incumbent_only=incumbent_only,
+                              device_metrics=device_metrics)
+        hit = _SWEEP_CACHE.get(key)
+        if hit is not None:
+            return hit, 0.0, True
+        t0 = time.perf_counter()
+        sweep = self._sweep_fn(
+            plans, warm_counts={b: len(l) for b, l in self._warm_l.items()},
+            dynamic_counts=dynamic, capacities=caps,
+            return_state=dynamic and not incumbent_only, resident=resident,
+            incumbent_only=incumbent_only, device_metrics=device_metrics,
+        )
+        prepare = getattr(sweep, "prepare", None)  # a wrapped sweep may not carry it
+        if prepare is not None:
+            prepare()
+        build_s = time.perf_counter() - t0
+        _SWEEP_CACHE[key] = sweep
+        return sweep, build_s, False
 
     def _dynamic_warm(self, run_caps: Dict[float, int], d: int):
         """The host fold of the warm observations as the dynamic tier's
         full-capacity inputs on the device: ``((warm_v, warm_l, warm_n),
-        bytes uploaded, tensors uploaded)``. Pads are (0-vector, +inf loss),
+        bytes uploaded)``. Pads are (0-vector, +inf loss),
         exactly what the device appends leave in a threaded state."""
         warm_v_pad, warm_l_pad, warm_n = {}, {}, {}
         for b, cap in run_caps.items():
@@ -630,7 +807,28 @@ class FusedBOHB:
             warm_v_pad[b].nbytes + warm_l_pad[b].nbytes + 4 for b in run_caps
         )
         warm = dynamic_obs_from_numpy(warm_v_pad, warm_l_pad, warm_n, self.device)
-        return warm, nbytes, 3 * len(run_caps)
+        return warm, nbytes
+
+    def _write_timings_sidecar(self) -> None:
+        """Write ``run_stats`` as ``fused_timings.json`` beside the result
+        logger's files (when it has them). Entries merge with what is on
+        disk: a second optimizer on the same logger, or a run resumed from
+        a checkpoint, appends, and entries already there verbatim are not
+        written twice."""
+        results_fn = getattr(self.result_logger, "results_fn", None)
+        if not results_fn:
+            return
+        path = os.path.join(os.path.dirname(results_fn), "fused_timings.json")
+        existing: List[Dict[str, Any]] = []
+        if os.path.exists(path):
+            try:
+                with open(path) as fh:
+                    existing = json.load(fh)
+            except (OSError, ValueError):
+                existing = []
+        merged = existing + [s for s in self.run_stats if s not in existing]
+        with open(path, "w") as fh:
+            json.dump(merged, fh, indent=1)
 
     def save_checkpoint(self, path: str) -> None:
         """Write the fused-tier checkpoint (``core/checkpoint.py``): warm

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from hpbandster_tpu_torch.device import resolve_device, upload
+from hpbandster_tpu_torch.obs.runtime import note_transfer
 
 __all__ = ["VmapBackend"]
 
@@ -63,10 +64,13 @@ class VmapBackend:
         n, d = vectors.shape
         padded = np.zeros((self._padded_size(n), d), np.float32)
         padded[:n] = vectors
+        note_transfer("h2d", padded.nbytes)
         (batch,) = upload(self.device, padded)
         losses = self.eval_fn(batch, float(budget))
         if losses.shape != (padded.shape[0],):
             raise ValueError(
                 f"eval_fn must return one loss per row, f32[{padded.shape[0]}], "
                 f"got shape {tuple(losses.shape)}")
-        return losses.to(torch.float32).cpu().numpy()[:n]
+        out = losses.to(torch.float32).cpu().numpy()
+        note_transfer("d2h", out.nbytes)
+        return out[:n]

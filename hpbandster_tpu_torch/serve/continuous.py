@@ -40,6 +40,7 @@ from hpbandster_tpu_torch.ops.buckets import (
     BucketPlan,
     StaticProgram,
     _packed_row,
+    fetch_packed,
     fused_sh_bracket_bucketed_packed_carry,
     member_counts_for,
 )
@@ -214,7 +215,7 @@ class ContinuousRunner:
             self.chunks_run += 1
             self._last_starved = (self.lane_count - len(entries)) if waiting > 0 else 0
         lanes = [lane for lane, _ in placements]
-        return lambda: demux(packed.cpu().numpy(), self.bucket, entries, lanes)
+        return lambda: demux(fetch_packed(packed), self.bucket, entries, lanes)
 
     def run_chunk(self, entries: Sequence[PackEntry], d: int, waiting: int = 0):
         """Dispatch and fetch one chunk: each entry's true-shape per-stage

@@ -32,6 +32,7 @@ from hpbandster_tpu_torch.ops.buckets import (
     BucketPlan,
     StaticProgram,
     _packed_row,
+    fetch_packed,
     fused_sh_bracket_bucketed_packed,
     slice_member_stages,
     unpack_flat,
@@ -128,7 +129,7 @@ class MegaRunner:
     def demux(self, packed: torch.Tensor, entries: Sequence[PackEntry]):
         """Fetch one dispatch (one transfer, which waits) and cut it into
         each member's true-shape per-stage ``(indices, losses)``."""
-        return demux(packed.cpu().numpy(), self.bucket, entries)
+        return demux(fetch_packed(packed), self.bucket, entries)
 
     def run_packed(self, entries: Sequence[PackEntry], d: int):
         """Dispatch and demux in one call."""

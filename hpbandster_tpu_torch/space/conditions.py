@@ -115,6 +115,10 @@ class _Conjunction(Condition):
         self.components = list(components)
         self.child_name = components[0].child_name
 
+    def __repr__(self) -> str:
+        # by value, so equal conjunctions of two spaces key a cache alike
+        return f"{type(self).__name__}({', '.join(map(repr, self.components))})"
+
     def parents(self) -> List[str]:
         out: List[str] = []
         for c in self.components:

@@ -24,6 +24,12 @@ class ForbiddenClause:
     def is_forbidden(self, values: Dict[str, Any]) -> bool:
         raise NotImplementedError
 
+    def __repr__(self) -> str:
+        # by value, so equal clauses of two spaces key a cache alike
+        # (FusedBOHB's sweep cache keys forbidden spaces by their reprs)
+        fields = ", ".join(f"{k}={v!r}" for k, v in vars(self).items())
+        return f"{type(self).__name__}({fields})"
+
 
 class ForbiddenEqualsClause(ForbiddenClause):
     def __init__(self, hyperparameter, value: Any):

@@ -20,6 +20,16 @@ from tests.test_torch_harness import REPO, ref  # noqa: F401
 from tests.test_torch_sweep import _expected_runs_per_budget, _runs_per_budget
 
 
+@pytest.fixture(autouse=True)
+def fresh_sweep_cache():
+    """Every test builds its own sweeps: a sweep cached by an earlier test
+    (the same module-level objective and settings) would bypass a patched
+    ``make_fused_sweep_fn``."""
+    fused_bohb._SWEEP_CACHE.clear()
+    yield
+    fused_bohb._SWEEP_CACHE.clear()
+
+
 def make_fused(seed=7, **kw):
     return FusedBOHB(
         configspace=branin_space(seed=seed), eval_fn=branin, run_id="fused-ckpt",

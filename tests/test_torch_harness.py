@@ -376,7 +376,9 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.obs.events",
     "hpbandster_tpu_torch.obs.journal",
     "hpbandster_tpu_torch.obs.metrics",
+    "hpbandster_tpu_torch.obs.profile",
     "hpbandster_tpu_torch.obs.report",
+    "hpbandster_tpu_torch.obs.runtime",
     "hpbandster_tpu_torch.obs.trace",
     "hpbandster_tpu_torch.promote",
     "hpbandster_tpu_torch.promote.asha",
@@ -419,6 +421,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.space.conditions",
     "hpbandster_tpu_torch.space.forbidden",
     "hpbandster_tpu_torch.utils.lru",
+    "hpbandster_tpu_torch.utils.profiling",
     "hpbandster_tpu_torch.workloads",
     "hpbandster_tpu_torch.workloads.cnn",
     "hpbandster_tpu_torch.workloads.ensemble",

@@ -253,9 +253,14 @@ def test_lineage_and_unported_configure(ref_obs, tmp_path):
         {"event": "job_finished", "config_id": "junk", "budget": 1.0, "loss": 1.0},
     ]
     assert obs.config_lineage(records) == ref_obs.config_lineage(records)
-    for kw in ({"anomaly": True}, {"slo": True}, {"device_sampler": True}):
+    for kw in ({"anomaly": True}, {"slo": True}):
         with pytest.raises(NotImplementedError, match="A8"):
             obs.configure(journal_path=str(tmp_path / "x.jsonl"), **kw)
+    assert not obs.get_bus().active
+    # the device sampler is ported: it attaches and the handle stops it
+    with obs.configure(journal_path=str(tmp_path / "y.jsonl"), device_sampler=60.0) as h:
+        assert h.sampler is not None
+    assert h.sampler is None and obs.runtime_snapshot()["devices"] is None
     assert not obs.get_bus().active
 
 

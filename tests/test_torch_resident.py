@@ -285,7 +285,10 @@ def test_run_incumbent_agrees_with_the_resident_result():
     np.testing.assert_allclose(inc["vector"], vec, rtol=0, atol=1e-6)
     assert out["evaluations"] == len(res.get_all_runs())
     t = out["transfers"]
-    assert t["transfers_h2d"] == 3 * len(ref_opt._warm_v) and t["transfer_bytes_h2d"] > 0
+    # the ledger's units: one warm upload of every budget's 256-slot
+    # buffers and count (the reference's bytes less its 4-byte seed)
+    assert t["transfers_h2d"] == 1
+    assert t["transfer_bytes_h2d"] == len(ref_opt._warm_v) * (256 * (2 + 1) * 4 + 4)
     assert t["transfers_d2h"] == 4 and t["transfer_bytes_d2h"] == 4 * (2 + 1 + 1 + 9)
     # the unrolled incumbent-only sweep gives the same payload
     assert _make().run_incumbent(n_iterations=9, resident=False)["incumbent"] == inc
