@@ -75,7 +75,15 @@ Phases, each fatal on failure:
    ``profile_dir`` from a cold cache, its graphs captured under the
    profiler, and again on the cached graphs, each trace naming
    ``kde_score``; the roofline's rows against the capture ledger and the
-   card's peaks); then the training workloads at
+   card's peaks) and ``observability`` (the flight recorder:
+   ``chunked_long``'s schedule with ``device_metrics=True``, a journal and
+   a ``TimelineRecorder``, then its twin with a checkpoint: the spans by
+   name, each inside the run's window, the twins equal bit for bit, the
+   critical path's phases within 1% of its window, the Perfetto export's
+   device row, and ``python -m hpbandster_tpu_torch.obs`` ``summarize``,
+   ``report``, ``timeline``, ``critical-path``, ``slo`` and ``alerts`` on
+   the journal, each exiting 0; prints each chunk's phase spans beside
+   ``execute_fetch_s``, ``replay_overlap_s`` and the fetch wait); then the training workloads at
    the reference's full widths (``bench.py``'s settings), each sweep with
    its counts reset and read the same way: the CNN (``CNNConfig()``,
    budgets 3..81) static for 5 brackets, whose incumbent must reach
@@ -118,7 +126,14 @@ Phases, each fatal on failure:
    ranking, a finite incumbent, its accuracy reported); each prints wall,
    runs per second in total and per tenant, packed and solo brackets,
    every graph's capture, instantiate and replay times, host syncs per
-   bracket and peak memory; then the promotion rules and the journal, each
+   bracket and peak memory (``batched_bohb_bucketed`` with
+   ``HPB_DEVICE_METRICS=1`` journals one ``device_telemetry`` record per
+   dispatched member, ``serve_continuous`` its ``lane_assigned`` /
+   ``lane_released`` events equal to the lane allocator's ownership
+   changes and freed lanes with ``serve.lane_occupancy`` in (0, 1]; both
+   run with ``obs.configure(anomaly=True, slo=True)``, and the offline
+   replays of their journals must equal what the live detector and alert
+   manager emitted); then the promotion rules and the journal, each
    path with its counts reset and read the same way and an obs journal
    attached (``obs.configure(journal_path=...)``): ``batched_bohb_asha``
    (``BOHB(promotion_rule="asha")`` at the ``batched_bohb`` setting: at
@@ -179,7 +194,15 @@ Phases, each fatal on failure:
    in turns, and the records each journal holds (``obs overhead``, no
    claim); then the cached paths' runs back to back on one sweep cache
    that nothing empties (``cache_memory``: entries, allocated and reserved
-   bytes after each, the peaks, the bytes the full cache pins);
+   bytes after each, the peaks, the bytes the full cache pins); then
+   ``cache_pressure`` (18 full-width CNN sweeps of distinct keys on one
+   cache: no out-of-memory, each a miss passing the workload gates, the
+   pinned total within the cache's byte bound plus one entry, and the
+   memory back once it is emptied; ``--cache-pressure`` runs this phase
+   alone, to measure another checkout); then ``exporter_collector`` (an
+   ``ExporterServer`` on 127.0.0.1 serving the registry with the transfer
+   and lane gauges, and a ``FleetCollector`` deriving a fleet row from a
+   ``HealthEndpoint`` snapshot through an injected fetcher);
 6. hold each kernel against its plain version on every input the main
    paths gave it (a launch captured into a CUDA graph holds its latest
    replay's inputs), with the arguments the path passed (for the masked
@@ -279,6 +302,9 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "chunked_long": {"kde_score": 50, "kde_moments": 50},
                       "sweep_cache": {"kde_score": 60, "kde_moments": 60},
                       "runtime_ledger": {"kde_score": 20, "kde_moments": 20},
+                      # the flight recorder: chunked_long's schedule twice
+                      # (pipelined, then checkpointed on the cached graphs)
+                      "observability": {"kde_score": 100, "kde_moments": 100},
                       # the training workloads: static sweeps score every
                       # bracket after the first; the dynamic tiers (the CNN
                       # with the moment-kernel fit, the ensemble without it)
@@ -1804,7 +1830,12 @@ def drive_batched_bucketed(torch, dev, max_budget=81.0, n_iterations=10):
     objective = fresh_objective(toys.hartmann6)
     before = capture_counts()
     opt = batched_optimizer(dev, "BOHB", objective_fn=objective)
-    res, rec = run_batched(torch, dev, opt, n_iterations)
+    # the bucket programs carry the device metrics; each member's decoded
+    # record goes to the journal beside the live detectors' verdicts
+    with env_flags(HPB_DEVICE_METRICS="1"):
+        with live_detectors("batched_bohb_bucketed") as live:
+            res, rec = run_batched(torch, dev, opt, n_iterations)
+        runners = make_runners(opt.executor, objective)
     ex = opt.executor
     captured = capture_counts()["fused_bucket"] - before["fused_bucket"]
     fusable = sum(len(hyperband_bracket(i, 1.0, max_budget, 3.0).num_configs) >= 2
@@ -1822,7 +1853,9 @@ def drive_batched_bucketed(torch, dev, max_budget=81.0, n_iterations=10):
     check_wave_launches("batched_bohb_bucketed", opt.iterations)
     rec.update(buckets=[list(b.widths) for b in ex._bucket_set.buckets],
                graphs_captured=captured, bucketed_brackets_run=ex.bucketed_brackets_run,
-               programs=program_stats(make_runners(ex, objective)))
+               programs=program_stats(runners),
+               **check_member_telemetry("batched_bohb_bucketed", ex, live["records"]),
+               live_detectors=live["verdict"])
     print("batched_bohb_bucketed path " + json.dumps(rec), flush=True)
     BATCHED_RUNS["batched_bohb_bucketed"] = (opt, res, rec)
     return res
@@ -1998,9 +2031,17 @@ def drive_serve(torch, dev, label, continuous, n_iterations=10):
                       continuous=continuous, lane_count=8,
                       scheduler=bracket_quantum(81.0, n_iterations))
     before = capture_counts()
-    opts, results, rec = serve_tenants(
-        torch, dev, label, pool, serve_bohb_factory(dev, toys.hartmann6_space, num_samples=64),
-        SERVE_SEEDS, n_iterations, shutdown=not continuous)
+    # continuous: the lanes' events and the live detectors' journal
+    with (live_detectors(label) if continuous else contextlib.nullcontext({})) as live, \
+            (lane_tally() if continuous else contextlib.nullcontext()) as tally:
+        opts, results, rec = serve_tenants(
+            torch, dev, label, pool,
+            serve_bohb_factory(dev, toys.hartmann6_space, num_samples=64),
+            SERVE_SEEDS, n_iterations, shutdown=not continuous)
+        if continuous:
+            rec["lane_incumbents"] = check_lane_incumbents(label, pool, opts, results)
+            for opt in opts.values():
+                opt.shutdown()
     after = capture_counts()
     captured = {k: after[k] - before[k] for k in after}
     n_buckets = rec["buckets"]
@@ -2011,11 +2052,10 @@ def drive_serve(torch, dev, label, continuous, n_iterations=10):
         if captured["continuous_bracket"] > n_buckets or captured["fused_bucket"] or \
                 captured["megabatch_bracket"]:
             raise AssertionError(f"{label}: captures {captured} for {n_buckets} families")
-        rec["lane_incumbents"] = check_lane_incumbents(label, pool, opts, results)
-        for opt in opts.values():
-            opt.shutdown()
         if any(snap["occupied"] for snap in pool.snapshot()["lanes"]):
             raise AssertionError(f"{label}: lanes still owned after every tenant left")
+        rec.update(check_lane_events(label, tally, live["records"]),
+                   live_detectors=live["verdict"])
     else:
         if captured["fused_bucket"] + captured["megabatch_bracket"] > 2 * n_buckets or \
                 captured["continuous_bracket"]:
@@ -2503,6 +2543,404 @@ def measure_cache_memory(torch, dev):
                cache_entries_at_end=entries, reserved_with_full_cache_bytes=full,
                reserved_with_empty_cache_bytes=emptied, cache_pins_bytes=full - emptied)
     print("cache_memory " + json.dumps(rec), flush=True)
+
+
+#: cache_pressure: CNN sweeps of distinct cache keys on one cache, the
+#: dynamic tier at 1..9 brackets without and with the device metrics: 18
+#: sweeps (the cache holds 16), each one CUDA graph of full-width CNN
+#: training
+PRESSURE_SWEEPS = [(n, dm) for dm in (False, True) for n in range(1, 10)]
+
+
+def _settled_reserved(torch, dev):
+    """Reserved bytes something still holds (free cached blocks released)."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def measure_cache_pressure(torch, dev):
+    """``cache_pressure``: the CNN (``CNNConfig()``, budgets 3..81) through
+    the dynamic tier, one sweep per entry of ``PRESSURE_SWEEPS`` on one
+    objective, each a fresh optimizer, none clearing the cache: each a
+    cache miss whose captured graph the cache keeps. Prints each sweep's
+    pinned bytes (the cache's record of the new entry, and the settled
+    reserved delta), the peaks and what the full cache pins. Gates: no
+    sweep runs out of memory, every sweep a miss passing the workload
+    sweep gates, the cache's pinned total within its byte bound plus one
+    entry, and the card's reserved bytes back within one entry of the start
+    once the cache is emptied (evicted graphs free their pools). Runs on a
+    checkout without the byte bound too, printing what happened there (no
+    per-entry record)."""
+    from hpbandster_tpu_torch import FusedBOHB
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    cache = fused_bohb._SWEEP_CACHE
+    share = getattr(fused_bohb, "_SWEEP_CACHE_MEMORY_SHARE", None)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    bound = None if share is None else int(share * total)
+    base, min_b, max_b, error_rate, _ = workload_optimizer("cnn", dev)
+    cache.clear()
+    start = _settled_reserved(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows, oom = [], None
+    for n, dm in PRESSURE_SWEEPS:
+        opt = FusedBOHB(configspace=base.configspace, eval_fn=base.eval_fn, min_budget=min_b,
+                        max_budget=max_b, eta=3, seed=0, device=dev)
+        before = _settled_reserved(torch, dev)
+        t0 = time.perf_counter()
+        try:
+            res = opt.run(n_iterations=n, dynamic_counts=True, device_metrics=dm)
+            torch.cuda.synchronize(dev)
+        except torch.cuda.OutOfMemoryError as e:
+            oom = dict(sweep=len(rows), n_iterations=n, device_metrics=dm,
+                       cache_entries=len(cache), error=str(e).splitlines()[0][:300])
+            break
+        wall = time.perf_counter() - t0
+        after = _settled_reserved(torch, dev)
+        sizes = cache.sizes() if hasattr(cache, "sizes") else None
+        stat = opt.run_stats[-1]
+        row = dict(n_iterations=n, device_metrics=dm, wall_s=wall,
+                   cache_hit=stat["compile_cache_hit"], build_compile_s=stat["build_compile_s"],
+                   cache_entries=len(cache),
+                   entry_pinned_bytes=None if sizes is None else sizes[-1],
+                   cache_pinned_bytes=None if sizes is None else sum(sizes),
+                   reserved_bytes=after, reserved_delta_bytes=after - before,
+                   allocated_bytes=torch.cuda.memory_allocated(dev),
+                   **check_workload_sweep(f"cache_pressure n={n} dm={dm}", res, min_b, max_b,
+                                          n, error_rate))
+        rows.append(row)
+        print("cache_pressure sweep " + json.dumps(row), flush=True)
+    peaks = dict(peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+                 peak_allocated_bytes=torch.cuda.max_memory_allocated(dev))
+    full = _settled_reserved(torch, dev)
+    entries = len(cache)
+    cache.clear()
+    emptied = _settled_reserved(torch, dev)
+    pinned = [r["cache_pinned_bytes"] for r in rows if r["cache_pinned_bytes"] is not None]
+    entry = [r["entry_pinned_bytes"] for r in rows if r["entry_pinned_bytes"] is not None]
+    rec = dict(card_total_bytes=total, share=share, bound_bytes=bound, sweeps=len(rows),
+               oom=oom, **peaks, start_reserved_bytes=start,
+               reserved_with_full_cache_bytes=full, reserved_after_clear_bytes=emptied,
+               retained_after_clear_bytes=emptied - start,
+               cache_pins_bytes=full - emptied, cache_entries_at_end=entries,
+               max_cache_pinned_bytes=max(pinned, default=None),
+               max_entry_pinned_bytes=max(entry, default=None),
+               min_entry_pinned_bytes=min(entry, default=None))
+    print("cache_pressure " + json.dumps(rec), flush=True)
+    if oom is not None:
+        raise AssertionError(f"cache_pressure: out of device memory at sweep {oom}")
+    if len(rows) < 17 or any(r["cache_hit"] for r in rows):
+        raise AssertionError(f"cache_pressure: {len(rows)} sweeps, hits "
+                             f"{[r['cache_hit'] for r in rows]}")
+    if bound is not None and not max(pinned) <= bound + max(entry):
+        raise AssertionError(f"cache_pressure: the cache pinned {max(pinned)} bytes, over "
+                             f"its bound {bound} plus one entry {max(entry)}")
+    if bound is not None and not rec["retained_after_clear_bytes"] <= min(entry):
+        raise AssertionError(f"cache_pressure: {rec['retained_after_clear_bytes']} bytes stay "
+                             "reserved after the cache is emptied, more than one entry pins")
+
+
+OBS_RUNS = {}
+#: the flight recorder's spans of one chunk, in run order
+CHUNK_SPANS = ("chunk_staging", "compile_lookup", "telemetry_fetch", "chunk_accounting",
+               "obs_fold")
+#: the CLI commands run on the observability journal
+OBS_CLI = ("summarize", "report", "timeline", "critical-path", "slo", "alerts")
+
+
+def chunk_breakdown(opt, spans):
+    """Per chunk, its phase spans' milliseconds (the k-th span of each name
+    belongs to chunk k) beside ``execute_fetch_s``, ``replay_overlap_s``
+    and their difference, the fetch wait."""
+    by_name = {}
+    for r in spans:
+        by_name.setdefault(r["event"], []).append(r["duration_s"] * 1e3)
+    rows = []
+    for k, stat in enumerate(opt.run_stats):
+        row = dict(chunk=k, hit=stat["compile_cache_hit"],
+                   **{f"{n}_ms": by_name[n][k] for n in CHUNK_SPANS},
+                   execute_fetch_ms=stat["execute_fetch_s"] * 1e3,
+                   replay_overlap_ms=(stat["replay_overlap_s"] * 1e3
+                                      if "replay_overlap_s" in stat else None))
+        row["fetch_wait_ms"] = (None if row["replay_overlap_ms"] is None
+                                else row["execute_fetch_ms"] - row["replay_overlap_ms"])
+        rows.append(row)
+    return rows
+
+
+def _medians(rows):
+    keys = [k for k in rows[0] if k.endswith("_ms")] if rows else []
+    return {k: float(np.median([r[k] for r in rows if r[k] is not None]))
+            for k in keys if any(r[k] is not None for r in rows)}
+
+
+def run_obs_cli(path, out_dir):
+    """``python -m hpbandster_tpu_torch.obs <command> <journal>`` for every
+    command of ``OBS_CLI`` at once, each its own process: ``{command:
+    (exit code, stdout bytes)}``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for cmd in OBS_CLI:
+        extra = ["--out", os.path.join(out_dir, "cli_trace.json")] if cmd == "timeline" else []
+        procs[cmd] = subprocess.Popen([sys.executable, "-m", "hpbandster_tpu_torch.obs", cmd,
+                                       path, *extra], cwd=root, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE)
+    out = {}
+    for cmd, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            stdout, stderr = p.communicate()
+        out[cmd] = (p.returncode, len(stdout), stderr.decode()[-500:])
+    return out  # timeline writes its trace to out_dir/cli_trace.json
+
+
+def drive_observability(torch, dev):
+    """The flight recorder on ``chunked_long``'s schedule
+    (``run(n_iterations=50, chunk_brackets=5, device_metrics=True)``,
+    ``HPB_PALLAS_KDE_FIT=1``) with a journal and a ``TimelineRecorder``
+    attached, and its twin with a checkpoint (the replay in turn). Gates:
+    the spans by name (``sweep_planning`` and ``sweep_setup`` once, each
+    chunk span once a chunk, ``bracket_replay`` once, or once a chunk with
+    the checkpoint), every span inside the run's wall window, the twins
+    equal bit for bit and each passing the sweep gates, the critical path's
+    phases summing to its window within 1%, the Perfetto export parsing as
+    JSON with a device row laid out from the ``device_telemetry`` record,
+    and the CLI's commands on the journal each exiting 0. Prints the
+    ``observability`` line: per chunk the phase spans' ms beside
+    ``execute_fetch_s``, ``replay_overlap_s`` and the fetch wait, hit and
+    miss chunks apart, and the critical path by phase."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.obs import timeline as T
+    from hpbandster_tpu_torch.workloads.toys import hartmann6
+
+    chunks = LONG_BRACKETS // LONG_CHUNK
+    runs = {}
+    with moments_fit_flag():
+        for label, kw in (("pipelined", {}), ("checkpointed", dict(
+                checkpoint_path=os.path.join(JOURNAL_DIR, "observability.pkl")))):
+            path = os.path.join(JOURNAL_DIR, f"observability_{label}.jsonl")
+            opt = chunked_optimizer(dev)
+            with obs.configure(journal_path=path), T.TimelineRecorder() as rec:
+                t_lo = time.monotonic()
+                res, wall = run_long(torch, dev, opt, device_metrics=True, **kw)
+                t_hi = time.monotonic()
+            spans = [r for r in rec.records if r.get("phase")]
+            counts = {}
+            for r in spans:
+                counts[r["event"]] = counts.get(r["event"], 0) + 1
+            want = dict(sweep_planning=1, sweep_setup=1, **{n: chunks for n in CHUNK_SPANS},
+                        bracket_replay=1 if label == "pipelined" else chunks)
+            if counts != want:
+                raise AssertionError(f"observability {label}: spans {counts} != {want}")
+            outside = [r["event"] for r in spans if r["t_mono"] - r["duration_s"] < t_lo - 2e-6
+                       or r["t_mono"] > t_hi]
+            if outside:
+                raise AssertionError(f"observability {label}: spans outside the run: {outside}")
+            sweep = check_sweep(torch, dev, f"observability {label}", opt, res, hartmann6, 81.0,
+                                LONG_BRACKETS)
+            runs[label] = (opt, res, path, spans, wall, sweep)
+    (opt, res, path, spans, wall, sweep), (opt_c, res_c, _, spans_c, wall_c, _) = \
+        runs["pipelined"], runs["checkpointed"]
+    compare_sweeps("observability", LONG_BRACKETS, opt, res, opt_c, res_c,
+                   kind="observability checkpointed parity")
+    records = obs.read_journal(path)
+    cp = T.critical_path(records)
+    phase_sum = sum(p["s"] for p in cp["phases"].values())
+    if not abs(phase_sum - cp["end_to_end_s"]) <= 0.01 * cp["end_to_end_s"]:
+        raise AssertionError(f"observability: the critical path's phases sum to {phase_sum} s "
+                             f"of its {cp['end_to_end_s']} s window")
+    doc = json.loads(json.dumps(T.to_chrome_trace(records)))
+    threads = {e["args"]["name"] for e in doc["traceEvents"]
+               if e["ph"] == "M" and e["name"] == "thread_name"}
+    device_slices = [e for e in doc["traceEvents"]
+                     if e["ph"] == "X" and e["name"].startswith("rung b")]
+    telemetry = [r for r in records if r["event"] == "device_telemetry"]
+    if "device" not in threads or len(telemetry) != 1 or \
+            len(device_slices) != len(telemetry[0]["rung_order"]):
+        raise AssertionError(f"observability: the export's device row: threads {threads}, "
+                             f"{len(device_slices)} rung slices for {len(telemetry)} records")
+    cli = run_obs_cli(path, JOURNAL_DIR)
+    with open(os.path.join(JOURNAL_DIR, "cli_trace.json")) as fh:
+        cli_trace = json.load(fh)
+    if any(rc != 0 or not (n or cmd == "timeline") for cmd, (rc, n, _) in cli.items()) \
+            or cli_trace["otherData"]["slices"] != doc["otherData"]["slices"]:
+        raise AssertionError(f"observability: the CLI failed: {cli}")
+    rows = chunk_breakdown(opt, spans)
+    for row in rows:
+        print("observability chunk " + json.dumps(row), flush=True)
+    rec = dict(brackets=LONG_BRACKETS, chunk_brackets=LONG_CHUNK, wall_s=wall,
+               checkpointed_wall_s=wall_c, records=len(records), spans=len(spans),
+               span_ms_total={n: sum(r["duration_s"] for r in spans if r["event"] == n) * 1e3
+                              for n in ("sweep_planning", "sweep_setup", "bracket_replay",
+                                        *CHUNK_SPANS)},
+               checkpointed_bracket_replay_ms=[r["duration_s"] * 1e3 for r in spans_c
+                                               if r["event"] == "bracket_replay"],
+               hit_medians_ms=_medians([r for r in rows if r["hit"]]),
+               miss_medians_ms=_medians([r for r in rows if not r["hit"]]),
+               critical_path=dict(end_to_end_s=cp["end_to_end_s"],
+                                  attributed_share=cp["attributed_share"],
+                                  phases={p: v["s"] for p, v in cp["phases"].items()},
+                                  unattributed_s=cp["unattributed_s"]),
+               perfetto=doc["otherData"], cli={c: rc for c, (rc, _, _) in cli.items()},
+               **sweep)
+    print("observability " + json.dumps(rec), flush=True)
+    OBS_RUNS["observability"] = rec
+    return res
+
+
+@contextlib.contextmanager
+def live_detectors(label):
+    """A journal with the anomaly detector and the SLO alert manager live
+    (``obs.configure(anomaly=True, slo=True)``) for one path; afterwards
+    the offline replays of the journal (``scan_records``,
+    ``scan_slo_records``) must equal what the live ones emitted. Yields a
+    dict that holds the records and the verdict afterwards."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.obs.alerts import scan_slo_records
+    from hpbandster_tpu_torch.obs.anomaly import scan_records
+
+    path = os.path.join(JOURNAL_DIR, f"{label}_live.jsonl")
+    out = {}
+    with obs.configure(journal_path=path, anomaly=True, slo=True) as h:
+        yield out
+    records = obs.read_journal(path)
+    envelope = ("event", "t_wall", "t_mono", "host", "pid", "trace_id", "tenant_id")
+
+    def payload(alert):
+        return json.dumps({k: v for k, v in alert.items() if k not in envelope},
+                          sort_keys=True, default=str)
+
+    offline = scan_records(records)
+    live = list(h.anomaly.alerts)
+    journaled = [r for r in records if r["event"] == "alert"]
+    slo_keys = ("slo", "severity", "state", "burn_short", "burn_long", "budget_remaining",
+                "key")
+    recomputed = scan_slo_records(records)
+    slo_live = [{k: t.get(k) for k in slo_keys} for t in h.slo.transitions]
+    slo_journaled = [{k: r.get(k) for k in slo_keys} for r in records
+                     if r["event"] == "slo_alert"]
+    slo_offline = [{k: t.get(k) for k in slo_keys} for t in recomputed.transitions]
+    checks = dict(
+        anomaly_replay_equal=sorted(map(payload, offline)) == sorted(map(payload, live))
+        == sorted(map(payload, journaled)),
+        slo_replay_equal=slo_offline == slo_live == slo_journaled,
+        slo_published_equal=recomputed.published() == h.slo.published())
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: the offline replays differ from the live detectors: "
+                             f"{checks}; alerts {len(offline)} offline, {len(live)} live; "
+                             f"slo transitions {len(slo_offline)} offline, {len(slo_live)} live")
+    rules = {}
+    for a in live:
+        rules[a["rule"]] = rules.get(a["rule"], 0) + 1
+    out.update(records=records, verdict=dict(
+        **checks, alerts_fired=rules, slo_transitions=len(slo_live),
+        slo_states=sorted({t["state"] for t in slo_live}), journal_records=len(records)))
+    print(f"{label} live detectors " + json.dumps(out["verdict"]), flush=True)
+
+
+def check_member_telemetry(label, ex, records):
+    """The bucketed executor journals one ``device_telemetry`` record per
+    member bracket it dispatched, each with its rung plan."""
+    tel = [r for r in records if r["event"] == "device_telemetry"]
+    if len(tel) != ex.bucketed_brackets_run or not all(r.get("rung_order") for r in tel):
+        raise AssertionError(f"{label}: {len(tel)} device_telemetry records for "
+                             f"{ex.bucketed_brackets_run} dispatched members")
+    return dict(member_telemetry_records=len(tel),
+                member_evaluations=sum(int(r.get("evaluations", 0)) for r in tel))
+
+
+@contextlib.contextmanager
+def lane_tally():
+    """Counts the lane allocator's ownership changes (placements that are
+    not warm) and the lanes it frees, over one path."""
+    from hpbandster_tpu_torch.serve.continuous import LaneAllocator
+
+    tally = dict(assigned=0, released=0)
+    assign, release = LaneAllocator.assign, LaneAllocator.release_tenant
+
+    def counted_assign(self, tenants):
+        placements = assign(self, tenants)
+        tally["assigned"] += sum(1 for _, warm in placements if not warm)
+        return placements
+
+    def counted_release(self, tenant):
+        freed = release(self, tenant)
+        tally["released"] += len(freed)
+        return freed
+
+    LaneAllocator.assign, LaneAllocator.release_tenant = counted_assign, counted_release
+    try:
+        yield tally
+    finally:
+        LaneAllocator.assign, LaneAllocator.release_tenant = assign, release
+
+
+def check_lane_events(label, tally, records):
+    """The journal's ``lane_assigned`` / ``lane_released`` events equal the
+    allocator's ownership changes and freed lanes, and the pool's
+    ``serve.lane_occupancy`` gauge lies in (0, 1]."""
+    from hpbandster_tpu_torch import obs
+
+    events = {n: sum(1 for r in records if r["event"] == f"lane_{n}")
+              for n in ("assigned", "released")}
+    gauges = obs.get_metrics().snapshot()["gauges"]
+    occupancy = gauges.get("serve.lane_occupancy")
+    if events != tally or not tally["assigned"] or occupancy is None \
+            or not 0.0 < occupancy <= 1.0:
+        raise AssertionError(f"{label}: lane events {events} != allocator {tally}, "
+                             f"occupancy {occupancy}")
+    return dict(lane_events=events, lane_occupancy=occupancy,
+                lanes={k: gauges.get(f"serve.lanes.{k}") for k in
+                       ("total", "occupied", "starved")},
+                serve_chunks=sum(1 for r in records if r["event"] == "serve_chunk"))
+
+
+def check_exporter_and_collector(torch, dev):
+    """After the card's runs: an ``ExporterServer`` on 127.0.0.1 (port 0)
+    serves the process registry, and what it serves parses and holds the
+    ``sweep.transfer_bytes.*`` and ``serve.lanes.*`` gauges; a
+    ``FleetCollector`` polling a ``HealthEndpoint`` snapshot through an
+    injected fetcher derives one fleet row."""
+    import urllib.request
+
+    from hpbandster_tpu_torch.obs import collector, export, health
+    from hpbandster_tpu_torch.obs.events import EventBus
+    from hpbandster_tpu_torch.obs.metrics import MetricsRegistry
+
+    server = export.ExporterServer(0, host="127.0.0.1").start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode()
+    finally:
+        server.close()
+    parsed = export.parse_prometheus_text(body)
+    directions = {labels.get("direction") for labels, _ in
+                  parsed.get("hpbandster_sweep_transfer_bytes", {}).get("samples", [])}
+    lanes = {k[len("hpbandster_serve_lanes_"):] for k in parsed
+             if k.startswith("hpbandster_serve_lanes_")}
+    endpoint = health.HealthEndpoint("chip_smoke")
+    fleet = collector.FleetCollector({"card": "in-process"}, bus=EventBus(),
+                                     registry=MetricsRegistry(),
+                                     fetch=lambda uri, timeout: endpoint.snapshot())
+    sample = fleet.poll_once()
+    fleet.stop()
+    row = sample["endpoints"].get("card", {})
+    rec = dict(exposition_bytes=len(body), families=len(parsed),
+               transfer_directions=sorted(d for d in directions if d),
+               serve_lanes=sorted(lanes),
+               lane_occupancy_family="hpbandster_serve_lane_occupancy" in parsed,
+               fleet_ok=sample["fleet"]["ok"], fleet_endpoints=sample["fleet"]["endpoints"],
+               endpoint_lanes=row.get("lanes"))
+    print("exporter_collector " + json.dumps(rec), flush=True)
+    if not {"h2d", "d2h"} <= directions or not {"total", "occupied", "starved"} <= lanes \
+            or not rec["lane_occupancy_family"]:
+        raise AssertionError(f"exporter: the exposition lacks the transfer or lane gauges: {rec}")
+    if rec["fleet_ok"] != 1 or rec["fleet_endpoints"] != 1 or not row.get("lanes"):
+        raise AssertionError(f"collector: no fleet row from the health snapshot: {rec}")
 
 
 def drive_runtime_ledger(torch, dev, n_iterations=10):
@@ -3338,6 +3776,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile device time by kernel (sweeps, moment kernel)")
+    parser.add_argument("--cache-pressure", action="store_true",
+                        help="build the kernels and run the cache_pressure phase alone "
+                             "(to compare checkouts), then stop without a result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -3363,6 +3804,14 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     build_kernels()
+    if args.cache_pressure:
+        try:
+            measure_cache_pressure(torch, dev)
+        finally:
+            print(subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+        return 0
 
     # phase 2: kernels against plain versions at scale checks
     checks = {"kde_score": check_kde_score(torch, dev),
@@ -3392,6 +3841,8 @@ def main(argv=None) -> int:
         "chunked_long": drive_chunked_long,
         "sweep_cache": drive_sweep_cache,
         "runtime_ledger": drive_runtime_ledger,
+        # the flight recorder on chunked_long's schedule
+        "observability": drive_observability,
         # the training workloads at the reference's widths
         "cnn": drive_cnn,
         "cnn_unrolled": lambda torch, dev: drive_cnn_tier(
@@ -3490,6 +3941,8 @@ def main(argv=None) -> int:
     measure_conditional_host_work(torch, dev)
     measure_obs_overhead(torch, dev)
     measure_cache_memory(torch, dev)
+    measure_cache_pressure(torch, dev)
+    check_exporter_and_collector(torch, dev)
 
     # phase 6: kernels against plain versions on the main paths' own inputs
     held = check_recorded_launches(torch, recorded)

@@ -21,12 +21,28 @@ JAX package):
 * :mod:`~hpbandster_tpu_torch.obs.device_metrics` — the device metrics
   plane's decoder, its gauges and journal record, and the per-budget cost
   feed of Pareto promotion;
-* :mod:`~hpbandster_tpu_torch.obs.report` — ``promotion_hindsight``;
+* :mod:`~hpbandster_tpu_torch.obs.report` — the deterministic optimizer
+  report (``build_report`` / ``format_report``) and
+  ``promotion_hindsight``;
 * :mod:`~hpbandster_tpu_torch.obs.runtime` — the capture ledger (one
   record per CUDA-graph capture), the host-link transfer counters and the
   per-card memory sampler;
 * :mod:`~hpbandster_tpu_torch.obs.profile` — on-demand ``torch.profiler``
-  captures and the roofline over the capture ledger.
+  captures and the roofline over the capture ledger;
+* :mod:`~hpbandster_tpu_torch.obs.timeline` — the flight recorder:
+  :func:`phase_span` / :func:`mark`, :class:`TimelineRecorder`, the
+  Perfetto export and the critical path by phase;
+* :mod:`~hpbandster_tpu_torch.obs.anomaly`, :mod:`~hpbandster_tpu_torch.obs.slo`
+  and :mod:`~hpbandster_tpu_torch.obs.alerts` — streaming anomaly rules,
+  SLOs with multi-window burn rates and the alert lifecycle, each with a
+  byte-identical offline replay over a journal;
+* :mod:`~hpbandster_tpu_torch.obs.export`, :mod:`~hpbandster_tpu_torch.obs.health`
+  and :mod:`~hpbandster_tpu_torch.obs.collector` — the Prometheus text
+  exporter, the in-process health snapshot and crash dump, and the fleet
+  collector (over an injected fetcher);
+* ``python -m hpbandster_tpu_torch.obs summarize|report|timeline|
+  critical-path|replay|slo|alerts|watch|top|export`` — the CLI over
+  journals (:mod:`~hpbandster_tpu_torch.obs.summarize`).
 
 Everything here is stdlib-only and costs ~nothing when no sink is
 attached, so the instrumentation stays on; attach a sink to look::
@@ -39,10 +55,10 @@ attached, so the instrumentation stays on; attach a sink to look::
     finally:
         handle.close()
 
-Not ported yet (ROADMAP A8): the anomaly detector, SLOs and alerts, the
-fleet collector, the health endpoint, the exporter, the flight recorder
-(``timeline``), ``summarize`` and the CLI. The :func:`configure` arguments
-that attach them (``anomaly=``, ``slo=``) raise ``NotImplementedError``.
+What reaches another process over RPC (the collector's default fetcher,
+the exporter's ``snapshot_fetcher``, ``watch --snapshot`` and ``top``,
+``HealthEndpoint.register``) raises ``NotImplementedError`` until the RPC
+transport is ported (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -51,6 +67,15 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 from hpbandster_tpu_torch.obs import events as _events
 from hpbandster_tpu_torch.obs import metrics as _metrics
+from hpbandster_tpu_torch.obs.alerts import (  # noqa: F401
+    AlertManager,
+    scan_slo_records,
+)
+from hpbandster_tpu_torch.obs.anomaly import (  # noqa: F401
+    AnomalyDetector,
+    AnomalyRules,
+    scan_records,
+)
 from hpbandster_tpu_torch.obs.audit import (  # noqa: F401
     AUDIT_EVENTS,
     AUDIT_RULE_FIELDS,
@@ -62,6 +87,12 @@ from hpbandster_tpu_torch.obs.audit import (  # noqa: F401
     emit_promotion_decision,
     emit_sweep_incumbent,
     note_straggler,
+)
+from hpbandster_tpu_torch.obs.collector import (  # noqa: F401
+    FleetCollector,
+    derive_fleet,
+    format_fleet_table,
+    read_series,
 )
 from hpbandster_tpu_torch.obs.device_metrics import (  # noqa: F401
     budget_cost_from_obs,
@@ -106,6 +137,15 @@ from hpbandster_tpu_torch.obs.events import (  # noqa: F401
     span,
     use_profiler_annotations,
 )
+from hpbandster_tpu_torch.obs.export import (  # noqa: F401
+    parse_prometheus_text,
+    render_registry,
+    render_snapshot,
+)
+from hpbandster_tpu_torch.obs.health import (  # noqa: F401
+    HealthEndpoint,
+    install_crash_dump,
+)
 from hpbandster_tpu_torch.obs.journal import (  # noqa: F401
     JsonlJournal,
     RingBuffer,
@@ -138,6 +178,33 @@ from hpbandster_tpu_torch.obs.runtime import (  # noqa: F401
     start_device_sampler,
     transfer_counters,
 )
+from hpbandster_tpu_torch.obs.slo import (  # noqa: F401
+    DEFAULT_WINDOWS,
+    BurnWindow,
+    Selector,
+    SLOEvaluator,
+    SLOSpec,
+    default_slo_pack,
+)
+# KDE_REFIT deliberately not re-imported: the phase constant shares its
+# value with the already-exported event name (both "kde_refit")
+from hpbandster_tpu_torch.obs.timeline import (  # noqa: F401
+    ADMISSION,
+    COMPILE,
+    PHASES,
+    PROMOTION,
+    RPC,
+    RUNG_COMPUTE,
+    TRANSFER,
+    TimelineRecorder,
+    align_clocks,
+    build_timeline,
+    critical_path,
+    format_critical_path,
+    mark,
+    phase_span,
+    to_chrome_trace,
+)
 from hpbandster_tpu_torch.obs.trace import (  # noqa: F401
     DEFAULT_TENANT,
     TraceContext,
@@ -159,6 +226,10 @@ __all__ = [
     "JsonlJournal", "RingBuffer", "read_journal", "read_journal_ex",
     "journal_paths", "process_identity",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_metrics",
+    "HealthEndpoint", "install_crash_dump",
+    "AnomalyDetector", "AnomalyRules", "scan_records",
+    "AlertManager", "scan_slo_records", "SLOSpec", "SLOEvaluator",
+    "Selector", "BurnWindow", "DEFAULT_WINDOWS", "default_slo_pack",
     "TraceContext", "new_trace", "current_trace", "use_trace",
     "current_wire", "extract_wire",
     "DEFAULT_TENANT", "current_tenant", "use_tenant", "extract_tenant",
@@ -176,6 +247,8 @@ __all__ = [
     "runtime_snapshot", "start_device_sampler",
     "ProfileSession", "get_profile_session", "device_peaks",
     "roofline_report", "format_roofline",
+    "FleetCollector", "derive_fleet", "format_fleet_table", "read_series",
+    "render_snapshot", "render_registry", "parse_prometheus_text",
     "configure", "set_enabled", "enabled", "ObsHandle",
     "EVENT_TYPES", "JOB_SUBMITTED", "JOB_STARTED", "JOB_FINISHED",
     "JOB_FAILED", "WORKER_DISCOVERED", "WORKER_DROPPED",
@@ -186,13 +259,12 @@ __all__ = [
     "JOB_REQUEUED", "RESULT_REPLAYED", "DUPLICATE_RESULT",
     "WORKER_QUARANTINED", "CHAOS_FAULT", "SWEEP_INCUMBENT",
     "DEVICE_TELEMETRY", "RPC_CLIENT_CALL", "SLO_ALERT",
+    "PHASES", "ADMISSION", "COMPILE", "TRANSFER", "RUNG_COMPUTE",
+    "PROMOTION", "RPC",
+    "phase_span", "mark", "TimelineRecorder", "align_clocks",
+    "build_timeline", "to_chrome_trace", "critical_path",
+    "format_critical_path",
 ]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"obs.configure({what}) is not ported yet (ROADMAP A8: the "
-        "observability modules past the bus and the journal)")
 
 
 def set_enabled(flag: bool) -> None:
@@ -211,11 +283,15 @@ class ObsHandle:
 
     def __init__(self, detachers: List[Callable[[], None]],
                  journal: Optional[JsonlJournal], ring: Optional[RingBuffer],
-                 sampler: Optional[DeviceSampler] = None):
+                 anomaly: Optional[AnomalyDetector] = None,
+                 sampler: Optional[DeviceSampler] = None,
+                 slo: Optional[AlertManager] = None):
         self._detachers = detachers
         self.journal = journal
         self.ring = ring
+        self.anomaly = anomaly
         self.sampler = sampler
+        self.slo = slo
 
     def close(self) -> None:
         """Detach every sink, stop the sampler and close the journal file
@@ -246,9 +322,9 @@ def configure(
     ring_capacity: int = 0,
     identity: Union[bool, Dict[str, Any], None] = None,
     bus: Optional[EventBus] = None,
-    anomaly: Any = None,
+    anomaly: Union[bool, AnomalyRules, None] = None,
     device_sampler: Union[bool, float, None] = None,
-    slo: Any = None,
+    slo: Union[bool, List[SLOSpec], None] = None,
 ) -> ObsHandle:
     """Attach the standard sinks to ``bus`` (default: the process bus).
 
@@ -256,16 +332,19 @@ def configure(
     > 0`` additionally keeps the newest events in memory for post-mortems.
     ``identity`` stamps every journal record with this process's identity:
     ``True`` for the automatic ``{host, pid}`` pair, or a dict of extra
-    fields merged over it. ``device_sampler`` starts the periodic per-card
-    memory sampler (``True`` for the default 10 s cadence, or a number of
+    fields merged over it. ``anomaly`` attaches a streaming
+    :class:`AnomalyDetector` (``True`` for default :class:`AnomalyRules`,
+    or pass tuned rules); its ``alert`` events land in the same journal
+    and it is on the handle as ``handle.anomaly``. ``slo`` attaches an
+    :class:`AlertManager` (``True`` for :func:`default_slo_pack`, or pass
+    a list of :class:`SLOSpec`); its ``slo_alert`` transitions land in the
+    same journal (replayable with ``obs slo``) and it is on the handle as
+    ``handle.slo``. ``device_sampler`` starts the periodic per-card memory
+    sampler (``True`` for the default 10 s cadence, or a number of
     seconds; :class:`~hpbandster_tpu_torch.obs.runtime.DeviceSampler`),
-    kept on the handle as ``handle.sampler``. ``anomaly`` and ``slo``
-    attach modules the port has not yet and raise ``NotImplementedError``
-    when set. Returns an :class:`ObsHandle`; close it to detach (tests and
-    multi-run processes must, or sinks accumulate)."""
-    for name, value in (("anomaly=", anomaly), ("slo=", slo)):
-        if value:
-            raise _not_ported(name)
+    kept on the handle as ``handle.sampler``. Returns an
+    :class:`ObsHandle`; close it to detach (tests and multi-run processes
+    must, or sinks accumulate)."""
     bus = bus if bus is not None else get_bus()
     detachers: List[Callable[[], None]] = []
     journal = None
@@ -284,9 +363,23 @@ def configure(
     if ring_capacity > 0:
         ring = RingBuffer(ring_capacity)
         detachers.append(bus.subscribe(ring))
+    detector = None
+    if anomaly:
+        detector = AnomalyDetector(
+            rules=anomaly if isinstance(anomaly, AnomalyRules) else None,
+            bus=bus,
+        )
+        detachers.append(bus.subscribe(detector))
+    manager = None
+    if slo:
+        manager = AlertManager(
+            specs=slo if isinstance(slo, (list, tuple)) else None,
+            bus=bus,
+        )
+        detachers.append(bus.subscribe(manager))
     sampler = None
     if device_sampler:
         sampler = start_device_sampler(
             interval_s=10.0 if device_sampler is True else float(device_sampler)
         )
-    return ObsHandle(detachers, journal, ring, sampler)
+    return ObsHandle(detachers, journal, ring, detector, sampler, manager)

@@ -9,9 +9,10 @@ Design constraints (the acceptance bar in docs/observability.md):
   read + one boolean check and returns before an :class:`Event` is even
   constructed — the instrumented hot paths (master submit loop, batched
   waves) pay nothing when nobody is listening;
-* **thread-safe without emit-side locking**: the sink list is a
-  copy-on-write tuple, so emitters read it with one atomic load while
-  subscribe/unsubscribe swap whole tuples under the bus lock;
+* **thread-safe**: the sink list is a copy-on-write tuple, so emitters
+  read it with one atomic load while subscribe/unsubscribe swap whole
+  tuples under the bus lock; with a sink attached, one emit is stamped and
+  delivered under the bus's delivery lock, so every sink sees one order;
 * **monotonic durations**: spans measure with ``time.monotonic()`` —
   immune to wall-clock jumps — and carry ``time.time()`` alongside only
   for human-readable journal ordering (the same wall/mono split
@@ -209,13 +210,20 @@ def make_event(name: str, fields: Dict[str, Any]) -> Event:
 class EventBus:
     """Fan one emit out to every subscribed sink; sinks must not raise
     (if one does anyway, the error is logged and the other sinks still
-    receive the event — telemetry must never kill the run)."""
+    receive the event — telemetry must never kill the run).
+
+    Unlike the reference's bus, one emit is stamped and delivered to all
+    sinks under one re-entrant lock, so every sink sees the events of all
+    threads in the same order, the order of their stamps: a journal and a
+    live detector on one bus agree, and the detector's verdicts equal an
+    offline replay of the journal (a sink may emit from inside its call)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         # copy-on-write: emit() reads the tuple with one atomic load; the
         # lock only serializes subscribe/unsubscribe swaps
         self._sinks: Tuple[Sink, ...] = ()
+        self._deliver = threading.RLock()
 
     @property
     def active(self) -> bool:
@@ -240,12 +248,13 @@ class EventBus:
         sinks = self._sinks  # graftlint: disable=lock-coverage — copy-on-write tuple: an unlocked read sees a complete old/new tuple
         if not sinks or not _ENABLED:
             return None
-        ev = make_event(name, fields)
-        for sink in sinks:
-            try:
-                sink(ev)
-            except Exception:
-                logger.exception("obs sink %r failed on %s", sink, name)
+        with self._deliver:
+            ev = make_event(name, fields)
+            for sink in sinks:
+                try:
+                    sink(ev)
+                except Exception:
+                    logger.exception("obs sink %r failed on %s", sink, name)
         return ev
 
     def publish(self, ev: Event) -> Optional[Event]:
@@ -254,11 +263,12 @@ class EventBus:
         sinks = self._sinks  # graftlint: disable=lock-coverage — copy-on-write tuple: an unlocked read sees a complete old/new tuple
         if not sinks or not _ENABLED:
             return None
-        for sink in sinks:
-            try:
-                sink(ev)
-            except Exception:
-                logger.exception("obs sink %r failed on %s", sink, ev.name)
+        with self._deliver:
+            for sink in sinks:
+                try:
+                    sink(ev)
+                except Exception:
+                    logger.exception("obs sink %r failed on %s", sink, ev.name)
         return ev
 
 

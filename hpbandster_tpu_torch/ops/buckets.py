@@ -41,10 +41,12 @@ stage-0 sampling); a dispatch copies the inputs into the graph's static
 buffers, replays, and copies the packed output into a fresh tensor, so two
 dispatches in flight never share an output. On the CPU the same body runs
 eagerly over the same static buffers. A capture that fails keeps its
-error, and the next dispatch of that bucket raises it. The reference's
-publication of each member's telemetry to the observability bus
-(``_publish_member_telemetry``) waits for the port's ``obs`` layer; the
-decoded record itself is :func:`member_telemetry_record`.
+error, and the next dispatch of that bucket raises it. With the device
+metrics plane on (``device_metrics=``, default ``HPB_DEVICE_METRICS``) a
+bucket program also returns each stage's loss histogram and crash count,
+and every unpack publishes the member's decoded record to the obs bus
+(the gauges and one ``device_telemetry`` journal record,
+``_publish_member_telemetry``).
 """
 
 from __future__ import annotations
@@ -400,6 +402,29 @@ def member_telemetry_record(hist, crashes, counts, budgets, stages):
     return decode_device_metrics(metrics, plans=[(member_counts, member_budgets)])
 
 
+def _publish_member_telemetry(hist, crashes, counts, budgets, stages) -> None:
+    """Decode one member's fetched telemetry and hand it to the obs
+    pipeline (gauges and a ``device_telemetry`` journal record)."""
+    from hpbandster_tpu_torch.obs.device_metrics import (
+        emit_device_telemetry,
+        publish_device_metrics,
+    )
+
+    rec = member_telemetry_record(hist, crashes, counts, budgets, stages)
+    if rec is not None:
+        publish_device_metrics(rec)
+        emit_device_telemetry(rec)
+
+
+class _TelemetryPacked(NamedTuple):
+    """A telemetry-carrying dispatch: the program's output tensors and the
+    member's host counts the decode needs (callers hand dispatch results
+    to ``unpack`` untouched)."""
+
+    out: Tuple[torch.Tensor, ...]
+    counts: np.ndarray
+
+
 def unpack_flat(flat: np.ndarray, widths: Sequence[int]) -> List[Tuple[np.ndarray, np.ndarray]]:
     """A fetched packed row (``[indices as f32 | losses]`` over
     ``sum(widths)`` each) -> per-stage ``(idx int64, losses f32)``."""
@@ -433,8 +458,9 @@ class StaticProgram:
 
     ``make_buffers(d)`` returns the static input tensors for vectors of
     ``d`` dims; ``body(*buffers)`` computes the program and returns its
-    output tensor. :meth:`run` copies host arrays into the buffers, runs or
-    replays, and returns a fresh output, on the stream, without waiting.
+    output tensor (or a tuple of them). :meth:`run` copies host arrays into
+    the buffers, runs or replays, and returns a fresh output, on the
+    stream, without waiting.
     The build happens once (``ensure``), thread-safe; a build that fails
     keeps its error and every later call raises it."""
 
@@ -499,7 +525,8 @@ class StaticProgram:
                 buf.copy_(src)
             if self.graph is not None:
                 self.graph.replay()
-                out = self._out.clone()
+                out = (tuple(t.clone() for t in self._out)
+                       if isinstance(self._out, tuple) else self._out.clone())
             else:
                 out = self._body(*self._buffers)
             # counted after the launch, one buffer per input, as the
@@ -519,20 +546,38 @@ class _BucketRunner:
     """One bucket's program and its dispatch/unpack plumbing: one CUDA
     graph on a card (built once, lazily on the first dispatch or ahead of
     time by :meth:`ensure_compiled` / :func:`precompile_buckets`), the same
-    body eagerly on the CPU."""
+    body eagerly on the CPU. ``device_metrics`` (default
+    ``HPB_DEVICE_METRICS``) adds the stages' telemetry to the program and
+    publishes each member's decoded record at unpack."""
 
-    def __init__(self, eval_fn, bucket: BucketPlan, device=None):
+    def __init__(self, eval_fn, bucket: BucketPlan, device=None,
+                 device_metrics: Optional[bool] = None):
+        from hpbandster_tpu_torch.obs.device_metrics import bin_edges, device_metrics_default
+
         self.bucket = bucket
+        self.device_metrics = (device_metrics_default() if device_metrics is None
+                               else bool(device_metrics))
         w0, depth = bucket.widths[0], bucket.depth
+        edges = bin_edges().astype(np.float32) if self.device_metrics else None
+        #: the bin edges on the device, made with the buffers (before any
+        #: capture)
+        self._edges: Optional[torch.Tensor] = None
 
         def make_buffers(d):
             dev = self.program.device
+            if edges is not None:
+                self._edges = torch.as_tensor(edges, device=dev)
             return (torch.zeros((w0, d), dtype=_F32, device=dev),
                     torch.zeros((depth,), dtype=torch.int64, device=dev))
 
         def body(vectors, counts):
             stages = fused_sh_bracket_bucketed(eval_fn, vectors, counts, bucket)
-            return _packed_row(*(torch.cat(x) for x in zip(*stages)))
+            packed = _packed_row(*(torch.cat(x) for x in zip(*stages)))
+            if self._edges is None:
+                return packed
+            tel = bucketed_stage_telemetry(stages, counts, self._edges)
+            return (packed, torch.stack([h for h, _ in tel]),
+                    torch.stack([c for _, c in tel]))
 
         self.program = StaticProgram("fused_bucket", device, make_buffers, body)
 
@@ -556,12 +601,26 @@ class _BucketRunner:
                 f"counts must be i32[{self.bucket.depth}], got {counts.shape}")
         padded = np.zeros((w0, vectors.shape[1]), np.float32)
         padded[: vectors.shape[0]] = vectors
-        return self.program.run(vectors.shape[1], padded, counts)
+        out = self.program.run(vectors.shape[1], padded, counts)
+        if self.device_metrics:
+            # the counts ride the handle: unpack decodes the telemetry
+            # against the member's true rung layout
+            return _TelemetryPacked(out, counts)
+        return out
 
-    def unpack(self, packed: torch.Tensor) -> List[Tuple[np.ndarray, np.ndarray]]:
+    def unpack(self, packed) -> List[Tuple[np.ndarray, np.ndarray]]:
         """Fetch a dispatch (one transfer, which waits), cut into per-stage
-        ``(idx, losses)`` at bucket widths."""
-        return unpack_flat(fetch_packed(packed), self.bucket.widths)
+        ``(idx, losses)`` at bucket widths. A telemetry-carrying dispatch
+        also fetches its histograms and crash counts and publishes the
+        member's decoded ``device_telemetry`` record."""
+        if not isinstance(packed, _TelemetryPacked):
+            return unpack_flat(fetch_packed(packed), self.bucket.widths)
+        (row, hist, crashes), counts = packed
+        out = unpack_flat(fetch_packed(row), self.bucket.widths)
+        hist, crashes = hist.cpu().numpy(), crashes.cpu().numpy()
+        note_transfer("d2h", hist.nbytes + crashes.nbytes, buffers=2)
+        _publish_member_telemetry(hist, crashes, counts, self.bucket.budgets, out)
+        return out
 
     def run_member(self, vectors: np.ndarray, plan: BracketPlan, entry: int):
         """Dispatch and fetch one member bracket; its true-shape per-stage
@@ -570,14 +629,20 @@ class _BucketRunner:
         return slice_member_stages(self.unpack(self.dispatch(vectors, counts)), plan, entry)
 
 
-def make_bucketed_bracket_fn(eval_fn: Callable, bucket: BucketPlan, device=None) -> _BucketRunner:
+def make_bucketed_bracket_fn(eval_fn: Callable, bucket: BucketPlan, device=None,
+                             device_metrics: Optional[bool] = None) -> _BucketRunner:
     """The process-cached runner of one bucket's program on ``device``
-    (``None`` means ``cuda``)."""
+    (``None`` means ``cuda``), with the telemetry flag resolved here
+    (``HPB_DEVICE_METRICS`` by default): it changes the program."""
+    from hpbandster_tpu_torch.obs.device_metrics import device_metrics_default
+
     dev = resolve_device(device)
-    key = (eval_fn, bucket, dev)
+    if device_metrics is None:
+        device_metrics = device_metrics_default()
+    key = (eval_fn, bucket, dev, bool(device_metrics))
     runner = _BUCKET_FN_CACHE.get(key)
     if runner is None:
-        runner = _BucketRunner(eval_fn, bucket, device=dev)
+        runner = _BucketRunner(eval_fn, bucket, device=dev, device_metrics=device_metrics)
         _BUCKET_FN_CACHE[key] = runner
     return runner
 

@@ -17,8 +17,8 @@ replay time and advances it by the program's total, so the replays draw
 what eager calls would, and eager work after the replays continues the
 same stream.
 
-Captures run on a side stream in CUDA's thread-local capture mode, one at
-a time in the process (``CAPTURE_LOCK``): other host threads may launch
+Captures run on the card's one side stream in CUDA's thread-local capture
+mode, one at a time in the process (``CAPTURE_LOCK``): other host threads may launch
 kernels, allocate and fetch while a graph is captured (the serving tier
 captures in the background while tenants sample), and only the capturing
 thread must keep to capture-safe calls. A resident round has no warm-up
@@ -61,6 +61,29 @@ CAPTURES: Dict[str, int] = collections.Counter()
 #: replays whose device times a graph keeps (the latest ones)
 _KEPT_REPLAYS = 4096
 
+#: one capture stream per card, shared by every capture (they run one at a
+#: time, under ``CAPTURE_LOCK``)
+_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The card's capture stream (call under ``CAPTURE_LOCK``). cuBLAS and
+    cuBLASLt keep a workspace per stream, made at the stream's first matmul
+    and kept for the process: made inside a capture, it would come from
+    that graph's memory pool and pin the pool's segment after the graph is
+    gone, so the stream's first matmuls run here, outside any capture."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(stream):
+            for dtype in (torch.float32, torch.bfloat16):
+                a = torch.ones((16, 16), dtype=dtype, device=device)
+                torch.addmm(a, a, a)
+        stream.synchronize()
+        _CAPTURE_STREAMS[index] = stream
+    return stream
+
 _DTYPES = {torch.float32: "f32", torch.int64: "i64", torch.int32: "i32", torch.bool: "bool"}
 
 
@@ -89,13 +112,13 @@ class RoundGraph:
                  warmup: bool = False, name: str = "resident_round",
                  signature: str = ""):
         device = torch.device(device)
-        stream = torch.cuda.Stream(device)
-        cuda_kde.prepare_capture(device, stream)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.generators = tuple(generators)
         for gen in self.generators:
             self.graph.register_generator_state(gen)
         with CAPTURE_LOCK:
+            stream = _capture_stream(device)
+            cuda_kde.prepare_capture(device, stream)
             stream.wait_stream(torch.cuda.current_stream(device))
             if warmup:
                 with torch.cuda.stream(stream):

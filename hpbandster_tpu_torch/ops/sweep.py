@@ -1418,12 +1418,14 @@ def make_fused_sweep_fn(
             out += (state,)
         return out if len(out) > 1 else result
 
-    def row_fn():
-        # the brackets' rows for the incumbent and the metrics, made on the
-        # device rather than uploaded
-        rows = (torch.arange(len(plans), device=device)
-                if incumbent_only or device_metrics else None)
-        return lambda b_i: None if rows is None else rows[b_i:b_i + 1]
+    # the brackets' rows for the incumbent and the metrics, made on the
+    # device rather than uploaded, and held by the sweep itself: a captured
+    # graph reads them at every replay, so they must live as long as it
+    bracket_rows = (torch.arange(len(plans), device=device)
+                    if incumbent_only or device_metrics else None)
+
+    def row(b_i):
+        return None if bracket_rows is None else bracket_rows[b_i:b_i + 1]
 
     def fresh_metrics():
         return (init_device_metrics(len(plans), dm_rungs, N_BINS, device)
@@ -1437,7 +1439,6 @@ def make_fused_sweep_fn(
         state = init_obs_state(warm_v, warm_l, warm_n)
         inc = init_incumbent() if incumbent_only else None
         metrics = fresh_metrics()
-        row = row_fn()
         if resident:
             _, stacked, round_body = make_round(draws, state, inc, metrics)
             for r in range(n_rounds):
@@ -1456,7 +1457,6 @@ def make_fused_sweep_fn(
         from hpbandster_tpu_torch.ops.graphs import RoundGraph
 
         draws = GeneratorDraws(tables, 0, random_fraction, bandwidth_factor, min_bandwidth)
-        row = row_fn()
         caps_sig = ",".join(f"{b:g}:{c}" for b, c in sorted(caps.items()))
         flags = "".join(f" {k}" for k, on in (("metrics", device_metrics),
                                              ("incumbent", incumbent_only)) if on)

@@ -29,7 +29,17 @@ knobs and device: on a card a hit replays the captured graph with new
 seeds and warm inputs, so a chunk or ``run()`` call of a known shape pays
 no capture. The host replays chunk k into the bookkeeping while chunk k+1
 runs on the device (``run_stats`` ``replay_overlap_s``); with
-``checkpoint_path`` the replay runs in turn.
+``checkpoint_path`` the replay runs in turn. The cache is bounded by its
+entry count (16, the reference's) and by the device memory its graphs pin
+(``_SWEEP_CACHE_MEMORY_SHARE`` of the card).
+
+``run()`` marks its host phases with the flight recorder's spans
+(``obs/timeline.py``), at the reference's sites: ``sweep_planning`` and
+``sweep_setup`` (admission), per chunk ``chunk_staging`` and
+``telemetry_fetch`` (transfer), ``compile_lookup`` (compile),
+``chunk_accounting`` and ``obs_fold`` (promotion), and ``bracket_replay``
+(promotion) where a replay runs in turn. The replay that overlaps the next
+chunk is not a span: its time is ``replay_overlap_s``.
 
 Not ported yet: meshes and multiprocess runs, and streamed warm uploads.
 """
@@ -68,6 +78,13 @@ from hpbandster_tpu_torch.obs.runtime import (
     publish_sweep_transfers,
     transfer_counters,
 )
+from hpbandster_tpu_torch.obs.timeline import (
+    ADMISSION,
+    COMPILE,
+    PROMOTION,
+    TRANSFER,
+    phase_span,
+)
 from hpbandster_tpu_torch.obs.trace import current_trace, new_trace, use_trace
 from hpbandster_tpu_torch.ops.bracket import (
     BracketPlan,
@@ -99,8 +116,37 @@ __all__ = ["FusedBOHB", "FusedHyperBand", "FusedH2BO", "FusedRandomSearch"]
 #: policy): one build, and on a card one capture, per (objective, schedule,
 #: space, knobs, device). Values are sweep callables: a hit replays with
 #: new seeds and warm inputs, and calls on one entry from several threads
-#: take turns. Entries hold their graphs and memory pools until evicted.
+#: take turns. Entries hold their graphs and memory pools until evicted,
+#: so besides its entry count the cache is bounded by the bytes they pin.
 _SWEEP_CACHE: LRUCache = LRUCache(maxsize=16)
+
+#: the share of a card's memory the cached sweeps may pin in all (the
+#: reference caches executables alone; a cached CUDA graph keeps its memory
+#: pool, several GB for a CNN sweep). The rest stays free for the sweeps
+#: that run. Counted over every card the process uses.
+_SWEEP_CACHE_MEMORY_SHARE = 0.5
+
+
+def _pinned_reserved(device: torch.device) -> int:
+    """The card's reserved bytes that something still holds: the caching
+    allocator's free blocks are returned first (0 on the CPU). Holds the
+    capture lock: emptying the allocator's cache while any thread captures
+    a graph is illegal."""
+    if device.type != "cuda":
+        return 0
+    from hpbandster_tpu_torch.ops.graphs import CAPTURE_LOCK
+
+    with CAPTURE_LOCK:
+        torch.cuda.empty_cache()
+        return int(torch.cuda.memory_reserved(device))
+
+
+def _cache_byte_bound(device: torch.device) -> Optional[int]:
+    """The sweep cache's byte bound on ``device`` (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    total = torch.cuda.get_device_properties(device).total_memory
+    return int(_SWEEP_CACHE_MEMORY_SHARE * total)
 
 
 def _publish_telemetry(decoded: Dict[str, Any], trace) -> None:
@@ -410,46 +456,52 @@ class FusedBOHB:
         ``HPB_DEVICE_METRICS=1``; off otherwise.
         """
         del min_n_workers  # API symmetry with Master.run; no worker pool here
-        if resident and chunk_brackets is not None:
-            raise ValueError(
-                "resident=True replaces chunking (the whole schedule is one "
-                "resident sweep): drop chunk_brackets"
-            )
-        if resident and dynamic_counts is False:
-            raise ValueError(
-                "resident=True requires the dynamic-count tier (the rounds "
-                "carry the counts on the device): drop dynamic_counts=False"
-            )
-        use_dm = (device_metrics_default() if device_metrics is None
-                  else bool(device_metrics))
         first = len(self.iterations)
-        plans = [self._plan(i) for i in range(first, int(n_iterations))]
-        if self.config["time_ref"] is None:
-            self.config["time_ref"] = time.time()
-        chunk = len(plans) if chunk_brackets is None else max(int(chunk_brackets), 1)
-        # only the caller's knobs choose the tier, never how many brackets
-        # remain: a run cut after its first chunk and a longer uninterrupted
-        # run must execute identical first chunks for a resume to match
-        dynamic = resident or (
-            (chunk_brackets is not None)
-            if dynamic_counts is None else bool(dynamic_counts)
-        )
-        d = int(self.codec.kind.shape[0])
-        done = first
-        #: device observation state returned by the previous dynamic chunk
-        #: and the capacities it was built for
-        dev_state = dev_caps = None
-        #: each chunk's fetched metrics and plans, decoded together at the end
-        dm_parts: List[Any] = []
-        dm_execute_s = 0.0
-        # one trace for this call's whole sweep: every chunk record and the
-        # telemetry record share it (an active trace, a serving layer's, wins)
-        sweep_trace = current_trace() or new_trace(self.run_id)
-        link0 = transfer_counters() if plans else None
-        #: the previous chunk's deferred replay into the bookkeeping: it
-        #: runs while the next chunk runs on the device
-        pending_replay = None
-        overlap_s = None
+        # planning is the sweep's admission work: the schedule's geometry,
+        # before anything boards the device
+        with phase_span("sweep_planning", ADMISSION):
+            plans = [self._plan(i) for i in range(first, int(n_iterations))]
+        # everything between planning and the first chunk (tier policy,
+        # trace, transfer baseline) is still admission work on the timeline
+        with phase_span("sweep_setup", ADMISSION):
+            if resident and chunk_brackets is not None:
+                raise ValueError(
+                    "resident=True replaces chunking (the whole schedule is one "
+                    "resident sweep): drop chunk_brackets"
+                )
+            if resident and dynamic_counts is False:
+                raise ValueError(
+                    "resident=True requires the dynamic-count tier (the rounds "
+                    "carry the counts on the device): drop dynamic_counts=False"
+                )
+            use_dm = (device_metrics_default() if device_metrics is None
+                      else bool(device_metrics))
+            if self.config["time_ref"] is None:
+                self.config["time_ref"] = time.time()
+            chunk = len(plans) if chunk_brackets is None else max(int(chunk_brackets), 1)
+            # only the caller's knobs choose the tier, never how many brackets
+            # remain: a run cut after its first chunk and a longer uninterrupted
+            # run must execute identical first chunks for a resume to match
+            dynamic = resident or (
+                (chunk_brackets is not None)
+                if dynamic_counts is None else bool(dynamic_counts)
+            )
+            d = int(self.codec.kind.shape[0])
+            done = first
+            #: device observation state returned by the previous dynamic chunk
+            #: and the capacities it was built for
+            dev_state = dev_caps = None
+            #: each chunk's fetched metrics and plans, decoded together at the end
+            dm_parts: List[Any] = []
+            dm_execute_s = 0.0
+            # one trace for this call's whole sweep: every chunk record and the
+            # telemetry record share it (an active trace, a serving layer's, wins)
+            sweep_trace = current_trace() or new_trace(self.run_id)
+            link0 = transfer_counters() if plans else None
+            #: the previous chunk's deferred replay into the bookkeeping: it
+            #: runs while the next chunk runs on the device
+            pending_replay = None
+            overlap_s = None
 
         def flush_replay():
             """Run the deferred replay once. The slot is cleared first, so a
@@ -467,33 +519,40 @@ class FusedBOHB:
             seed = int(np.uint32(self.rng.integers(2**32, dtype=np.uint32)))
             overlap_s = None
             try:
-                warm_counts = {b: len(l) for b, l in self._warm_l.items()}
-                run_caps = None
-                if dynamic:
-                    # past-only capacities: warm counts at this boundary plus
-                    # this chunk's additions, pow2-bucketed, so two runs that
-                    # agree on history agree on every chunk's buffer shapes
-                    run_caps = dict(warm_counts)
-                    for b, k in plan_additions(chunk_plans).items():
-                        run_caps[b] = run_caps.get(b, 0) + k
-                    run_caps = pow2_capacities(run_caps)
-                    if dev_state is not None and run_caps == dev_caps:
-                        warm, upload_bytes = dev_state, 0
+                # the staging window: the warm fold, padding and upload, the
+                # host cost of putting this chunk's inputs on the device
+                with phase_span("chunk_staging", TRANSFER):
+                    warm_counts = {b: len(l) for b, l in self._warm_l.items()}
+                    run_caps = None
+                    if dynamic:
+                        # past-only capacities: warm counts at this boundary
+                        # plus this chunk's additions, pow2-bucketed, so two
+                        # runs that agree on history agree on every chunk's
+                        # buffer shapes
+                        run_caps = dict(warm_counts)
+                        for b, k in plan_additions(chunk_plans).items():
+                            run_caps[b] = run_caps.get(b, 0) + k
+                        run_caps = pow2_capacities(run_caps)
+                        if dev_state is not None and run_caps == dev_caps:
+                            warm, upload_bytes = dev_state, 0
+                        else:
+                            warm, upload_bytes = self._dynamic_warm(run_caps, d)
+                            dev_state = None  # stale shapes: never reuse
                     else:
-                        warm, upload_bytes = self._dynamic_warm(run_caps, d)
-                        dev_state = None  # stale shapes: never reuse
-                else:
-                    warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
-                    upload_bytes = sum(
-                        v.nbytes + self._warm_l[b].nbytes for b, v in self._warm_v.items()
-                    )
-                if upload_bytes:
-                    note_transfer("h2d", upload_bytes)
+                        warm = warm_obs_from_numpy(self._warm_v, self._warm_l, self.device)
+                        upload_bytes = sum(
+                            v.nbytes + self._warm_l[b].nbytes
+                            for b, v in self._warm_v.items()
+                        )
+                    if upload_bytes:
+                        note_transfer("h2d", upload_bytes)
                 with trace(profile_dir), use_trace(sweep_trace):
-                    sweep, compile_s, cache_hit = self._sweep_built(
-                        chunk_plans, dynamic=dynamic, caps=run_caps,
-                        resident=resident, device_metrics=use_dm,
-                    )
+                    # a miss: the build and capture; a hit: the lookup
+                    with phase_span("compile_lookup", COMPILE):
+                        sweep, compile_s, cache_hit = self._sweep_built(
+                            chunk_plans, dynamic=dynamic, caps=run_caps,
+                            resident=resident, device_metrics=use_dm,
+                        )
                     t0 = time.perf_counter()
                     # (outputs[, metrics][, state]): a bare result when neither
                     parts = sweep(seed, *warm)
@@ -506,7 +565,10 @@ class FusedBOHB:
                     flush_replay()
                     outputs = _fetch(parts[0])
                     if use_dm:
-                        dm_parts.append((_fetch(parts[1]), chunk_plans))
+                        # the outputs are on the host, so this is the
+                        # telemetry's own fetch
+                        with phase_span("telemetry_fetch", TRANSFER):
+                            dm_parts.append((_fetch(parts[1]), chunk_plans))
                     execute_s = time.perf_counter() - t0
                     if dynamic:
                         dev_state, dev_caps = new_state, run_caps
@@ -531,56 +593,61 @@ class FusedBOHB:
                         "deferred replay of the previous chunk failed while a "
                         "later chunk was already failing; its results are "
                         "missing from this Result")
-            stat = {
-                "chunk_index": len(self.run_stats),
-                "brackets": list(range(done, done + len(chunk_plans))),
-                "evaluations": int(sum(sum(p.num_configs) for p in chunk_plans)),
-                "build_compile_s": compile_s,
-                "compile_cache_hit": cache_hit,
-                "execute_fetch_s": execute_s,
-                "dynamic_counts": dynamic,
-                # 0 when the previous chunk's device state carried them
-                "warm_upload_bytes": int(upload_bytes),
-            }
-            if overlap_s is not None:
-                # the previous chunk's replay, run inside this chunk's window
-                stat["replay_overlap_s"] = overlap_s
-            graph = getattr(sweep, "graph", None)  # a wrapped sweep may not carry it
-            if graph is not None:
-                replays = resident_rotation(chunk_plans)[1] if resident else 1
-                stat.update(graph_capture_s=graph.capture_s,
-                            graph_instantiate_s=graph.instantiate_s,
-                            graph_replay_ms=graph.replay_ms()[-replays:])
-            if use_dm:
-                dm_execute_s += execute_s
-            self.run_stats.append(stat)
-            with use_trace(sweep_trace):
-                obs.emit(
-                    "sweep_chunk",
-                    duration_s=execute_s,
-                    compile_s=compile_s,
-                    compile_cache_hit=cache_hit,
-                    evaluations=stat["evaluations"],
-                    brackets=stat["brackets"],
-                    seq=stat["chunk_index"],
-                    h2d_bytes=int(upload_bytes),
-                    d2h_bytes=d2h_bytes,
-                )
-            job_info = {
-                "fused_chunk": stat["chunk_index"],
-                "chunk_compile_s": compile_s,
-                "chunk_compile_cache_hit": cache_hit,
-                "chunk_execute_s": execute_s,
-                "chunk_evaluations": stat["evaluations"],
-            }
+            # the chunk's run_stats row, its sweep_chunk record and the
+            # per-job attribution are host bookkeeping: promotion work
+            with phase_span("chunk_accounting", PROMOTION):
+                stat = {
+                    "chunk_index": len(self.run_stats),
+                    "brackets": list(range(done, done + len(chunk_plans))),
+                    "evaluations": int(sum(sum(p.num_configs) for p in chunk_plans)),
+                    "build_compile_s": compile_s,
+                    "compile_cache_hit": cache_hit,
+                    "execute_fetch_s": execute_s,
+                    "dynamic_counts": dynamic,
+                    # 0 when the previous chunk's device state carried them
+                    "warm_upload_bytes": int(upload_bytes),
+                }
+                if overlap_s is not None:
+                    # the previous chunk's replay, run inside this chunk's window
+                    stat["replay_overlap_s"] = overlap_s
+                graph = getattr(sweep, "graph", None)  # a wrapped sweep may not carry it
+                if graph is not None:
+                    replays = resident_rotation(chunk_plans)[1] if resident else 1
+                    stat.update(graph_capture_s=graph.capture_s,
+                                graph_instantiate_s=graph.instantiate_s,
+                                graph_replay_ms=graph.replay_ms()[-replays:])
+                if use_dm:
+                    dm_execute_s += execute_s
+                self.run_stats.append(stat)
+                with use_trace(sweep_trace):
+                    obs.emit(
+                        "sweep_chunk",
+                        duration_s=execute_s,
+                        compile_s=compile_s,
+                        compile_cache_hit=cache_hit,
+                        evaluations=stat["evaluations"],
+                        brackets=stat["brackets"],
+                        seq=stat["chunk_index"],
+                        h2d_bytes=int(upload_bytes),
+                        d2h_bytes=d2h_bytes,
+                    )
+                job_info = {
+                    "fused_chunk": stat["chunk_index"],
+                    "chunk_compile_s": compile_s,
+                    "chunk_compile_cache_hit": cache_hit,
+                    "chunk_execute_s": execute_s,
+                    "chunk_evaluations": stat["evaluations"],
+                }
             staged = []
-            for b_i, (plan, out) in enumerate(zip(chunk_plans, outputs), start=done):
-                stages = _unpack_stages(
-                    (out.idx_packed, out.loss_packed), plan.num_configs
-                )
-                staged.append((b_i, plan, out, stages))
-                # folded now: the next chunk takes them as warm data
-                self._accumulate_obs(plan, out, stages)
+            # the observation fold is successive-halving bookkeeping
+            with phase_span("obs_fold", PROMOTION):
+                for b_i, (plan, out) in enumerate(zip(chunk_plans, outputs), start=done):
+                    stages = _unpack_stages(
+                        (out.idx_packed, out.loss_packed), plan.num_configs
+                    )
+                    staged.append((b_i, plan, out, stages))
+                    # folded now: the next chunk takes them as warm data
+                    self._accumulate_obs(plan, out, stages)
 
             def replay_now(staged=staged, job_info=job_info):
                 for b_i, plan, out, stages in staged:
@@ -590,12 +657,15 @@ class FusedBOHB:
             if checkpoint_path is not None:
                 # a checkpoint holds replayed bookkeeping, so the replay
                 # runs in turn; its content never depends on when it runs
-                replay_now()
+                with phase_span("bracket_replay", PROMOTION):
+                    replay_now()
                 self.save_checkpoint(checkpoint_path)
             else:
                 pending_replay = replay_now
         if pending_replay is not None:
-            pending_replay()
+            # the last chunk's replay has no successor to hide behind
+            with phase_span("bracket_replay", PROMOTION):
+                pending_replay()
         if link0 is not None:
             publish_sweep_transfers(link0)
         if dm_parts:
@@ -767,7 +837,13 @@ class FusedBOHB:
         it cost: ``(sweep, build_capture_s, cache_hit)``. A miss builds the
         sweep and, on a card, captures its graph here, so the capture is
         charged to ``build_capture_s`` (build + capture + instantiate
-        seconds) and never to the chunk's execute time; a hit costs 0.0."""
+        seconds) and never to the chunk's execute time; a hit costs 0.0.
+
+        A miss records what the new entry pins on the card (the reserved
+        bytes its build and capture added) and the cache evicts its oldest
+        entries until all of them fit in ``_SWEEP_CACHE_MEMORY_SHARE`` of
+        the card. A build that runs out of device memory empties the cache,
+        returns the freed memory to the card and tries once more."""
         key = self._sweep_key(plans, dynamic=dynamic, caps=caps, resident=resident,
                               incumbent_only=incumbent_only,
                               device_metrics=device_metrics)
@@ -775,18 +851,38 @@ class FusedBOHB:
         if hit is not None:
             return hit, 0.0, True
         t0 = time.perf_counter()
-        sweep = self._sweep_fn(
-            plans, warm_counts={b: len(l) for b, l in self._warm_l.items()},
+        build = dict(
+            warm_counts={b: len(l) for b, l in self._warm_l.items()},
             dynamic_counts=dynamic, capacities=caps,
             return_state=dynamic and not incumbent_only, resident=resident,
             incumbent_only=incumbent_only, device_metrics=device_metrics,
         )
+        reserved0 = _pinned_reserved(self.device)
+        try:
+            sweep = self._prepared_sweep(plans, build)
+        except torch.cuda.OutOfMemoryError:
+            # retried outside the handler, so the failed build's frames
+            # (and its graph's memory pool) are gone before the retry
+            sweep = None
+        if sweep is None:
+            self.logger.warning("building a sweep ran out of device memory: "
+                                "emptying the sweep cache and retrying once")
+            _SWEEP_CACHE.clear()
+            reserved0 = _pinned_reserved(self.device)
+            sweep = self._prepared_sweep(plans, build)
+        build_s = time.perf_counter() - t0
+        pinned = max(_pinned_reserved(self.device) - reserved0, 0)
+        _SWEEP_CACHE.put(key, sweep, nbytes=pinned,
+                         max_bytes=_cache_byte_bound(self.device))
+        return sweep, build_s, False
+
+    def _prepared_sweep(self, plans, build: Dict[str, Any]):
+        """A new sweep for ``plans``, captured where it captures."""
+        sweep = self._sweep_fn(plans, **build)
         prepare = getattr(sweep, "prepare", None)  # a wrapped sweep may not carry it
         if prepare is not None:
             prepare()
-        build_s = time.perf_counter() - t0
-        _SWEEP_CACHE[key] = sweep
-        return sweep, build_s, False
+        return sweep
 
     def _dynamic_warm(self, run_caps: Dict[float, int], d: int):
         """The host fold of the warm observations as the dynamic tier's

@@ -30,9 +30,8 @@ much hindsight each number rests on.
 
 Also here: :func:`promotion_waits` (how long each promoted config sat
 between its rung result and its promotion; the sync barrier's stall made
-measurable). :func:`worker_utilization` needs the reference's
-``obs/summarize.py``, which the port has not yet: it raises
-``NotImplementedError`` (ROADMAP A8).
+measurable) and :func:`worker_utilization` (the fleet's busy fraction,
+from ``obs/summarize.py``).
 """
 
 from __future__ import annotations
@@ -490,9 +489,25 @@ def promotion_waits(records: List[Dict[str, Any]]) -> Dict[str, Any]:
 
 
 def worker_utilization(records: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """Per-worker busy fraction over the journal's wall window: derived in
-    the reference from ``obs/summarize.py``'s worker-utilization
-    aggregation, which the port has not yet."""
-    raise NotImplementedError(
-        "worker_utilization needs obs/summarize.py, which is not ported yet "
-        "(ROADMAP A8: the observability analysis modules)")
+    """Per-worker busy fraction over the journal's wall window, folded
+    into one fleet-wide busy fraction: a reshaping of
+    ``summarize_records``' worker-utilization aggregation (one
+    implementation of the busy-seconds over window arithmetic)."""
+    from hpbandster_tpu_torch.obs.summarize import summarize_records
+
+    summary = summarize_records(records)
+    window = float(summary.get("window_s") or 0.0)
+    util = summary.get("worker_utilization") or {}
+    per_worker = {
+        w: u.get("utilization") for w, u in sorted(util.items())
+    }
+    busy_total = sum(float(u.get("busy_s") or 0.0) for u in util.values())
+    fleet = (
+        round(min(busy_total / (window * len(util)), 1.0), 4)
+        if window > 0 and util else None
+    )
+    return {
+        "window_s": round(window, 3),
+        "per_worker": per_worker,
+        "busy_fraction": fleet,
+    }

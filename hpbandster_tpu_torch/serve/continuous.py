@@ -22,9 +22,13 @@ bucket family over a fixed lane count and runs it chunk after chunk:
   the program through the reset mask, so no tenant ever reads another's
   carry).
 
-The reference's 2-D lane x config mesh (``make_lane_mesh``, ``mesh=``)
-waits for the port's multi-GPU slice, and its lane gauges and events for
-the port's ``obs`` layer.
+Each ownership change journals a ``lane_assigned`` event and each
+released lane a ``lane_released`` one (warm re-boardings are silent), each
+fetched chunk a span-shaped ``serve_chunk`` record, and the
+``serve.continuous.{joins,leaves,chunks,masked_lanes}`` counters and
+``serve.family.<f>.{chunks,warm_age_s,lanes_occupied,lanes_starved}``
+gauges follow the lanes, as in the reference. Its 2-D lane x config mesh
+(``make_lane_mesh``, ``mesh=``) waits for the port's multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hpbandster_tpu_torch.obs import events as E
+from hpbandster_tpu_torch.obs.metrics import get_metrics
 from hpbandster_tpu_torch.ops.buckets import (
     BucketPlan,
     StaticProgram,
@@ -193,6 +199,7 @@ class ContinuousRunner:
         once. ``waiting`` is the same-family backlog that did not board."""
         if not entries:
             return lambda: []
+        m = get_metrics()
         with self._lock:
             placements = self.lanes.assign([e.tenant for e in entries])
             w0 = self.bucket.widths[0]
@@ -203,19 +210,54 @@ class ContinuousRunner:
             reset = np.zeros(self.lane_count, np.float32)
             for lane in self.lanes.dirty:
                 reset[lane] = 1.0
-            for e, (lane, _warm) in zip(entries, placements):
+            bus_on = E.get_bus().active
+            for e, (lane, warm) in zip(entries, placements):
                 rows = np.asarray(e.vectors, np.float32)
                 if rows.shape[0] > w0 or rows.shape[1] != int(d):
                     raise ValueError(
                         f"member rows {rows.shape} do not fit bucket (W0={w0}, d={d})")
                 vectors[lane, : rows.shape[0]] = rows
                 counts[lane] = member_counts_for(self.bucket, e.plan, e.entry)
+                if not warm:
+                    # ownership changed (a warm re-boarding is silent)
+                    if bus_on:
+                        E.emit(E.LANE_ASSIGNED, lane=lane, family=self.family,
+                               tenant=e.tenant)
+                    m.counter("serve.continuous.joins").inc()
             packed = self.program.run(int(d), vectors, counts, reset)
             self.lanes.dirty -= {i for i, on in enumerate(reset) if on}
             self.chunks_run += 1
-            self._last_starved = (self.lane_count - len(entries)) if waiting > 0 else 0
+            occupied = len(entries)
+            masked = self.lane_count - occupied
+            m.counter("serve.continuous.chunks").inc()
+            m.counter("serve.continuous.masked_lanes").inc(masked)
+            family = f"serve.family.{self.family}"
+            m.gauge(f"{family}.chunks").set(self.chunks_run)
+            age = self.warm_age_s()
+            if age is not None:
+                m.gauge(f"{family}.warm_age_s").set(round(age, 3))
+            m.gauge(f"{family}.lanes_occupied").set(occupied)
+            # lanes masked while same-family work waited for a later chunk:
+            # 0 by construction (a chunk fills before the next one runs)
+            self._last_starved = masked if waiting > 0 else 0
+            m.gauge(f"{family}.lanes_starved").set(self._last_starved)
+            starved, chunk_seq = self._last_starved, self.chunks_run - 1
+            t_dispatch = time.monotonic()
         lanes = [lane for lane, _ in placements]
-        return lambda: demux(fetch_packed(packed), self.bucket, entries, lanes)
+
+        def fetch():
+            out = demux(fetch_packed(packed), self.bucket, entries, lanes)
+            if E.get_bus().active:
+                # span-shaped chunk record, dispatch to fetch: the flight
+                # recorder's rung_compute slice for a serving round, and
+                # the record the lane_starvation SLO reads
+                E.emit("serve_chunk",
+                       duration_s=round(time.monotonic() - t_dispatch, 6),
+                       family=self.family, lanes=occupied, starved=starved,
+                       seq=chunk_seq)
+            return out
+
+        return fetch
 
     def run_chunk(self, entries: Sequence[PackEntry], d: int, waiting: int = 0):
         """Dispatch and fetch one chunk: each entry's true-shape per-stage
@@ -225,7 +267,13 @@ class ContinuousRunner:
     def release_tenant(self, tenant: str) -> None:
         """A tenant left the pool: free (and dirty) its lanes."""
         with self._lock:
-            self.lanes.release_tenant(tenant)
+            freed = self.lanes.release_tenant(tenant)
+            if freed and E.get_bus().active:
+                for lane in freed:
+                    E.emit(E.LANE_RELEASED, lane=lane, family=self.family,
+                           tenant=tenant)
+            if freed:
+                get_metrics().counter("serve.continuous.leaves").inc(len(freed))
 
     def lane_incumbents(self) -> List[Optional[float]]:
         """Host decode of the resident carry: per lane the running

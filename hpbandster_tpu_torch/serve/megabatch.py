@@ -15,8 +15,8 @@ lanes leaves zero-count padding lanes (evaluated, never reported); more
 takes several dispatches of the same graph. A member's ``(indices,
 losses)`` from a packed dispatch equal a solo dispatch of it through
 ``ops.buckets._BucketRunner`` wherever the objective treats rows
-independently. The reference's per-lane telemetry publication waits for
-the port's ``obs`` layer.
+independently. The reference's per-lane device telemetry is not ported:
+a packed dispatch publishes none (the solo bucket runner does).
 """
 
 from __future__ import annotations

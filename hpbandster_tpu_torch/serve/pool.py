@@ -38,9 +38,11 @@ Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
 ``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
 ``continuous_fetch``, ``stage_batch``), each admitted item a
 ``serve_admission`` event, and the pool keeps the reference's metrics of
-rounds, queue depth, per-tenant queue waits and finished configs (its
-lane-occupancy gauges wait for the lane events, ROADMAP A8). Each tenant's
-master emits its own job and promotion records under its ``tenant_id``.
+rounds, queue depth, per-tenant queue waits and finished configs, and in
+continuous mode the lane census after each round
+(``serve.lanes.{total,occupied,starved}``, ``serve.lane_occupancy``).
+Each tenant's master emits its own job and promotion records under its
+``tenant_id``.
 """
 
 from __future__ import annotations
@@ -575,6 +577,22 @@ class ServePool:
                 continue
             for it, member_stages in zip(chunk, results):
                 it.result = member_stages
+        # the pool's lane census after the round: occupancy counts owned
+        # lanes (warm carries parked on the card), not only those that ran
+        total = occupied = starved = 0
+        with self._cond:
+            runners = list(self._continuous_runners.values())
+        for r in runners:
+            snap = r.snapshot()
+            total += snap["lane_count"]
+            occupied += snap["occupied"]
+            starved += snap["starved"]
+        if total:
+            m = obs.get_metrics()
+            m.gauge("serve.lanes.total").set(total)
+            m.gauge("serve.lanes.occupied").set(occupied)
+            m.gauge("serve.lane_occupancy").set(round(occupied / total, 4))
+            m.gauge("serve.lanes.starved").set(starved)
 
     def _dispatch_packed(self, chunk: List[_WorkItem], bucket, d: int):
         """Launch one packed cross-tenant dispatch; returns its fetcher."""

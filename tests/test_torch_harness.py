@@ -100,6 +100,158 @@ def ref_opt(ref):
         k: importlib.import_module(f"hpbandster_tpu.{m}") for k, m in names.items()})
 
 
+@pytest.fixture(scope="module")
+def ref_obs_all(ref):
+    """The reference's obs modules (the analysis, the exporter, the health
+    endpoint, the collector, the CLI) and its promotion replay, imported
+    inside :func:`ref`'s window and removed with it."""
+    import importlib
+
+    names = ("timeline", "summarize", "report", "anomaly", "slo", "alerts", "export",
+             "health", "collector", "metrics", "events", "journal", "__main__")
+    mods = {n.strip("_") or n: importlib.import_module(f"hpbandster_tpu.obs.{n}")
+            for n in names}
+    mods["replay"] = importlib.import_module("hpbandster_tpu.promote.replay")
+    return SimpleNamespace(**mods)
+
+
+#: the timing fields of a journal record: they differ run to run
+TIMING_FIELDS = frozenset({"t_wall", "t_mono", "duration_s", "host", "pid", "trace_id",
+                           "run_s", "queue_s", "compile_s", "execute_s", "wait_s"})
+
+
+def strip_timing(records):
+    """Records without their timing and identity fields."""
+    return [{k: v for k, v in r.items() if k not in TIMING_FIELDS} for r in records]
+
+
+def synth_journal(seed: int, n_brackets: int = 6, hosts: int = 2):
+    """A merged multi-host journal made from ``seed`` with numpy: the
+    record kinds every obs analysis reads (jobs with their stage fields
+    and workers, sampling and promotion audits, bracket plans, refits,
+    capture-ledger compiles, fused chunks and their device telemetry,
+    phase spans, serving admissions, chunks and lane events, RPC calls
+    and retries, worker drops, fleet samples, tenants), with clock skew
+    between hosts and a wall step on one. Both packages read it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    mono = 1000.0 + seed
+    offsets = {h: 1.7e9 + float(rng.normal(0.0, 0.02)) for h in range(hosts)}
+
+    def rec(event, host=0, dt=None, **fields):
+        nonlocal mono
+        mono += float(rng.exponential(0.02)) if dt is None else dt
+        r = {"event": event, "t_wall": round(offsets[host] + mono, 6),
+             "t_mono": round(mono, 6), "host": f"h{host}", "pid": 100 + host}
+        r.update(fields)
+        out.append(r)
+        return r
+
+    def finite(x):
+        return round(float(x), 6)
+
+    tenants = ["default", "t1", "t2"]
+    budgets = [1.0, 3.0, 9.0]
+    p_crash = 0.05 + 0.1 * (seed % 3)
+    cid = 0
+    for it in range(n_brackets):
+        tenant = tenants[it % len(tenants)]
+        tfield = {} if tenant == "default" else {"tenant_id": tenant}
+        nc = [9, 3, 1][it % 3:]
+        bs = budgets[it % 3:]
+        rec("sweep_planning", duration_s=finite(rng.uniform(1e-4, 1e-3)),
+            phase="admission_wait", **tfield)
+        rec("bracket_created", iteration=it, num_configs=nc, budgets=bs, **tfield)
+        ids = []
+        for k in range(nc[0]):
+            ids.append([it, 0, k])
+            rec("config_sampled", config_id=[it, 0, k], iteration=it,
+                budget=bs[0], model_based_pick=bool(rng.random() < 0.5 and it > 0),
+                **tfield)
+        losses = {}
+        for stage, (n, b) in enumerate(zip(nc, bs)):
+            for c in ids[:n]:
+                trace = f"tr-{seed}-{cid}"
+                cid += 1
+                worker = f"w{int(rng.integers(3))}"
+                rec("job_submitted", config_id=c, budget=b, trace_id=trace, **tfield)
+                rec("job_started", host=1 % hosts, config_id=c, budget=b,
+                    trace_id=trace, worker=worker,
+                    queue_wait_s=finite(rng.exponential(0.01)),
+                    dispatch_s=finite(rng.exponential(0.002)), **tfield)
+                compute = finite(rng.exponential(0.05) * b
+                                 * (40.0 if rng.random() < 0.03 else 1.0))
+                crashed = rng.random() < p_crash
+                loss = None if crashed else finite(rng.normal(1.0 / b, 0.3))
+                losses[tuple(c)] = float("inf") if loss is None else loss
+                rec("job_finished" if not crashed else "job_failed", host=1 % hosts,
+                    config_id=c, budget=b, trace_id=trace, worker=worker,
+                    compute_s=compute, delivery_s=finite(rng.exponential(0.003)),
+                    **tfield)
+                rec("job_finished" if not crashed else "job_failed", config_id=c,
+                    budget=b, trace_id=trace, loss=loss, worker=worker,
+                    queue_s=finite(rng.exponential(0.01)), run_s=compute, **tfield)
+            if stage + 1 < len(nc):
+                ranked = sorted(ids[:n], key=lambda c: losses[tuple(c)])
+                keep = {tuple(c) for c in ranked[:nc[stage + 1]]}
+                rec("promotion_decision", iteration=it, rung=stage, budget=b,
+                    config_ids=ids[:n], promoted=[tuple(c) in keep for c in ids[:n]],
+                    losses=[None if losses[tuple(c)] == float("inf") else losses[tuple(c)]
+                            for c in ids[:n]],
+                    rule="successive_halving", **tfield)
+                ids = ranked[:nc[stage + 1]]
+        if rng.random() < 0.7:
+            rec("kde_refit", duration_s=finite(rng.uniform(1e-3, 1e-2)),
+                budget=bs[0], **tfield)
+        for _ in range(int(rng.integers(1, 4))):
+            rec("xla_compile", fn=f"sweep_chunk_{int(rng.integers(2))}",
+                compile_s=finite(rng.uniform(0.01, 0.3)), signature="f32[64,2]")
+        ev = int(sum(nc))
+        rec("chunk_staging", duration_s=finite(rng.uniform(1e-4, 2e-3)),
+            phase="transfer")
+        rec("compile_lookup", duration_s=finite(rng.uniform(1e-5, 0.1)), phase="compile")
+        rec("sweep_chunk", duration_s=finite(rng.uniform(0.01, 0.05)),
+            compile_s=finite(rng.uniform(0.0, 0.005)),
+            compile_cache_hit=bool(rng.random() < 0.5), evaluations=ev,
+            brackets=[it], seq=it, h2d_bytes=int(rng.integers(0, 50000)),
+            d2h_bytes=int(rng.integers(1000, 5000)), trace_id=f"sweep-{seed}")
+        crashes = int(rng.integers(0, ev + 1)) if rng.random() < 0.3 else 0
+        order = [{"seq": s_i, "bracket": it, "stage": s_i, "budget": b, "evals": n,
+                  "est_s": finite(rng.uniform(1e-3, 1e-2))}
+                 for s_i, (n, b) in enumerate(zip(nc, bs))]
+        rec("device_telemetry", execute_s=finite(rng.uniform(0.01, 0.05)),
+            evaluations=ev, crashes=crashes, rung_order=order,
+            brackets=[{"bracket": it, "crashes": crashes,
+                       "best_final_loss": finite(rng.normal(0.1, 0.05))}],
+            trace_id=f"sweep-{seed}")
+        rec("obs_fold", duration_s=finite(rng.uniform(1e-4, 1e-3)), phase="promotion")
+        for _ in range(int(rng.integers(2, 6))):
+            rec("serve_admission", wait_s=finite(rng.exponential(0.3)),
+                tenant=tenant, **tfield)
+        lane = int(rng.integers(4))
+        rec("lane_assigned", lane=lane, family=0, tenant=tenant)
+        rec("serve_chunk", duration_s=finite(rng.uniform(1e-3, 1e-2)), family=0,
+            lanes=int(rng.integers(1, 5)), starved=int(rng.random() < 0.1), seq=it)
+        if rng.random() < 0.5:
+            rec("lane_released", lane=lane, family=0, tenant=tenant)
+        rec("rpc_client_call", duration_s=finite(rng.exponential(0.01)),
+            method="evaluate", trace_id=f"tr-{seed}-{cid - 1}")
+        if rng.random() < 0.4:
+            rec("rpc_retry", method="evaluate", attempt=1)
+        if rng.random() < 0.5:
+            rec("worker_dropped", worker=f"w{int(rng.integers(3))}")
+            rec("worker_discovered", worker=f"w{int(rng.integers(3))}")
+        rec("fleet_sample", device_mem_skew=finite(rng.uniform(0.0, 1.0)),
+            worker_churn_per_min=finite(rng.uniform(0.0, 2.0)), seq=it)
+        rec("bracket_replay", duration_s=finite(rng.uniform(1e-3, 5e-3)),
+            phase="promotion")
+        if it == n_brackets // 2:
+            offsets[0] += 3.0  # a wall-clock step on host 0
+    rec("sweep_incumbent", loss=finite(rng.normal(0.0, 0.1)), budget=9.0, vector=[0.5, 0.5],
+        trace_id=f"sweep-{seed}")
+    return out
+
+
 # ------------------------------------------------------------------ spaces
 #: search spaces built identically in both packages: (kind, name, *args, kw)
 SPACES = {
@@ -371,14 +523,23 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
     "hpbandster_tpu_torch.obs",
+    "hpbandster_tpu_torch.obs.__main__",
+    "hpbandster_tpu_torch.obs.alerts",
+    "hpbandster_tpu_torch.obs.anomaly",
     "hpbandster_tpu_torch.obs.audit",
+    "hpbandster_tpu_torch.obs.collector",
     "hpbandster_tpu_torch.obs.device_metrics",
     "hpbandster_tpu_torch.obs.events",
+    "hpbandster_tpu_torch.obs.export",
+    "hpbandster_tpu_torch.obs.health",
     "hpbandster_tpu_torch.obs.journal",
     "hpbandster_tpu_torch.obs.metrics",
     "hpbandster_tpu_torch.obs.profile",
     "hpbandster_tpu_torch.obs.report",
     "hpbandster_tpu_torch.obs.runtime",
+    "hpbandster_tpu_torch.obs.slo",
+    "hpbandster_tpu_torch.obs.summarize",
+    "hpbandster_tpu_torch.obs.timeline",
     "hpbandster_tpu_torch.obs.trace",
     "hpbandster_tpu_torch.promote",
     "hpbandster_tpu_torch.promote.asha",
@@ -437,7 +598,8 @@ PORT_MODULES = [
 
 def test_port_imports_without_jax():
     """Importing the port pulls in neither jax nor any module of the JAX
-    package (checked in a fresh interpreter: this one already holds jax)."""
+    package (checked in a fresh interpreter: this one already holds jax),
+    and neither does running its obs CLI."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -450,6 +612,24 @@ def test_port_imports_without_jax():
         text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+    cli = (
+        "import runpy, sys\n"
+        "sys.argv = ['obs', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('hpbandster_tpu_torch.obs', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hpbandster_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", cli], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "python -m hpbandster_tpu_torch.obs" in proc.stdout
+    for command in ("summarize", "report", "timeline", "slo", "alerts", "export"):
+        assert command in proc.stdout
 
 
 def test_port_sources_never_import_jax():

@@ -606,8 +606,9 @@ def test_replay_identity_asha_floor_and_unknown(journal_records):
         assert row["n_promoted_replay"] <= row["n_candidates"] // 3 + 1
     with pytest.raises(ValueError, match="unknown promotion rule"):
         replay_records(journal_records, "warp_speed")
-    with pytest.raises(NotImplementedError, match="A8"):
-        worker_utilization(journal_records)
+    # ported: the fleet's busy fraction from summarize's aggregation
+    util = worker_utilization(journal_records)
+    assert set(util) == {"window_s", "per_worker", "busy_fraction"}
 
 
 def test_tied_scores_do_not_fake_zero_regret():

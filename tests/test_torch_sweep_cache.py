@@ -348,3 +348,127 @@ def test_run_incumbent_transfers_from_the_ledger(ref_runs):
     again = make().run_incumbent(n_iterations=3)
     assert again["compile_cache_hit"] and again["build_compile_s"] == 0.0
     assert again["incumbent"] == out["incumbent"]
+
+
+# ------------------------------------------- the byte bound (ROADMAP C.23)
+GIB = 1 << 30
+
+
+def test_lru_byte_bound_evicts_oldest_with_injected_sizes():
+    """Inserts evict the least recently used entries until the entries
+    fit the byte bound; the newest entry always stays, and the count bound
+    still holds."""
+    from hpbandster_tpu_torch.utils.lru import LRUCache
+
+    cache = LRUCache(maxsize=16)
+    rng = np.random.default_rng(11)
+    sizes = [int(s) for s in rng.integers(1, 6, size=20) * GIB]
+    bound = 12 * GIB
+    for i, size in enumerate(sizes):
+        cache.put(i, f"sweep{i}", nbytes=size, max_bytes=bound)
+        if i == 3:
+            assert cache.get(0) == "sweep0"  # a read refreshes recency
+        assert i in cache
+        assert sum(cache.sizes()) <= max(bound, size)
+        assert len(cache) <= 16
+    kept = [k for k in range(20) if k in cache]
+    # what survives is a run of the most recently used keys
+    assert kept == list(range(20 - len(kept), 20))
+    assert sum(cache.sizes()) == sum(sizes[k] for k in kept)
+    assert cache.sizes() == [sizes[k] for k in kept]
+    cache.put("huge", "sweep", nbytes=40 * GIB, max_bytes=bound)
+    assert len(cache) == 1 and sum(cache.sizes()) == 40 * GIB
+    cache.clear()
+    assert sum(cache.sizes()) == 0 and len(cache) == 0
+
+
+def test_sweep_cache_keeps_sixteen_entries_and_bounds_pinned_bytes(monkeypatch):
+    """The sweep cache keeps the reference's 16 entries where nothing is
+    pinned (the CPU), and on a card evicts by the bytes each capture
+    added: here each build is made to pin 5 GiB of a 40 GiB bound."""
+    assert fused_bohb._SWEEP_CACHE.maxsize == 16
+    opt = make()
+    plans = [opt._plan(0)]
+    for n in range(20):
+        opt._sweep_built(plans, dynamic=True, caps={1.0: 256 * (n + 1), 3.0: 256, 9.0: 256})
+    assert len(fused_bohb._SWEEP_CACHE) == 16
+    assert sum(fused_bohb._SWEEP_CACHE.sizes()) == 0
+
+    fused_bohb._SWEEP_CACHE.clear()
+    pinned = {"bytes": 0}
+
+    def fake_reserved(device):
+        return pinned["bytes"]
+
+    real = opt._prepared_sweep
+
+    def pinning_build(*a, **k):
+        pinned["bytes"] += 5 * GIB
+        return real(*a, **k)
+
+    monkeypatch.setattr(fused_bohb, "_pinned_reserved", fake_reserved)
+    monkeypatch.setattr(fused_bohb, "_cache_byte_bound", lambda device: 40 * GIB)
+    opt._prepared_sweep = pinning_build
+    for n in range(17):
+        _, _, hit = opt._sweep_built(plans, dynamic=True,
+                                     caps={1.0: 256 * (n + 1), 3.0: 256, 9.0: 256})
+        assert not hit
+        assert sum(fused_bohb._SWEEP_CACHE.sizes()) <= 40 * GIB
+    assert len(fused_bohb._SWEEP_CACHE) == 8
+    assert sum(fused_bohb._SWEEP_CACHE.sizes()) == 40 * GIB
+
+
+def test_out_of_memory_build_empties_the_cache_and_retries_once():
+    """A build that raises ``torch.cuda.OutOfMemoryError`` empties the
+    cache and is retried once; a second failure propagates."""
+    import torch
+
+    opt = make()
+    plans = [opt._plan(0)]
+    opt._sweep_built(plans, dynamic=True, caps={1.0: 256, 3.0: 256, 9.0: 256})
+    assert len(fused_bohb._SWEEP_CACHE) == 1
+    real = opt._prepared_sweep
+    calls = []
+
+    def failing_once(*a, **k):
+        calls.append(len(fused_bohb._SWEEP_CACHE))
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("capture out of memory")
+        return real(*a, **k)
+
+    opt._prepared_sweep = failing_once
+    sweep, _, hit = opt._sweep_built(plans, dynamic=True, caps={1.0: 512, 3.0: 256, 9.0: 256})
+    assert not hit and calls == [1, 0]  # the retry ran on an empty cache
+    assert len(fused_bohb._SWEEP_CACHE) == 1
+    out = sweep(0, *opt._dynamic_warm({1.0: 512, 3.0: 256, 9.0: 256}, 2)[0])
+    assert len(out[0]) == 1
+
+    def failing(*a, **k):
+        raise torch.cuda.OutOfMemoryError("still out of memory")
+
+    opt._prepared_sweep = failing
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="still"):
+        opt._sweep_built(plans, dynamic=True, caps={1.0: 1024, 3.0: 256, 9.0: 256})
+
+
+def test_sweep_evicted_by_bytes_is_freed_without_the_collector(monkeypatch):
+    """An entry the byte bound evicts is freed at once, with the cycle
+    collector off (ROADMAP C.5: a graph freed by the collector in the
+    middle of another capture invalidates that capture)."""
+    monkeypatch.setattr(fused_bohb, "_pinned_reserved",
+                        lambda device, n=iter(range(0, 100 * GIB, 3 * GIB)): next(n))
+    monkeypatch.setattr(fused_bohb, "_cache_byte_bound", lambda device: 4 * GIB)
+    opt = make()
+    plans = [opt._plan(i) for i in range(2)]
+    gc.disable()
+    try:
+        sweep, _, _ = opt._sweep_built(plans, dynamic=True,
+                                       caps={1.0: 256, 3.0: 256, 9.0: 256})
+        ref_ = weakref.ref(sweep)
+        del sweep
+        assert ref_() is not None
+        opt._sweep_built(plans, dynamic=True, caps={1.0: 512, 3.0: 256, 9.0: 256})
+        assert ref_() is None  # 3 GiB + 3 GiB > 4 GiB: the first went
+        assert len(fused_bohb._SWEEP_CACHE) == 1
+    finally:
+        gc.enable()
