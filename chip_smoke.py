@@ -153,7 +153,33 @@ Phases, each fatal on failure:
    one ``sweep_chunk`` per chunk, the ``device_telemetry`` record equal to
    the run's ``last_device_telemetry``, a ``sweep_incumbent`` record); on
    every journal ``replay_records`` under each rule is byte-identical
-   across two calls and the incumbent's ``config_lineage`` resolves. The
+   across two calls and the incumbent's ``config_lineage`` resolves; then
+   the host tier over real sockets on 127.0.0.1, each path with its counts
+   reset and read the same way: ``rpc_bohb`` (the reference idiom,
+   ``bench.py:773``: a ``NameServer``, two plain ``Worker`` threads
+   computing Hartmann-6 on the host, ``BOHB(nameserver=...,
+   collector=True)`` at the toy setting with its model on the card: runs
+   per budget, finite losses, the incumbent below the random searches'
+   median, no crashed job, requeue, dead letter or duplicate, jobs on both
+   workers; the fleet collector's gauges after two rounds over RPC and
+   ``metrics_text`` over RPC from the dispatcher and a worker),
+   ``rpc_batched`` (two ``TPUBatchedWorker`` threads on the card,
+   ``RPCBatchBackend`` in a ``BatchedExecutor``, ``BOHB(in_trace_refit=True)``
+   under ``HPB_PALLAS_KDE_FIT=1``: the sweep gates, both kernels, waves on
+   both workers, no retried or NaN-filled shard), ``rpc_teacher`` (the
+   teacher at full width, one ``TPUBatchedWorker`` in a spawned process,
+   4 brackets, then the same sweep again on the warm child: runs per
+   budget, crash ranking, the second sweep equal to the first, the child's
+   exit code 0 after its shutdown RPC; its evaluate spans read over RPC,
+   the wire's bytes), ``rpc_resume`` (``BOHB`` over one host worker with
+   ``checkpoint_path=`` and ``wal_path=``, one job in flight at a time, 4
+   brackets, cut a bracket and a half in and resumed by a fresh master's
+   ``Master.resume()``: equal to the uninterrupted run, WAL replays
+   counted) and ``serve_frontend`` (``ServeFrontend`` over RPC before a
+   ``ServePool`` on the card: 4 token-holding tenants submit 10-bracket
+   ``SweepSpec``s on Hartmann-6 from their threads, poll and fetch their
+   results; a wrong token is rejected; the frontend restarts over its
+   ``persist_dir=`` and one tenant resubmits warm). The
    launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
@@ -190,7 +216,11 @@ Phases, each fatal on failure:
    the bucketed run must equal the same run with
    ``bucket_brackets=False`` bit for bit, and each serving tenant its own
    seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
-   objective; then ``batched_bohb``'s wall with no sink and with a journal,
+   objective; ``rpc_batched`` must equal the in-process run over
+   ``VmapBackend`` with fusion off, ``rpc_teacher`` the in-process batched
+   run with one worker and fusion off, each ``serve_frontend`` tenant its
+   solo ``TenantMaster`` run and the warm resubmission the in-process warm
+   run, all bit for bit; then ``batched_bohb``'s wall with no sink and with a journal,
    in turns, and the records each journal holds (``obs overhead``, no
    claim); then the cached paths' runs back to back on one sweep cache
    that nothing empties (``cache_memory``: entries, allocated and reserved
@@ -2152,6 +2182,632 @@ def drive_serve_teacher(torch, dev, n_iterations=4, seeds=(0, 1, 2)):
 # ------------------------------------------------------------ resident tier
 #: resident runs of phase 4, by path: (optimizer, result, brackets), for
 #: the parity checks of phase 5
+# --------------------------------------------------------------- host tier
+#: path -> what phase 5 holds it against
+HOST_RUNS = {}
+#: a spawned worker process has this long to register, and to exit after
+#: its shutdown RPC
+CHILD_START_S = 240
+CHILD_EXIT_S = 60
+
+
+def host_counters():
+    """The host tier's counters: requeues, retried and NaN-filled shards,
+    dead letters, duplicates, WAL replays and the wire's bytes."""
+    from hpbandster_tpu_torch import obs
+
+    m = obs.get_metrics()
+    return {name: m.counter(name).value for name in (
+        "recovery.requeues", "rpc.batch_shard_retries", "rpc.batch_nan_filled",
+        "dispatcher.unknown_results", "recovery.duplicates_dropped",
+        "recovery.replayed_results", "recovery.wal_records",
+        "rpc.client_calls", "rpc.client_bytes_sent", "rpc.client_bytes_received")}
+
+
+def counter_deltas(before):
+    after = host_counters()
+    return {k: after[k] - before[k] for k in after}
+
+
+def gate_clean(label, deltas, opt=None):
+    """A clean host path: no requeue, no retried or NaN-filled shard, no
+    dead letter or duplicate, and (a Master's jobs given) no crashed job.
+    A card that failed cannot pass as a run with crashes."""
+    bad = {k: v for k, v in deltas.items() if v and k in (
+        "recovery.requeues", "rpc.batch_shard_retries", "rpc.batch_nan_filled",
+        "dispatcher.unknown_results", "recovery.duplicates_dropped")}
+    if bad:
+        raise AssertionError(f"{label}: fault counters moved on a clean path: {bad}")
+    if opt is not None:
+        crashed = [j.id for j in opt.jobs if j.exception is not None]
+        if crashed:
+            raise AssertionError(f"{label}: {len(crashed)} crashed jobs, first {crashed[0]}")
+
+
+def host_hartmann6_worker():
+    """A plain ``Worker`` whose ``compute`` evaluates the dict config,
+    Hartmann-6 on the host's CPU: the reference idiom."""
+    import torch
+
+    from hpbandster_tpu_torch import Worker
+    from hpbandster_tpu_torch.workloads import toys
+
+    class HostHartmann6(Worker):
+        def compute(self, config_id, config, budget, working_directory):
+            vec = torch.tensor([[config[f"x{i}"] for i in range(6)]], dtype=torch.float32)
+            return {"loss": float(toys.hartmann6(vec, budget)[0]), "info": {}}
+
+    return HostHartmann6
+
+
+def start_nameserver(run_id):
+    from hpbandster_tpu_torch import NameServer
+
+    ns = NameServer(run_id=run_id, host="127.0.0.1", port=0)
+    host, port = ns.start()
+    return ns, host, port
+
+
+def sequential(opt):
+    """One job in flight at a time, the next sampled only after the last
+    result was ingested: an async run then has one order of events."""
+    opt.dynamic_queue_size = False
+    opt.job_queue_sizes = (0, 0)
+    return opt
+
+
+def wait_rounds(col, rounds, timeout=30.0):
+    """The collector's newest sample once it has polled ``rounds`` rounds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        sample = col.last_sample()
+        if sample is not None and sample["seq"] + 1 >= rounds:
+            return sample
+        time.sleep(0.05)
+    raise AssertionError(f"fleet collector: fewer than {rounds} rounds in {timeout} s")
+
+
+def drive_rpc_bohb(torch, dev, max_budget=81.0, n_iterations=10):
+    """The reference idiom (``bench.py:773`` ``bench_rpc_baseline``) on
+    Hartmann-6: a ``NameServer`` on 127.0.0.1, two plain ``Worker`` threads
+    computing on the host, ``BOHB(nameserver=..., collector=True)`` with its
+    model on the card, 10 brackets at 1..81. Gates: runs per budget,
+    finite losses, the incumbent below the random searches' median best, no
+    crashed job and no requeue, one scorer launch per model-based pick.
+    Reports wall and finished runs/s, the fleet collector's gauges after two
+    rounds polled over RPC, ``metrics_text`` fetched over RPC from the
+    dispatcher's and a worker's endpoints, and the RPC round trip (200
+    ``ping`` calls to a worker)."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy
+    from hpbandster_tpu_torch.workloads import toys
+
+    run_id = "smoke-rpc-bohb"
+    ns, host, port = start_nameserver(run_id)
+    cls = host_hartmann6_worker()
+    workers = [cls(run_id=run_id, nameserver=host, nameserver_port=port, id=i)
+               for i in range(2)]
+    before = host_counters()
+    try:
+        for w in workers:
+            w.run(background=True)
+        opt = h.BOHB(configspace=toys.hartmann6_space(seed=0), run_id=run_id,
+                     nameserver=host, nameserver_port=port, min_budget=1,
+                     max_budget=max_budget, eta=3, seed=0, num_samples=64, device=dev,
+                     collector={"interval_s": 0.25, "timeout_s": 5.0})
+        t0 = time.perf_counter()
+        res, syncs = _syncs_of(torch, opt.run, n_iterations=n_iterations, min_n_workers=2)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        fleet = wait_rounds(opt.fleet_collector, 2)
+        texts = {"dispatcher": RPCProxy(opt.executor._server.uri, timeout=10).call(
+                     "metrics_text"),
+                 "worker": RPCProxy(workers[0]._server.uri, timeout=10).call("metrics_text")}
+        served = {j.worker_name for j in opt.jobs}
+        ping = RPCProxy(workers[0]._server.uri, timeout=10)
+        ping_ms = []
+        for _ in range(200):
+            t1 = time.perf_counter()
+            ping.call("ping")
+            ping_ms.append((time.perf_counter() - t1) * 1e3)
+        opt.shutdown(shutdown_workers=True)
+    finally:
+        ns.shutdown()
+    deltas = counter_deltas(before)
+    gate_clean("rpc_bohb", deltas, opt)
+    if len(served) != 2:
+        raise AssertionError(f"rpc_bohb: jobs ran on {sorted(served)}, not on both workers")
+    for name, text in texts.items():
+        if "hpbandster_" not in text:
+            raise AssertionError(f"rpc_bohb: {name} metrics_text over RPC is empty")
+    checks = serve_tenant_checks(torch, dev, "rpc_bohb", {"rpc": opt}, {"rpc": res},
+                                 max_budget, n_iterations)["rpc"]
+    check_wave_launches("rpc_bohb", opt.iterations, per_config=True)
+    finished = sum(r.loss is not None for r in res.get_all_runs())
+    rec = dict(n_iterations=n_iterations, wall_s=wall, finished_runs=finished,
+               runs_per_s=finished / wall, host_syncs=len(syncs),
+               model_based_picks=BATCHED_EXPECTED["rpc_bohb"]["kde_score"],
+               counters=deltas, fleet_rounds=fleet["seq"] + 1, fleet=fleet["fleet"],
+               fleet_endpoints=sorted(fleet["endpoints"]),
+               metrics_text_bytes={k: len(v) for k, v in texts.items()},
+               rpc_ping_ms_median=float(np.median(ping_ms)),
+               rpc_ping_ms_p90=float(np.percentile(ping_ms, 90)), **checks)
+    print("rpc_bohb path " + json.dumps(rec), flush=True)
+    HOST_RUNS["rpc_bohb"] = (opt, res, rec)
+    return res
+
+
+def counting_batched_worker():
+    """A ``TPUBatchedWorker`` class that counts the waves it evaluates."""
+    from hpbandster_tpu_torch.parallel import TPUBatchedWorker
+
+    class Counting(TPUBatchedWorker):
+        waves = 0
+
+        def _rpc_evaluate_batch(self, vectors, budget):
+            self.waves += 1
+            return super()._rpc_evaluate_batch(vectors, budget)
+
+    return Counting
+
+
+def rpc_batched_optimizer(dev, executor):
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import toys
+
+    return h.BOHB(configspace=toys.hartmann6_space(seed=0), run_id="smoke-rpc-batched",
+                  executor=executor, min_budget=1, max_budget=81, eta=3, seed=0,
+                  num_samples=64, device=dev, in_trace_refit=True)
+
+
+def drive_rpc_batched(torch, dev, n_iterations=10):
+    """The batched tier over RPC: two ``TPUBatchedWorker`` threads on the
+    card behind a ``NameServer``, ``RPCBatchBackend`` inside a
+    ``BatchedExecutor`` (no ``eval_fn``: stage by stage, no fusion or
+    buckets), ``BOHB(in_trace_refit=True)`` on Hartmann-6 under
+    ``HPB_PALLAS_KDE_FIT=1``, 10 brackets. Gates: the sweep gates, both
+    kernels once per model wave, every wave split over both workers with no
+    retried or NaN-filled shard; phase 5 holds it to the in-process run
+    over ``VmapBackend`` with fusion off, bit for bit. Reports waves per
+    worker."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import toys
+
+    run_id = "smoke-rpc-batched"
+    ns, host, port = start_nameserver(run_id)
+    cls = counting_batched_worker()
+    workers = [cls(run_id=run_id, eval_fn=toys.hartmann6,
+                   configspace=toys.hartmann6_space(seed=0), device=dev,
+                   nameserver=host, nameserver_port=port, id=i) for i in range(2)]
+    before = host_counters()
+    try:
+        for w in workers:
+            w.run(background=True)
+        backend = h.RPCBatchBackend(run_id, host, port, rpc_timeout=120)
+        backend.wait_for_workers(2, timeout=30)
+        ex = h.BatchedExecutor(backend, toys.hartmann6_space(seed=0))
+        if ex.fuse_brackets or ex.bucket_brackets:
+            raise AssertionError("rpc_batched: an executor without eval_fn fuses or buckets")
+        with env_flags(HPB_PALLAS_KDE_FIT="1"):
+            opt = rpc_batched_optimizer(dev, ex)
+            res, rec = run_batched(torch, dev, opt, n_iterations)
+    finally:
+        for w in workers:
+            w.shutdown()
+        ns.shutdown()
+    deltas = counter_deltas(before)
+    gate_clean("rpc_batched", deltas)
+    rec.update(batched_sweep_checks(torch, dev, "rpc_batched", opt, res, 81.0, n_iterations))
+    check_wave_launches("rpc_batched", opt.iterations, moments=True)
+    waves = {w.worker_id.rsplit(".", 1)[-1]: w.waves for w in workers}
+    if min(waves.values()) < 1:
+        raise AssertionError(f"rpc_batched: a worker evaluated no wave: {waves}")
+    rec.update(waves_per_worker=waves, counters=deltas)
+    print("rpc_batched path " + json.dumps(rec), flush=True)
+    HOST_RUNS["rpc_batched"] = (opt, res, rec)
+    return res
+
+
+def check_rpc_batched_parity(torch, dev, n_iterations=10):
+    """Phase 5: ``rpc_batched`` equals the in-process run over
+    ``VmapBackend`` with bracket fusion off, bit for bit (Hartmann-6 is
+    row-wise: a wave split two ways gives the same losses)."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import toys
+
+    ex = h.BatchedExecutor(h.VmapBackend(toys.hartmann6, device=dev),
+                           toys.hartmann6_space(seed=0), fuse_brackets=False)
+    with env_flags(HPB_PALLAS_KDE_FIT="1"):
+        opt = rpc_batched_optimizer(dev, ex)
+        res, rec = run_batched(torch, dev, opt, n_iterations)
+    same_runs("rpc_batched", HOST_RUNS["rpc_batched"][1], _runs(res))
+    rec.update(runs=len(res.get_all_runs()), equal_bitwise=True)
+    print("rpc_batched compare " + json.dumps(rec), flush=True)
+
+
+def teacher_worker_main(ns_host, ns_port, run_id, device):
+    """A spawned process's body: one ``TPUBatchedWorker`` of the teacher at
+    full width on ``device``, serving until its shutdown RPC. It imports
+    only the port (and this script, which imports numpy at the top)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from hpbandster_tpu_torch.parallel import TPUBatchedWorker
+    from hpbandster_tpu_torch.workloads import teacher_space
+
+    dev = torch.device(device)
+    w = TPUBatchedWorker(run_id, teacher_eval_fn(dev), configspace=teacher_space(seed=0),
+                         device=dev, nameserver=ns_host, nameserver_port=ns_port,
+                         id="teacher")
+    w.run()  # blocks until the shutdown RPC
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpbandster_tpu")]
+    if bad:
+        raise SystemExit(f"teacher worker imported {bad[:3]}")
+
+
+def teacher_optimizer(dev, executor):
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import teacher_space
+
+    return h.BOHB(configspace=teacher_space(seed=0), run_id="smoke-rpc-teacher",
+                  executor=executor, min_budget=1, max_budget=27, eta=3, seed=0,
+                  min_points_in_model=5, device=dev)
+
+
+def drive_rpc_teacher(torch, dev, n_iterations=4):
+    """The teacher at full width (``bench.py:1054``) behind RPC, its card in
+    a process of its own: one ``TPUBatchedWorker`` in a spawned subprocess
+    (a forked child could not use the card the parent touched),
+    ``RPCBatchBackend`` inside a ``BatchedExecutor``, 4 brackets. Gates: runs
+    per budget and crash ranking, no retried or NaN-filled shard, the child
+    exiting 0 after its shutdown RPC, the same sweep run again on the warm
+    child equal to the first; phase 5 holds the run to the in-process
+    batched run (one worker, fusion off) bit for bit. Reports wall (both
+    sweeps), the worker's evaluate span per wave (read over RPC from the
+    child) and the wire's bytes."""
+    import multiprocessing
+
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy
+    from hpbandster_tpu_torch.workloads import teacher_space
+
+    run_id = "smoke-rpc-teacher"
+    ns, host, port = start_nameserver(run_id)
+    child = multiprocessing.get_context("spawn").Process(
+        target=teacher_worker_main, args=(host, port, run_id, dev.type), daemon=True,
+        name="rpc-teacher-worker")
+    child.start()
+    uri = None
+    try:
+        backend = h.RPCBatchBackend(run_id, host, port, rpc_timeout=600)
+        t0 = time.perf_counter()
+        while not backend._workers:
+            if not child.is_alive():
+                raise AssertionError(f"rpc_teacher: the worker process exited "
+                                     f"{child.exitcode} before registering")
+            if time.perf_counter() - t0 > CHILD_START_S:
+                raise AssertionError(f"rpc_teacher: no worker after {CHILD_START_S} s")
+            with contextlib.suppress(TimeoutError):
+                backend.wait_for_workers(1, timeout=1.0)
+        start_s = time.perf_counter() - t0
+        uri = next(iter(backend._workers.values())).uri
+        before = host_counters()
+        opt = teacher_optimizer(dev, h.BatchedExecutor(backend, teacher_space(seed=0)))
+        res, rec = run_batched(torch, dev, opt, n_iterations)
+        deltas = counter_deltas(before)
+        snap = RPCProxy(uri, timeout=30).call("obs_snapshot")
+        # the same sweep again on the now warm child: how much of the
+        # first sweep's time was the fresh process's own
+        again = teacher_optimizer(dev, h.BatchedExecutor(backend, teacher_space(seed=0)))
+        res_again, rec_again = run_batched(torch, dev, again, n_iterations)
+        snap_again = RPCProxy(uri, timeout=30).call("obs_snapshot")
+    finally:
+        if uri is not None:
+            with contextlib.suppress(Exception):
+                RPCProxy(uri, timeout=10).call("shutdown")
+        child.join(CHILD_EXIT_S)
+        if child.is_alive():
+            child.terminate()
+            child.join(10)
+        ns.shutdown()
+    if child.exitcode != 0:
+        raise AssertionError(f"rpc_teacher: the worker process exited {child.exitcode}")
+    gate_clean("rpc_teacher", counter_deltas(before))
+    rec.update(check_workload_sweep("rpc_teacher", res, 1.0, 27.0, n_iterations, True))
+    same_runs("rpc_teacher again", res_again, _runs(res))
+    check_wave_launches("rpc_teacher", opt.iterations + again.iterations)
+    spans = snap["metrics"]["histograms"].get("worker.evaluate_batch_s")
+    spans_again = snap_again["metrics"]["histograms"].get("worker.evaluate_batch_s")
+    if not spans or spans["count"] < 1:
+        raise AssertionError("rpc_teacher: the worker reported no evaluate span")
+    rec.update(worker_start_s=start_s, worker_pid=child.pid,
+               worker_evaluate_span_s={k: spans[k] for k in spans if k != "buckets"},
+               worker_rpc_requests=snap["metrics"]["counters"].get("rpc.server_requests"),
+               wire_bytes_sent=deltas["rpc.client_bytes_sent"],
+               wire_bytes_received=deltas["rpc.client_bytes_received"], counters=deltas,
+               again_wall_s=rec_again["wall_s"],
+               again_worker_evaluate_s=spans_again["sum"] - spans["sum"],
+               again_waves=spans_again["count"] - spans["count"])
+    print("rpc_teacher path " + json.dumps(rec), flush=True)
+    HOST_RUNS["rpc_teacher"] = (opt, res, rec)
+    return res
+
+
+def check_rpc_teacher_parity(torch, dev, n_iterations=4):
+    """Phase 5: ``rpc_teacher`` equals the in-process batched run with one
+    worker and fusion off, bit for bit."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.workloads import teacher_space
+
+    ex = h.BatchedExecutor(h.VmapBackend(teacher_eval_fn(dev), device=dev),
+                           teacher_space(seed=0), fuse_brackets=False)
+    opt = teacher_optimizer(dev, ex)
+    res, rec = run_batched(torch, dev, opt, n_iterations)
+    same_runs("rpc_teacher", HOST_RUNS["rpc_teacher"][1], _runs(res))
+    rec.update(runs=len(res.get_all_runs()), equal_bitwise=True)
+    print("rpc_teacher compare " + json.dumps(rec), flush=True)
+
+
+def drive_rpc_resume(torch, dev, n_iterations=4, cut=(143, 160)):
+    """Crash-restart on the card: ``BOHB`` over one host worker with
+    ``checkpoint_path=`` and ``wal_path=``, one job in flight at a time, 4
+    brackets at 1..81. The cut, a bracket and a half in: a checkpoint taken
+    while result ``cut[0]`` is being ingested and the WAL as it stands at
+    result ``cut[1]``. A fresh master's ``Master.resume()`` from them
+    replays the WAL's eligible records and runs on. Gates: the (config,
+    budget, loss) set and the incumbent equal the uninterrupted run, the WAL
+    replay counters non-zero."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.core.checkpoint import save_checkpoint
+    from hpbandster_tpu_torch.workloads import toys
+
+    run_id = "smoke-rpc-resume"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    ckpt, wal, cut_ckpt, cut_wal = (os.path.join(tmp, f) for f in (
+        "auto.pkl", "wal.jsonl", "cut.pkl", "cut_wal.jsonl"))
+    ns, host, port = start_nameserver(run_id)
+    seen = []
+
+    class Cut:
+        """The result logger that takes the cut: called under the master's
+        lock, after the result's WAL append and before its bookkeeping."""
+
+        def new_config(self, *args):
+            pass
+
+        def __call__(self, job):
+            seen.append(job)
+            if len(seen) == cut[0]:
+                save_checkpoint(first, cut_ckpt)
+            if len(seen) == cut[1]:
+                shutil.copyfile(wal, cut_wal)
+
+    def make(**kw):
+        return sequential(h.BOHB(
+            configspace=toys.hartmann6_space(seed=0), run_id=run_id, nameserver=host,
+            nameserver_port=port, min_budget=1, max_budget=81, eta=3, seed=0,
+            num_samples=64, device=dev, checkpoint_path=ckpt, checkpoint_interval=3600,
+            wal_path=wal, **kw))
+
+    worker = host_hartmann6_worker()(run_id=run_id, nameserver=host, nameserver_port=port)
+    before = host_counters()
+    try:
+        worker.run(background=True)
+        first = make(result_logger=Cut())
+        t0 = time.perf_counter()
+        full = first.run(n_iterations=n_iterations, min_n_workers=1)
+        wall_full = time.perf_counter() - t0
+        first.shutdown()
+        picks_full = model_waves(first.iterations, per_config=True)
+        if len(seen) <= cut[1]:
+            raise AssertionError(f"rpc_resume: {len(seen)} results, the cut is at {cut}")
+        resumed = make()
+        replayed0 = host_counters()["recovery.replayed_results"]
+        stats = resumed.resume(cut_ckpt, cut_wal)
+        replayed = host_counters()["recovery.replayed_results"] - replayed0
+        restored = {cid for it in resumed.iterations for cid in it.data}
+        t0 = time.perf_counter()
+        res = resumed.run(n_iterations=n_iterations, min_n_workers=1)
+        wall_resumed = time.perf_counter() - t0
+        resumed.shutdown(shutdown_workers=True)
+    finally:
+        ns.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deltas = counter_deltas(before)
+    gate_clean("rpc_resume", deltas, resumed)
+    check_runs_per_budget("rpc_resume", full, 81.0, n_iterations)
+    same_runs("rpc_resume", res, _runs(full))
+    if res.get_incumbent_id() != full.get_incumbent_id():
+        raise AssertionError("rpc_resume: the incumbent differs from the uninterrupted run")
+    if stats["replayed"] < 1 or replayed != stats["replayed"]:
+        raise AssertionError(f"rpc_resume: WAL replay {stats}, counter {replayed}")
+    picks_resumed = sum(
+        bool(d.config_info.get("model_based_pick"))
+        for it in resumed.iterations for cid, d in it.data.items() if cid not in restored)
+    BATCHED_EXPECTED["rpc_resume"] = {"kde_score": picks_full + picks_resumed,
+                                      "kde_moments": 0}
+    rec = dict(n_iterations=n_iterations, cut=list(cut), runs=len(full.get_all_runs()),
+               replay=stats, restored_configs=len(restored),
+               wall_s_uninterrupted=wall_full, wall_s_resumed=wall_resumed,
+               model_based_picks=[picks_full, picks_resumed], counters=deltas,
+               equal_to_uninterrupted=True)
+    print("rpc_resume path " + json.dumps(rec), flush=True)
+    return res
+
+
+def own_runs(res):
+    """A view of ``res`` whose runs are the sweep's own, without a warm
+    start's replayed runs (negative iteration ids)."""
+    import types
+
+    return types.SimpleNamespace(
+        get_all_runs=lambda: [r for r in res.get_all_runs() if r.config_id[0] >= 0])
+
+
+def frontend_result(frontend, sweep_id):
+    """The full ``Result`` of a finished sweep (the process that hosts the
+    frontend holds it; ``sweep_result`` serves its incumbent)."""
+    return frontend._runs[sweep_id]["result"]
+
+
+def frontend_spec(seed, n_iterations, warm_start=True):
+    return {"optimizer": "bohb", "n_iterations": n_iterations, "eta": 3.0,
+            "min_budget": 1.0, "max_budget": 81.0, "num_samples": 64, "seed": seed,
+            "warm_start": warm_start}
+
+
+def poll_sweep(proxy, tenant, sweep_id, token, timeout=SERVE_JOIN_S):
+    deadline = time.monotonic() + timeout
+    polls = 0
+    while time.monotonic() < deadline:
+        st = proxy.call("sweep_status", tenant=tenant, sweep_id=sweep_id, token=token)
+        polls += 1
+        if st.get("state") in ("done", "failed") or "error" in st and st["error"]:
+            return st, polls
+        time.sleep(0.02)
+    raise AssertionError(f"serve_frontend: sweep {sweep_id} of {tenant} did not finish "
+                         f"in {timeout} s")
+
+
+def drive_serve_frontend(torch, dev, n_iterations=10):
+    """``ServeFrontend`` over RPC in front of a ``ServePool`` on the card: 4
+    tenants, each with a token, submit ``SweepSpec``s of 10 ``BOHB``
+    brackets on Hartmann-6 (seeds 0-3, 1..81) from their own threads, with
+    the scheduler's quantum one bracket's cost; each polls ``sweep_status``
+    and fetches ``sweep_result``. Then the frontend restarts over its
+    ``persist_dir=`` and tenant t0 resubmits warm. Gates: every sweep done
+    with runs per budget as planned and finite losses, the served incumbent
+    that of the sweep's ``Result``, a wrong token rejected, the warm
+    resubmission replaying the persisted result, one scorer launch per
+    model wave; phase 5 holds each tenant to its solo run and the warm
+    resubmission to the in-process warm run, bit for bit."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy
+    from hpbandster_tpu_torch.workloads import toys
+
+    persist = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+    tokens = {f"t{s}": f"secret-{s}" for s in SERVE_SEEDS}
+    objective = fresh_objective(toys.hartmann6)
+
+    def pool():
+        return serve_pool(dev, objective, toys.hartmann6_space(seed=0), pack_window_s=0.05,
+                          scheduler=bracket_quantum(81.0, n_iterations))
+
+    frontend = h.ServeFrontend(pool(), persist_dir=persist, auth_tokens=tokens).start()
+    results, polls, served, errors = {}, {}, {}, {}
+    try:
+        proxy = RPCProxy(frontend.uri, timeout=60)
+        denied = proxy.call("submit_sweep", tenant="t0", spec=frontend_spec(0, n_iterations),
+                            token="wrong")
+        if denied.get("accepted"):
+            raise AssertionError("serve_frontend: a wrong token was accepted")
+        barrier = threading.Barrier(len(tokens))
+
+        def tenant(t):
+            try:
+                barrier.wait(timeout=SERVE_JOIN_S)
+                p = RPCProxy(frontend.uri, timeout=60)
+                reply = p.call("submit_sweep", tenant=t, token=tokens[t],
+                               spec=frontend_spec(int(t[1:]), n_iterations))
+                if not reply.get("accepted"):
+                    raise AssertionError(f"rejected: {reply}")
+                st, polls[t] = poll_sweep(p, t, reply["sweep_id"], tokens[t])
+                if st["state"] != "done":
+                    raise AssertionError(f"sweep ended {st}")
+                served[t] = p.call("sweep_result", tenant=t, sweep_id=reply["sweep_id"],
+                                   token=tokens[t])
+                results[t] = frontend_result(frontend, reply["sweep_id"])
+            except BaseException as e:  # reported by the driving thread
+                errors[t] = e
+
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tenant, args=(t,), daemon=True) for t in tokens]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=SERVE_JOIN_S)
+        wall = time.perf_counter() - t0
+        if errors:
+            t, err = next(iter(errors.items()))
+            raise AssertionError(f"serve_frontend: tenant {t} failed: {err!r}") from err
+        if len(results) != len(tokens):
+            raise AssertionError(f"serve_frontend: tenants {sorted(results)} finished")
+        snap = proxy.call("pool_snapshot")
+        quota = proxy.call("tenant_quota", tenant="t0")
+    finally:
+        frontend.shutdown(timeout=SERVE_JOIN_S)
+    # the restart: a new frontend (and pool) over the same persist_dir
+    frontend = h.ServeFrontend(pool(), persist_dir=persist, auth_tokens=tokens).start()
+    try:
+        proxy = RPCProxy(frontend.uri, timeout=60)
+        reply = proxy.call("submit_sweep", tenant="t0", spec=frontend_spec(10, n_iterations),
+                            token="secret-0")
+        if not reply.get("accepted"):
+            raise AssertionError(f"serve_frontend: warm resubmission rejected: {reply}")
+        st, _ = poll_sweep(proxy, "t0", reply["sweep_id"], "secret-0")
+        if st["state"] != "done":
+            raise AssertionError(f"serve_frontend: warm resubmission ended {st}")
+        warm = frontend_result(frontend, reply["sweep_id"])
+        warm_quota = proxy.call("tenant_quota", tenant="t0")
+    finally:
+        frontend.shutdown(timeout=SERVE_JOIN_S)
+        shutil.rmtree(persist, ignore_errors=True)
+    if warm_quota["sweeps_completed"] != 2:
+        raise AssertionError(f"serve_frontend: t0's persisted sweeps {warm_quota}")
+    rec = dict(tenants=len(results), n_iterations=n_iterations, wall_s=wall,
+               finished_runs=sum(len(r.get_all_runs()) for r in results.values()),
+               polls=polls, dispatches=snap["dispatches"], quota_t0=quota)
+    rec["runs_per_s"] = rec["finished_runs"] / wall
+    for t, res in results.items():
+        check_runs_per_budget(f"serve_frontend_{t}", res, 81.0, n_iterations)
+        inc = res.get_incumbent_id()
+        if served[t]["incumbent"]["config_id"] != list(inc):
+            raise AssertionError(f"serve_frontend: {t}'s served incumbent is not its "
+                                 "Result's")
+    # the warm sweep's Result also holds the replayed sweep (negative
+    # iteration ids): the plan and the launches count this sweep's own
+    check_runs_per_budget("serve_frontend_warm", own_runs(warm), 81.0, n_iterations)
+    waves = sum(len({(c[0], c[1]) for c, v in r.get_id2config_mapping().items()
+                     if c[0] >= 0 and v["config_info"].get("model_based_pick")})
+                for r in [*results.values(), warm])
+    BATCHED_EXPECTED["serve_frontend"] = {"kde_score": waves, "kde_moments": 0}
+    rec["model_waves"] = waves
+    print("serve_frontend path " + json.dumps(rec), flush=True)
+    HOST_RUNS["serve_frontend"] = (results, warm, rec)
+    return results
+
+
+def check_serve_frontend_parity(torch, dev, n_iterations=10):
+    """Phase 5: each tenant behind the frontend equals its solo run (the
+    same spec through a ``TenantMaster`` alone in a
+    ``ServePool(pack_window_s=0.0)``), and the warm resubmission after the
+    restart equals the in-process warm run (the first sweep's ``Result``
+    held in memory, not reloaded from disk), bit for bit."""
+    from hpbandster_tpu_torch.serve import SweepSpec, TenantMaster, TenantStore
+    from hpbandster_tpu_torch.workloads import toys
+
+    results, warm, _ = HOST_RUNS["serve_frontend"]
+    rec = {}
+    for t, got in results.items():
+        solo_pool = serve_pool(dev, toys.hartmann6, toys.hartmann6_space(seed=0),
+                               pack_window_s=0.0)
+        store = TenantStore()
+        spec = SweepSpec.from_dict(frontend_spec(int(t[1:]), n_iterations))
+        solo = TenantMaster(solo_pool, t, spec, store=store).run()
+        same_runs(f"serve_frontend {t} solo", got, _runs(solo))
+        rec[t] = len(got.get_all_runs())
+        if t == "t0":
+            warm_pool = serve_pool(dev, toys.hartmann6, toys.hartmann6_space(seed=0),
+                                   pack_window_s=0.0)
+            want = TenantMaster(warm_pool, t, SweepSpec.from_dict(frontend_spec(10, n_iterations)),
+                                store=store).run()
+            same_runs("serve_frontend warm", warm, _runs(want))
+    print("serve_frontend solo compare " + json.dumps(
+        dict(equal_bitwise=True, tenants=rec, warm_equal_bitwise=True)), flush=True)
+
+
 RESIDENT_RUNS = {}
 
 
@@ -3881,6 +4537,13 @@ def main(argv=None) -> int:
         "serve_continuous": lambda torch, dev: drive_serve(
             torch, dev, "serve_continuous", continuous=True),
         "serve_teacher": drive_serve_teacher,
+        # the host tier: RPC workers, the batched tier over RPC, recovery,
+        # the serving front
+        "rpc_bohb": drive_rpc_bohb,
+        "rpc_batched": drive_rpc_batched,
+        "rpc_teacher": drive_rpc_teacher,
+        "rpc_resume": drive_rpc_resume,
+        "serve_frontend": drive_serve_frontend,
     }
     launches, recorded, results, seconds = {}, [], {}, {}
     for path, drive in paths.items():
@@ -3935,6 +4598,9 @@ def main(argv=None) -> int:
     check_bucketed_parity(torch, dev)
     check_serve_parity(torch, dev, "serve_megabatch")
     check_serve_parity(torch, dev, "serve_continuous")
+    check_rpc_batched_parity(torch, dev)
+    check_rpc_teacher_parity(torch, dev)
+    check_serve_frontend_parity(torch, dev)
     print_workload_accuracies()
     profile_resident_launches(torch, dev)
     measure_resident(torch, dev)

@@ -8,6 +8,8 @@ the JAX package. Its kernels are hand-written CUDA C++ under ``csrc/``,
 built with ``nvcc`` at first launch.
 """
 
+from hpbandster_tpu_torch.core.nameserver import NameServer  # noqa: F401
+from hpbandster_tpu_torch.core.worker import Worker  # noqa: F401
 from hpbandster_tpu_torch.optimizers import (  # noqa: F401
     BOHB,
     H2BO,
@@ -18,10 +20,16 @@ from hpbandster_tpu_torch.optimizers import (  # noqa: F401
     HyperBand,
     RandomSearch,
 )
-from hpbandster_tpu_torch.parallel import BatchedExecutor, VmapBackend  # noqa: F401
-from hpbandster_tpu_torch.serve import ServePool  # noqa: F401
+from hpbandster_tpu_torch.parallel import (  # noqa: F401
+    BatchedExecutor,
+    RPCBatchBackend,
+    TPUBatchedWorker,
+    VmapBackend,
+)
+from hpbandster_tpu_torch.serve import ServeFrontend, ServePool  # noqa: F401
 from hpbandster_tpu_torch.space import ConfigurationSpace  # noqa: F401
 
 __all__ = ["BOHB", "HyperBand", "RandomSearch", "H2BO", "BatchedExecutor",
            "VmapBackend", "FusedBOHB", "FusedHyperBand", "FusedH2BO",
-           "FusedRandomSearch", "ConfigurationSpace", "ServePool"]
+           "FusedRandomSearch", "ConfigurationSpace", "ServePool", "NameServer",
+           "Worker", "TPUBatchedWorker", "RPCBatchBackend", "ServeFrontend"]

@@ -25,9 +25,13 @@ result's run time feeds the ``master.job_run_s`` histogram and its
 budget-keyed twin ``master.job_run_s.b<budget>``, the cost feed of Pareto
 promotion (``obs.budget_cost_from_obs``).
 
-Not ported yet: the RPC ``Dispatcher`` that ``executor=None`` builds, the
-fleet collector and the write-ahead result journal with ``resume()``
-(ROADMAP A9).
+With ``executor=None`` the Master builds the RPC ``Dispatcher``
+(``parallel/dispatcher.py``) over the workers a ``NameServer`` lists, the
+reference's architecture; ``wal_path=`` journals every terminal result
+before bracket bookkeeping consumes it (``core/recovery.py``) and
+``resume()`` replays it after a crash; ``collector=`` serves the master's
+own health endpoint and polls the fleet (``obs/collector.py``). Each
+submitted job carries its idempotency key.
 """
 
 from __future__ import annotations
@@ -41,16 +45,11 @@ from typing import Any, Dict, List, Optional, Tuple
 from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.iteration import BaseIteration
 from hpbandster_tpu_torch.core.job import ConfigId, Job
+from hpbandster_tpu_torch.core.recovery import ResultWAL, idempotency_key, resume_master
 from hpbandster_tpu_torch.core.result import Result
 from hpbandster_tpu_torch.core.warmstart import WarmStartIteration
 
 __all__ = ["Master"]
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A9: host tier); pass "
-        "executor=parallel.BatchedExecutor(...)")
 
 
 class Master:
@@ -60,6 +59,13 @@ class Master:
         config_generator,
         executor=None,
         working_directory: str = ".",
+        # reference-compatible nameserver kwargs; used only when no executor
+        # is passed and a Dispatcher must be constructed:
+        nameserver: str = "127.0.0.1",
+        nameserver_port: Optional[int] = None,
+        host: Optional[str] = None,
+        ping_interval: float = 60.0,
+        shutdown_workers: bool = True,
         logger: Optional[logging.Logger] = None,
         result_logger=None,
         previous_result: Optional[Result] = None,
@@ -71,12 +77,6 @@ class Master:
         collector: Any = None,
         tenant_id: Optional[str] = None,
     ):
-        if executor is None:
-            raise _not_ported("executor=None (the RPC Dispatcher and its workers)")
-        if wal_path is not None:
-            raise _not_ported("wal_path= (the write-ahead result journal)")
-        if collector:
-            raise _not_ported("collector= (the fleet observatory)")
         self.run_id = run_id
         self.config_generator = config_generator
         #: serving-tier identity: stamped on every submitted Job
@@ -102,6 +102,16 @@ class Master:
         self.checkpoint_interval = float(checkpoint_interval)
         self._last_checkpoint_mono = 0.0
 
+        # write-ahead result journal: every terminal result is journaled
+        # before bracket bookkeeping consumes it, so a checkpoint and the
+        # WAL's tail together lose no work across a crash (resume()). The
+        # WAL truncates after each checkpoint, and is stamped with the
+        # run id: a reused path's leftovers neither dedup nor replay.
+        self.wal_path = wal_path
+        self._wal = None
+        if wal_path is not None:
+            self._wal = ResultWAL(wal_path, run_id=run_id)
+
         # re-entrant: batched executors fire job_callback synchronously from
         # inside flush(), which runs under this same condition
         self.thread_cond = threading.Condition(threading.RLock())
@@ -112,6 +122,16 @@ class Master:
                 WarmStartIteration(previous_result, self.config_generator)
             ]
 
+        if executor is None:
+            from hpbandster_tpu_torch.parallel.dispatcher import Dispatcher
+
+            executor = Dispatcher(
+                run_id=run_id,
+                nameserver=nameserver,
+                nameserver_port=nameserver_port,
+                host=host,
+                ping_interval=ping_interval,
+            )
         self.executor = executor
         self.executor.start(
             new_result_callback=self.job_callback,
@@ -126,6 +146,60 @@ class Master:
         self.parallel_brackets: float = getattr(
             self.executor, "preferred_parallel_brackets", float("inf")
         )
+
+        # the fleet observatory: collector=True (defaults) or a dict of
+        # FleetCollector kwargs serves this master's own health endpoint
+        # and polls master, dispatcher and every discovered worker
+        self.health_server = None
+        self.fleet_collector = None
+        if collector:
+            self._start_collector(collector if isinstance(collector, dict) else {})
+
+    # ------------------------------------------------------ fleet observatory
+    def _start_collector(self, options: Dict[str, Any]) -> None:
+        """Serve this master's ``obs_snapshot`` endpoint and start a
+        :class:`~hpbandster_tpu_torch.obs.collector.FleetCollector` over
+        the whole fleet (the endpoint listing is re-read every round, so
+        an elastic pool is tracked as it churns)."""
+        from hpbandster_tpu_torch.obs.collector import FleetCollector
+        from hpbandster_tpu_torch.parallel.rpc import RPCServer
+
+        server = RPCServer(getattr(self.executor, "host", None) or "127.0.0.1", 0)
+        obs.HealthEndpoint(
+            component="master",
+            identity=obs.process_identity(run_id=self.run_id),
+            in_flight=self._health_in_flight,
+        ).register(server)
+        server.start()
+        self.health_server = server
+        self.fleet_collector = FleetCollector(
+            endpoints=self._fleet_endpoints, **options
+        ).start()
+
+    def _health_in_flight(self) -> Dict[str, Any]:
+        with self.thread_cond:
+            return {
+                "running_jobs": self.num_running_jobs,
+                "iterations": len(self.iterations),
+                "active_iterations": len(self.active_iterations()),
+            }
+
+    def _fleet_endpoints(self) -> Dict[str, str]:
+        """The collector's endpoint listing for one round: every fleet
+        process that answers ``obs_snapshot`` now."""
+        eps: Dict[str, str] = {}
+        if self.health_server is not None:
+            eps["master"] = self.health_server.uri
+        uri = getattr(getattr(self.executor, "_server", None), "uri", None)
+        if uri:
+            eps["dispatcher"] = uri
+        workers = getattr(self.executor, "workers", None)
+        if isinstance(workers, dict):
+            for name, w in list(workers.items()):
+                w_uri = getattr(w, "uri", None)
+                if w_uri:
+                    eps[name] = w_uri
+        return eps
 
     # ----------------------------------------------------------------- hooks
     def get_next_iteration(
@@ -185,6 +259,15 @@ class Master:
         # the run scopes the straggler-ledger drain to this sweep
         with obs.use_tenant(self.tenant_id), obs.use_run(self.run_id), self.thread_cond:
             self.num_running_jobs -= 1
+            if self._wal is not None:
+                # write-ahead: on disk before any in-memory consumption, so
+                # a crash after this line re-joins the result from the WAL
+                # instead of re-running the evaluation
+                budget = job.kwargs.get("budget", 0.0)
+                self._wal.append(
+                    job.idem_key or idempotency_key(job.id, budget),
+                    job.id, budget, job.result, job.exception, job.timestamps,
+                )
             if self.result_logger is not None:
                 self.result_logger(job)
             self.iterations[job.id[0]].register_result(job)
@@ -217,6 +300,9 @@ class Master:
         job.tenant_id = self.tenant_id
         # the job's trace identity: every event of its story carries it
         job.trace = obs.new_trace(self.run_id)
+        # its exactly-once identity: requeues, late dead letters and
+        # delivery retries all resolve to this one key
+        job.idem_key = idempotency_key(config_id, budget)
         job.time_it("submitted")
         with obs.use_tenant(self.tenant_id), obs.use_trace(job.trace):
             obs.emit(obs.JOB_SUBMITTED, config_id=list(config_id), budget=budget)
@@ -351,6 +437,14 @@ class Master:
         )
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
+        if self.fleet_collector is not None:
+            self.fleet_collector.stop()
+            self.fleet_collector = None
+        if self.health_server is not None:
+            self.health_server.shutdown()
+            self.health_server = None
+        if self._wal is not None:
+            self._wal.close()
         self.executor.shutdown(shutdown_workers)
 
     # ------------------------------------------------------------ checkpoint
@@ -360,8 +454,12 @@ class Master:
         from hpbandster_tpu_torch.core.checkpoint import save_checkpoint
 
         t0 = time.monotonic()
+        # the lock covers the snapshot and the WAL's truncation: a result
+        # ingested between the two would be in neither
         with self.thread_cond:
             save_checkpoint(self, path)
+            if self._wal is not None:
+                self._wal.truncate()
         self._last_checkpoint_mono = time.monotonic()
         obs.emit(obs.CHECKPOINT_WRITTEN, path=path,
                  duration_s=round(time.monotonic() - t0, 6))
@@ -374,7 +472,10 @@ class Master:
 
         load_checkpoint(self, path)
 
-    def resume(self, checkpoint_path: str, wal_path: Optional[str] = None):
-        """Crash-restart from a checkpoint and the write-ahead journal: not
-        ported yet; :meth:`load_checkpoint` restores a checkpoint."""
-        raise _not_ported("Master.resume (the write-ahead result journal)")
+    def resume(self, checkpoint_path: str, wal_path: Optional[str] = None) -> Dict[str, int]:
+        """Crash-restart: restore ``checkpoint_path``, then replay the
+        write-ahead journal's tail so results that arrived after the last
+        checkpoint join back without re-running (core/recovery.py).
+        Returns the replay stats; ``run(n_iterations=<same total>)`` then
+        dispatches only unfinished configs."""
+        return resume_master(self, checkpoint_path, wal_path)

@@ -39,7 +39,7 @@ JAX package):
 * :mod:`~hpbandster_tpu_torch.obs.export`, :mod:`~hpbandster_tpu_torch.obs.health`
   and :mod:`~hpbandster_tpu_torch.obs.collector` — the Prometheus text
   exporter, the in-process health snapshot and crash dump, and the fleet
-  collector (over an injected fetcher);
+  collector (over the ``obs_snapshot`` RPC or an injected fetcher);
 * ``python -m hpbandster_tpu_torch.obs summarize|report|timeline|
   critical-path|replay|slo|alerts|watch|top|export`` — the CLI over
   journals (:mod:`~hpbandster_tpu_torch.obs.summarize`).
@@ -54,11 +54,6 @@ attached, so the instrumentation stays on; attach a sink to look::
         ...  # any optimizer run; events stream into the journal
     finally:
         handle.close()
-
-What reaches another process over RPC (the collector's default fetcher,
-the exporter's ``snapshot_fetcher``, ``watch --snapshot`` and ``top``,
-``HealthEndpoint.register``) raises ``NotImplementedError`` until the RPC
-transport is ported (ROADMAP A9).
 """
 
 from __future__ import annotations

@@ -1,8 +1,6 @@
 """CLI: ``python -m hpbandster_tpu_torch.obs <command>``.
 
-Ported from ``hpbandster_tpu/obs/__main__.py`` (a copy). The commands that
-reach a live process over RPC (``watch --snapshot``, ``top``, ``export
---snapshot``) raise ``NotImplementedError`` (ROADMAP A9).
+Ported from ``hpbandster_tpu/obs/__main__.py`` (a copy).
 
 * ``summarize <journal> [<journal> ...] [--json]`` — merge one or many
   (possibly rotated) journals by wall clock; print per-stage latency
@@ -129,7 +127,6 @@ def run_export(
     )
 
     if snapshot_uri is not None:
-        # raises NotImplementedError: the RPC transport is not ported
         fetch = snapshot_fetcher(snapshot_uri)
     else:
         fetch = render_registry

@@ -1,9 +1,6 @@
 """Fleet observatory: poll every health endpoint into a time series.
 
-Ported from ``hpbandster_tpu/obs/collector.py`` (a copy). The port has no
-RPC transport yet: a collector polls through an injected ``fetch``
-callable, and one built without it (the default ``obs_snapshot`` RPC
-fetcher) raises ``NotImplementedError`` (ROADMAP A9).
+Ported from ``hpbandster_tpu/obs/collector.py`` (a copy).
 
 PRs 2–5 made each fleet process individually legible — ``obs_snapshot``
 answers *what is this process doing right now*, the Prometheus exporter
@@ -57,8 +54,9 @@ detector sees the derived gauges the moment they are computed —
 :func:`~hpbandster_tpu_torch.obs.anomaly.scan_records` over a series file
 replays the same rules offline (tested parity).
 
-Like ``health.py``, this module never imports the RPC transport, so the
-obs substrate stays stdlib-only at import.
+Like ``health.py``, this module is transport-lazy: ``parallel/rpc.py``
+imports only inside the default fetcher, so the obs substrate stays
+stdlib-only at import.
 """
 
 from __future__ import annotations
@@ -87,6 +85,19 @@ __all__ = [
 ]
 
 logger = E.logger
+
+
+def _rpc_fetch(uri: str, timeout: float) -> Dict[str, Any]:
+    """Default snapshot fetcher: one ``obs_snapshot`` RPC with its own
+    socket timeout (connect and read both bounded — a hung peer costs
+    ``timeout`` seconds, not a stalled collector)."""
+    # lazy: the obs substrate never pulls in the RPC transport at import
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy
+
+    snap = RPCProxy(uri, timeout=timeout).call("obs_snapshot")
+    if not isinstance(snap, dict):
+        raise ValueError(f"obs_snapshot from {uri} returned {type(snap).__name__}")
+    return snap
 
 
 class EndpointState:
@@ -504,12 +515,7 @@ class FleetCollector:
         self._endpoints_spec = endpoints
         self._registry = registry
         self._bus = bus
-        if fetch is None:
-            # the default fetcher is one obs_snapshot RPC per endpoint
-            from hpbandster_tpu_torch.obs.export import rpc_not_ported
-
-            raise rpc_not_ported("FleetCollector without fetch=")
-        self._fetch = fetch
+        self._fetch = fetch if fetch is not None else _rpc_fetch
         self._lock = threading.Lock()
         self._states: Dict[str, EndpointState] = {}
         self._window: collections.deque = collections.deque(

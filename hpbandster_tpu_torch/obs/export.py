@@ -1,9 +1,7 @@
 """Prometheus-compatible metrics exporter (text exposition format 0.0.4).
 
 Ported from ``hpbandster_tpu/obs/export.py`` (a copy; the exposition
-format, help strings included, is the reference's). The port has no RPC
-transport yet: :func:`snapshot_fetcher` raises ``NotImplementedError``
-(ROADMAP A9).
+format, help strings included, is the reference's).
 
 The fleet's metrics were only reachable through the bespoke
 ``obs_snapshot`` RPC; this module renders the same atomic
@@ -493,19 +491,20 @@ class ExporterServer:
         self._httpd.server_close()
 
 
-def rpc_not_ported(what: str) -> NotImplementedError:
-    """The error every obs entry point that needs the RPC transport
-    raises: the port has none yet."""
-    return NotImplementedError(
-        f"{what} needs the RPC transport, which is not ported yet "
-        "(ROADMAP A9: host tier)")
-
-
 def snapshot_fetcher(uri: str, timeout: float = 5.0) -> Callable[[], str]:
-    """A fetch closure bridging a fleet peer through its ``obs_snapshot``
-    RPC: raises ``NotImplementedError`` until the RPC transport is
-    ported (ROADMAP A9)."""
-    raise rpc_not_ported(f"snapshot_fetcher({uri!r})")
+    """A fetch closure bridging a fleet peer: each scrape calls the
+    peer's ``obs_snapshot`` RPC and renders its metrics section."""
+    # CLI-only import: the obs substrate never pulls in the RPC transport
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy
+
+    def fetch() -> str:
+        snap = RPCProxy(uri, timeout=timeout).call("obs_snapshot")
+        metrics = (snap or {}).get("metrics")
+        if not isinstance(metrics, dict):
+            raise ValueError(f"obs_snapshot from {uri} has no metrics section")
+        return render_snapshot(metrics)
+
+    return fetch
 
 
 def serve(

@@ -1,9 +1,7 @@
 """Fleet health: the ``obs_snapshot`` RPC endpoint + crash forensics.
 
 Ported from ``hpbandster_tpu/obs/health.py`` (a copy; profiles are
-``torch.profiler`` captures, ``obs/profile.py``). The port has no RPC
-server yet: :meth:`HealthEndpoint.register` raises ``NotImplementedError``
-(ROADMAP A9); the snapshot itself works in process.
+``torch.profiler`` captures, ``obs/profile.py``).
 
 Every long-lived process in the fleet (worker, dispatcher) exposes one
 introspection RPC, ``obs_snapshot``, returning a JSON-serializable
@@ -20,8 +18,11 @@ thread via ``threading.excepthook``) writes the same snapshot — plus the
 traceback — to a JSON file before the process dies, so a dead run leaves
 a record instead of a silence.
 
-This module is deliberately transport-agnostic: it never imports the
-RPC transport.
+This module is deliberately transport-agnostic: it never imports
+``parallel/rpc.py`` (which imports ``obs`` — the dependency points one
+way). ``register(server)`` only needs a ``server.register(name, fn)``
+callable, which :class:`~hpbandster_tpu_torch.parallel.rpc.RPCServer`
+satisfies.
 """
 
 from __future__ import annotations
@@ -173,12 +174,16 @@ class HealthEndpoint:
         return get_profile_session().status()
 
     def register(self, server: Any) -> None:
-        """Expose :meth:`snapshot`, :meth:`metrics_text` and the
-        profiling trio on an RPC server: raises ``NotImplementedError``
-        until the RPC transport is ported (ROADMAP A9)."""
-        from hpbandster_tpu_torch.obs.export import rpc_not_ported
-
-        raise rpc_not_ported("HealthEndpoint.register")
+        """Expose :meth:`snapshot` as the ``obs_snapshot`` RPC method,
+        :meth:`metrics_text` as ``metrics_text``, and the on-demand
+        profiling trio (``start_profile`` / ``stop_profile`` /
+        ``profile_status``) — every fleet process is scrapeable AND
+        profileable through its existing health port."""
+        server.register("obs_snapshot", self.snapshot)
+        server.register("metrics_text", self.metrics_text)
+        server.register("start_profile", self.start_profile)
+        server.register("stop_profile", self.stop_profile)
+        server.register("profile_status", self.profile_status)
 
 
 def install_crash_dump(

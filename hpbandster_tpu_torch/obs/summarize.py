@@ -1,8 +1,6 @@
 """Journal post-processing: ``python -m hpbandster_tpu_torch.obs summarize``.
 
-Ported from ``hpbandster_tpu/obs/summarize.py`` (a copy). Watching a live
-process (``watch --snapshot``, ``top``) needs the RPC transport, which the
-port has not yet: it raises ``NotImplementedError`` (ROADMAP A9).
+Ported from ``hpbandster_tpu/obs/summarize.py`` (a copy).
 
 Reads one or MANY (possibly rotated) JSONL run journals — e.g. the
 master's and each worker's — merges them by wall clock, and prints the
@@ -51,6 +49,10 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, TextIO, Tuple
 from hpbandster_tpu_torch.obs import events as E
 from hpbandster_tpu_torch.obs.journal import read_journal_ex
 
+#: sink-free bus for CLI-side collectors (watch/top): a viewer must not
+#: inject fleet_sample events into the process it happens to run inside
+_NULL_BUS = E.EventBus()
+
 __all__ = [
     "summarize_records", "format_summary", "summarize_path",
     "read_merged", "read_merged_ex", "trace_timelines", "watch_journal",
@@ -59,12 +61,29 @@ __all__ = [
 
 
 def make_viewer_collector(uris: Sequence[str], interval: float) -> Any:
-    """A CLI viewer's collector (``watch --snapshot`` / ``top``) over the
-    peers' ``obs_snapshot`` RPCs: raises ``NotImplementedError`` until the
-    RPC transport and its URI parsing are ported (ROADMAP A9)."""
-    from hpbandster_tpu_torch.obs.export import rpc_not_ported
+    """A CLI viewer's collector (``watch --snapshot`` / ``top``): private
+    registry + sink-free bus, because a viewer must not publish the
+    viewed fleet's gauges or ``fleet_sample`` events into whatever
+    process it happens to run inside. Validates every URI up front — a
+    malformed one can never succeed, so fail fast (``ValueError`` names
+    the offending URI) instead of looping "waiting" forever on a typo.
+    """
+    # CLI-only imports: the obs substrate itself never pulls in the RPC
+    # transport (health.py is deliberately transport-agnostic)
+    from hpbandster_tpu_torch.obs.collector import FleetCollector
+    from hpbandster_tpu_torch.obs.metrics import MetricsRegistry
+    from hpbandster_tpu_torch.parallel.rpc import parse_uri
 
-    raise rpc_not_ported(f"watching {list(uris)!r} (--snapshot, top)")
+    for u in uris:
+        try:
+            parse_uri(u)
+        except ValueError as e:
+            raise ValueError(f"invalid --snapshot URI {u!r}: {e}") from e
+    return FleetCollector(
+        endpoints=list(uris), interval_s=interval,
+        timeout_s=max(interval, 2.0),
+        registry=MetricsRegistry(), bus=_NULL_BUS,
+    )
 
 #: journal-record fields -> timeline stage names (the emitting sites:
 #: dispatcher JOB_STARTED, worker JOB_FINISHED/JOB_FAILED, worker

@@ -16,9 +16,11 @@ Ported from ``hpbandster_tpu/serve/``:
   executor facades feeding fair-scheduled, megabatched (or continuous)
   rounds against one shared backend.
 
-The reference's sweep specs, tenant sessions with warm models, the
-per-sweep ``TenantMaster`` and the RPC ``ServeFrontend`` wait for the
-port's host tier (ROADMAP A9).
+* :mod:`~hpbandster_tpu_torch.serve.session`: sweep specs, tenant
+  sessions with warm models (``persist_dir=``) and the per-sweep
+  ``TenantMaster``;
+* :mod:`~hpbandster_tpu_torch.serve.frontend`: :class:`ServeFrontend`, the
+  tenant-facing RPC surface (admission, HMAC tokens, status and results).
 """
 
 from hpbandster_tpu_torch.serve.continuous import (  # noqa: F401
@@ -33,6 +35,7 @@ from hpbandster_tpu_torch.serve.megabatch import (  # noqa: F401
     make_mega_runner,
     pack_members,
 )
+from hpbandster_tpu_torch.serve.frontend import ServeFrontend  # noqa: F401
 from hpbandster_tpu_torch.serve.pool import ServePool  # noqa: F401
 from hpbandster_tpu_torch.serve.scheduler import (  # noqa: F401
     AdmissionController,
@@ -41,12 +44,23 @@ from hpbandster_tpu_torch.serve.scheduler import (  # noqa: F401
     TenantQuota,
     work_cost,
 )
+from hpbandster_tpu_torch.serve.session import (  # noqa: F401
+    SweepSpec,
+    TenantMaster,
+    TenantSession,
+    TenantStore,
+)
 
 __all__ = [
     "ContinuousRunner",
     "LaneAllocator",
     "make_lane_mesh",
     "ServePool",
+    "ServeFrontend",
+    "SweepSpec",
+    "TenantMaster",
+    "TenantSession",
+    "TenantStore",
     "TenantQuota",
     "AdmissionController",
     "AdmissionDecision",

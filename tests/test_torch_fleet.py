@@ -8,8 +8,10 @@ collector's ``_endpoint_row`` / ``derive_fleet`` / ``tenant_counters`` /
 ``lane_gauges`` / ``slo_gauges`` / ``format_fleet_table``, which must be
 equal (text byte for byte). An ``ExporterServer`` on 127.0.0.1 serves the
 registry over HTTP, and a ``FleetCollector`` polls health snapshots
-through an injected fetcher. What needs the RPC transport raises, naming
-ROADMAP A9.
+through an injected fetcher. Over the RPC transport a registered
+``HealthEndpoint`` answers ``obs_snapshot`` / ``metrics_text``, the
+exporter's ``snapshot_fetcher`` bridges it, and a collector without
+``fetch=`` polls it (servers on port 0, every call with a timeout).
 """
 
 import json
@@ -122,8 +124,21 @@ def test_health_snapshot_profile_and_crash_dump(tmp_path, monkeypatch):
     assert snap["runtime"]["compile"] is not None
     assert export.parse_prometheus_text(ep.metrics_text())
     json.dumps(snap)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ep.register(object())
+    # registered on an RPC server, the same snapshot and text over the wire
+    from hpbandster_tpu_torch.parallel.rpc import RPCProxy, RPCServer
+
+    srv = RPCServer("127.0.0.1", 0)
+    ep.register(srv)
+    assert {"obs_snapshot", "metrics_text", "start_profile", "stop_profile",
+            "profile_status"} <= set(srv.methods)
+    srv.start()
+    try:
+        remote = RPCProxy(srv.uri, timeout=5).call("obs_snapshot", tail=4)
+        assert remote["component"] == "worker" and remote["ring_tail"] == snap["ring_tail"]
+        assert remote["metrics"] == snap["metrics"]
+        assert RPCProxy(srv.uri, timeout=5).call("metrics_text") == ep.metrics_text()
+    finally:
+        srv.shutdown()
     started = ep.start_profile(log_dir=str(tmp_path / "prof"))
     assert started["ok"], started
     assert ep.profile_status()["active"]
@@ -210,15 +225,47 @@ def test_collector_polls_health_snapshots_through_an_injected_fetcher(tmp_path):
 
 
 def test_what_needs_the_rpc_transport_raises():
-    with pytest.raises(NotImplementedError, match="A9"):
-        collector.FleetCollector(["127.0.0.1:1"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        export.snapshot_fetcher("127.0.0.1:1")
+    """What needed the RPC transport now runs over it: a collector without
+    ``fetch=`` polls ``obs_snapshot`` (an unreachable peer counts lost, it
+    does not raise), ``snapshot_fetcher`` renders a peer's metrics, and a
+    master with ``collector=True`` serves its own endpoint and polls it."""
+    from hpbandster_tpu_torch.parallel.rpc import CommunicationError, RPCServer
+
+    reg = fill_registry(MetricsRegistry(), 6)
+    srv = RPCServer("127.0.0.1", 0)
+    health.HealthEndpoint("worker", identity={"host": "h", "pid": 2},
+                          registry=reg).register(srv)
+    srv.start()
+    dead = RPCServer("127.0.0.1", 0)
+    dead_uri = dead.uri
+    dead.shutdown()
+    try:
+        col = collector.FleetCollector([srv.uri, dead_uri], interval_s=0.05,
+                                       timeout_s=2.0, registry=MetricsRegistry(),
+                                       bus=EventBus())
+        sample = col.poll_once()
+        col.stop()
+        assert sample["fleet"]["ok"] == 1 and sample["endpoints"][srv.uri]["ok"]
+        text = export.snapshot_fetcher(srv.uri, timeout=5)()
+        assert export.parse_prometheus_text(text) == export.parse_prometheus_text(
+            export.render_registry(reg))
+        with pytest.raises(CommunicationError):
+            export.snapshot_fetcher(dead_uri, timeout=2)()
+    finally:
+        srv.shutdown()
     from hpbandster_tpu_torch import BOHB, BatchedExecutor, VmapBackend
     from hpbandster_tpu_torch.workloads.toys import branin, branin_space
 
     cs = branin_space(seed=0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        BOHB(configspace=cs, run_id="c", executor=BatchedExecutor(
-            VmapBackend(branin, device="cpu"), cs), min_budget=1, max_budget=9,
-            device="cpu", collector=True)
+    opt = BOHB(configspace=cs, run_id="c", executor=BatchedExecutor(
+        VmapBackend(branin, device="cpu"), cs), min_budget=1, max_budget=9,
+        device="cpu", collector={"interval_s": 0.05, "timeout_s": 2.0})
+    try:
+        opt.run(n_iterations=1)
+        assert set(opt._fleet_endpoints()) == {"master"}
+        sample = opt.fleet_collector.poll_once()
+        assert sample["fleet"]["ok"] == 1
+        assert sample["endpoints"]["master"]["component"] == "master"
+    finally:
+        opt.shutdown()
+    assert opt.fleet_collector is None and opt.health_server is None

@@ -178,14 +178,30 @@ def test_cli_reads_merged_journals_and_refuses_missing_ones(ref_obs_all, tmp_pat
     assert obs_main(["report", str(tmp_path / "missing.jsonl")]) == 2
 
 
-def test_rpc_watchers_raise_naming_the_host_tier(tmp_path):
-    """Watching a live process needs the RPC transport (ROADMAP A9)."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        obs_main(["watch", "--snapshot", "127.0.0.1:1", "--ticks", "1"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        obs_main(["top", "--snapshot", "127.0.0.1:1", "--ticks", "1"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        obs_main(["export", "--snapshot", "127.0.0.1:1", "--once"])
+def test_rpc_watchers_raise_naming_the_host_tier(tmp_path, capsys):
+    """Watching a live process runs over the RPC transport: ``watch`` and
+    ``top`` poll a health endpoint's ``obs_snapshot``, ``export
+    --snapshot`` bridges its metrics, and a malformed URI is a usage
+    error (exit 2), as in the reference."""
+    from hpbandster_tpu_torch.obs.health import HealthEndpoint
+    from hpbandster_tpu_torch.parallel.rpc import RPCServer
+
+    srv = RPCServer("127.0.0.1", 0)
+    HealthEndpoint("dispatcher", identity={"host": "h", "pid": 3}).register(srv)
+    srv.start()
+    try:
+        assert obs_main(["watch", "--snapshot", srv.uri, "--ticks", "1",
+                         "--interval", "0.01"]) == 0
+        assert obs_main(["top", "--snapshot", srv.uri, "--ticks", "1",
+                         "--interval", "0.01"]) == 0
+        assert "dispatcher" in capsys.readouterr().out
+        assert obs_main(["export", "--snapshot", srv.uri, "--once"]) == 0
+        assert "# TYPE" in capsys.readouterr().out
+    finally:
+        srv.shutdown()
+    for cmd in ("watch", "top"):
+        assert obs_main([cmd, "--snapshot", "not a uri", "--ticks", "1"]) == 2
+        assert "invalid --snapshot URI" in capsys.readouterr().err
     stream = io.StringIO()
     path = _write(tmp_path, synth_journal(8))
     assert summarize.watch_journal(path, interval=0.01, ticks=1, stream=stream) == 0
