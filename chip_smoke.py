@@ -179,7 +179,34 @@ Phases, each fatal on failure:
    ``ServePool`` on the card: 4 token-holding tenants submit 10-bracket
    ``SweepSpec``s on Hartmann-6 from their threads, poll and fetch their
    results; a wrong token is rejected; the frontend restarts over its
-   ``persist_dir=`` and one tenant resubmits warm). The
+   ``persist_dir=`` and one tenant resubmits warm); then the config-axis
+   meshes, each path with its counts reset and read the same way, each
+   timed path run once for its gates and three times more for its times
+   (wall, configs per second, ``execute_fetch_s``, the transfer bytes and
+   host syncs, peak reserved memory, with the card's name and power limit;
+   the sharded driver's paths also the per-shard balance gauges it
+   publishes): ``sharded_100k``
+   (``run_sharded_fused_sweep`` at 2^17 configurations, ``bench.py:319``:
+   the mesh-aligned plan, a finite incumbent, on one shard the unsharded
+   incumbent-only sweep's incumbent bit for bit, on four shards of the card
+   the unsharded sweep's fed the same four per-shard stage-0 blocks),
+   ``sharded_1M`` (2^20, one shard: the plan, d2h bytes and host syncs
+   equal to ``sharded_100k``'s), ``resident_sharded`` (``resident=True,
+   device_metrics=True``, 3 brackets at 2^13, 2^17 and 2^20,
+   ``bench.py:435``: the same host-link bill at every size, the decoded
+   runs as planned, one captured round, the replayed sweep equal to its
+   eager twin), ``sharded_model`` (``model=True``, 2^14 configurations of
+   8 candidates, 4 brackets in chunks of 2, the moments fit, one shard and
+   two shards of the card: one chunk program captured, the state carried on
+   the device, each equal to its eager twin), ``fused_mesh``
+   (``FusedBOHB(mesh=config_mesh([card] * 2))``, static and chunked, equal
+   to the static and chunked paths' runs bit for bit, the warm buffers
+   streamed shard slice by shard slice), ``batched_mesh`` (``BOHB`` over a
+   meshed ``VmapBackend``, bucketed: equal to ``batched_bohb_bucketed``;
+   ``TPUBatchedWorker(mesh="auto")`` reports the card) and
+   ``multihost_one_rank`` (a one-rank NCCL group: the group's sweep equal
+   to ``sharded_100k``'s, two shards in the group, gathered by NCCL, equal
+   to one process's; the group destroyed after). The
    launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
@@ -346,7 +373,19 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "ensemble_resident": {"kde_score": 10, "kde_moments": 0},
                       "teacher": {"kde_score": 3, "kde_moments": 0},
                       "resnet": {"kde_score": 1, "kde_moments": 0},
-                      "transformer": {"kde_score": 1, "kde_moments": 0}}
+                      "transformer": {"kde_score": 1, "kde_moments": 0},
+                      # the config-axis meshes: HyperBand mode runs no model;
+                      # sharded_model fits and scores every bracket (4 per
+                      # run: one gated run, 3 repeats and the eager twin on
+                      # each of two meshes); fused_mesh's static runs score 9
+                      # brackets and its chunked runs fit and score 10 (4
+                      # runs each)
+                      "sharded_100k": {"kde_score": 0, "kde_moments": 0},
+                      "sharded_1M": {"kde_score": 0, "kde_moments": 0},
+                      "resident_sharded": {"kde_score": 0, "kde_moments": 0},
+                      "sharded_model": {"kde_score": 40, "kde_moments": 40},
+                      "fused_mesh": {"kde_score": 76, "kde_moments": 40},
+                      "multihost_one_rank": {"kde_score": 0, "kde_moments": 0}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -440,14 +479,36 @@ def bound_ms(bytes_moved, flops, exps):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
-def hold_kde_score(torch, label, cands, good, bad, vt, cards, n_proposals, reps=20):
+#: the plain scorer makes ``[candidates, rows]`` temporaries: above this many
+#: elements it runs in candidate chunks (each candidate's score is its own)
+PLAIN_SCORE_ELEMENTS = 2**27
+
+
+def plain_scores(torch, cands, good, bad, vt, cards):
+    """``score_candidates_reference`` over the candidates, in chunks that
+    keep its temporaries under ``PLAIN_SCORE_ELEMENTS`` elements."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    step = max(1, PLAIN_SCORE_ELEMENTS // max(good.data.shape[0], bad.data.shape[0], 1))
+    if cands.shape[0] <= step:
+        return cuda_kde.score_candidates_reference(cands, good, bad, vt, cards)
+    return torch.cat([cuda_kde.score_candidates_reference(cands[i:i + step], good, bad, vt,
+                                                          cards)
+                      for i in range(0, cands.shape[0], step)])
+
+
+def hold_kde_score(torch, label, cands, good, bad, vt, cards, n_proposals, reps=20,
+                   time_plain=True):
     """The scorer kernel against its plain version on one input: max abs
     error (fatal above ``SCORE_ATOL``), whether each proposal's argmax
-    agrees, median times and the bound. Returns the record it prints."""
+    agrees, median times and the bound. Returns the record it prints. A
+    plain call of more than ``PLAIN_SCORE_ELEMENTS`` temporaries runs in
+    chunks and is timed over 2 calls after one, and only where
+    ``time_plain`` (a path's largest launch): it takes seconds."""
     from hpbandster_tpu_torch.ops import cuda_kde
 
     got = cuda_kde.score_candidates(cands, good, bad, vt, cards)
-    want = cuda_kde.score_candidates_reference(cands, good, bad, vt, cards)
+    want = plain_scores(torch, cands, good, bad, vt, cards)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"kde_score {label}: non-finite scores")
@@ -458,9 +519,11 @@ def hold_kde_score(torch, label, cands, good, bad, vt, cards, n_proposals, reps=
                                  want.reshape(n_proposals, -1).argmax(1)))
     ms = _median_ms(lambda: cuda_kde.score_candidates(cands, good, bad, vt, cards),
                     torch, reps=reps)
-    plain_ms = _median_ms(
-        lambda: cuda_kde.score_candidates_reference(cands, good, bad, vt, cards),
-        torch, reps=reps)
+    big = cands.shape[0] * max(good.data.shape[0], bad.data.shape[0]) > PLAIN_SCORE_ELEMENTS
+    plain_ms = None
+    if time_plain or not big:
+        plain_ms = _median_ms(lambda: plain_scores(torch, cands, good, bad, vt, cards),
+                              torch, reps=2 if big else reps, warmup=1 if big else 3)
     b_ms, b_by = bound_ms(*kde_score_work(cands, good, bad, vt))
     rec = dict(shape=label, S=int(cands.shape[0]), d=int(cands.shape[1]),
                n_good=int((good.mask > 0).sum()), n_bad=int((bad.mask > 0).sum()),
@@ -656,8 +719,9 @@ def check_recorded_launches(torch, recorded, num_samples=64):
             reps = 20 if is_largest else 3
             label = f"{path}_path_launch_{i}"
             if kernel == "kde_score":
-                n = inputs[0].shape[0] // num_samples
-                rec = hold_kde_score(torch, label, *inputs, n, reps=reps)
+                n = inputs[0].shape[0] // NUM_SAMPLES_BY_PATH.get(path, num_samples)
+                rec = hold_kde_score(torch, label, *inputs, n, reps=reps,
+                                     time_plain=is_largest)
                 shapes.append((path, rec["S"], int(inputs[1].data.shape[0]),
                                rec["n_good"], rec["n_bad"], rec["d"]))
             else:
@@ -685,9 +749,10 @@ def profiled_device_ms(torch, fn, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then catches no device event in a window; such a
-    # window is measured again, up to twice
-    for _ in range(3):
+    # the profiler now and then catches no device event in a window (once
+    # three windows in a row, at one launch of a whole run); such a window
+    # is measured again, up to five times
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1042,7 +1107,12 @@ def drive_chunked_path(torch, dev):
 
     rec, _, res = run_chunked(torch, dev, "hartmann6 chunked", chunked_optimizer, hartmann6)
     print("chunked path " + json.dumps(dict(objective="hartmann6", **rec)), flush=True)
+    CHUNKED_RUNS["hartmann6"] = res
     return res
+
+
+#: the chunked path's result by objective, for fused_mesh
+CHUNKED_RUNS = {}
 
 
 def check_resume(torch, dev, label, uninterrupted, make_opt, n_iterations=10):
@@ -1238,17 +1308,19 @@ def model_waves(iterations, per_config=False):
 
 def batched_optimizer(dev, cls_name, objective="hartmann6", max_budget=81.0,
                       parallel_brackets=3, fuse_brackets=True, seed=0, objective_fn=None,
-                      bucket_brackets=True, **kw):
+                      bucket_brackets=True, mesh=None, **kw):
     """A Master-driven optimizer of the port on ``BatchedExecutor(
     VmapBackend(objective))``, eta 3, budgets 1..``max_budget``: the
     reference's ``bench.py:741`` ``bench_batched`` setting. ``objective_fn``
-    evaluates in place of the named toy (on its space)."""
+    evaluates in place of the named toy (on its space); ``mesh`` shards the
+    backend's waves."""
     import hpbandster_tpu_torch as h
     from hpbandster_tpu_torch.workloads import toys
 
     cs = getattr(toys, f"{objective}_space")(seed=seed)
     fn = objective_fn or getattr(toys, objective)
-    ex = h.BatchedExecutor(h.VmapBackend(fn, device=dev), cs, fuse_brackets=fuse_brackets,
+    ex = h.BatchedExecutor(h.VmapBackend(fn, mesh=mesh, device=dev), cs,
+                           fuse_brackets=fuse_brackets,
                            parallel_brackets=parallel_brackets,
                            bucket_brackets=bucket_brackets)
     if cls_name in ("BOHB", "H2BO"):
@@ -4403,6 +4475,474 @@ def profile_moments_device_time(torch, dev, reps=20):
         print("kde_moments device time " + json.dumps(rec), flush=True)
 
 
+# --------------------------------------------------- config-axis meshes
+#: the config-axis paths' first runs, for the later paths' equality gates
+MESH_RUNS = {}
+#: a timed path runs once (the run its gates read), then this many more
+#: times for its times
+MESH_REPEATS = 3
+#: sharded_model's candidates per proposal: 2^14 proposals of 8 candidates
+#: against 2^16-row buffers, so that the plain scorer's check of its
+#: launches takes seconds on the card
+SHARDED_MODEL_SAMPLES = 8
+#: candidates per proposal of the paths that do not sample 64
+NUM_SAMPLES_BY_PATH = {"sharded_model": SHARDED_MODEL_SAMPLES}
+#: the card's name and power limit, read once
+_CARD = []
+
+
+def card_line():
+    """``nvidia-smi``'s name and power limit of the card."""
+    if not _CARD:
+        _CARD.append(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0])
+    return _CARD[0]
+
+
+def measured(torch, dev, call):
+    """``call()`` (a sharded sweep's stats dict) with its wall seconds,
+    configs per second, peak reserved memory and the balance gauges of its
+    shards."""
+    from hpbandster_tpu_torch.obs.metrics import get_metrics
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r = call()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    g = get_metrics().snapshot()["gauges"]
+    shards = range(r["n_shards"])
+    rec = dict(wall_s=wall, configs_per_s=r["evaluations"] / wall,
+               evaluations=r["evaluations"], execute_fetch_s=r["execute_fetch_s"],
+               transfer_bytes_h2d=r["h2d_bytes"], transfer_bytes_d2h=r["d2h_bytes"],
+               host_syncs=r["host_syncs"],
+               balance={k: g[k] for k in ["sweep.balance_skew"] + [
+                   f"sweep.device.{s}.{f}" for s in shards for f in ("configs", "pad_rows")]},
+               peak_reserved_bytes=int(torch.cuda.max_memory_reserved(dev)))
+    return r, rec
+
+
+def timed_path(torch, dev, label, call):
+    """One run for the gates, then ``MESH_REPEATS`` timed repeats, each
+    printed with the card; returns the first run's stats and records."""
+    first, rec = measured(torch, dev, call)
+    reps = [measured(torch, dev, call)[1] for _ in range(MESH_REPEATS)]
+    for i, r in enumerate([rec] + reps):
+        print(f"{label} run " + json.dumps(dict(r, repeat=i, card=card_line())), flush=True)
+    summary = {k: float(np.median([r[k] for r in reps]))
+               for k in ("wall_s", "configs_per_s", "execute_fetch_s")}
+    return first, dict(first_run=rec, repeats_median=summary,
+                       peak_reserved_bytes=max(r["peak_reserved_bytes"] for r in reps))
+
+
+def link_bill(before):
+    """The host link's bill since a ``transfer_counters()`` snapshot: the
+    bytes each way and the transfers (``sweep.host_syncs``' unit; a
+    Master-driven path's ``host_syncs`` counts synchronizing CUDA calls)."""
+    from hpbandster_tpu_torch.obs.runtime import transfer_counters
+
+    now = transfer_counters()
+    d = {k: now[k] - before.get(k, 0) for k in now}
+    return dict(transfer_bytes_h2d=d["transfer_bytes_h2d"],
+                transfer_bytes_d2h=d["transfer_bytes_d2h"],
+                sweep_host_syncs=d["transfers_h2d"] + d["transfers_d2h"])
+
+
+def sharded(torch, dev, **kw):
+    """``run_sharded_fused_sweep`` on Branin, budgets 1..9, eta 3 (the
+    reference's ``bench_fused_sharded`` setting)."""
+    from hpbandster_tpu_torch.parallel.multihost import run_sharded_fused_sweep
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    return run_sharded_fused_sweep(branin, branin_space(seed=0), min_budget=1, max_budget=9,
+                                   eta=3, **kw)
+
+
+def first_seed(seed=0):
+    """The sharded driver's first sweep seed for run seed ``seed``."""
+    return int(np.uint32(np.random.default_rng(seed).integers(2**32, dtype=np.uint32)))
+
+
+def same_incumbent(label, r, inc):
+    """The driver's incumbent equals a sweep's ``SweepIncumbent`` bit for
+    bit (vector, loss, bracket, per-bracket bests)."""
+    got = (r["incumbent"]["vector"], r["incumbent"]["loss"], r["incumbent"]["bracket"],
+           r["per_bracket_loss"])
+    want = (inc.vector.cpu().numpy().tolist(), float(inc.loss.cpu()), int(inc.bracket.cpu()),
+            [float(x) for x in inc.per_bracket_loss.cpu()])
+    if repr(got) != repr(want):
+        raise AssertionError(f"{label}: the incumbent {got} != {want}")
+
+
+def same_bits(torch, a, b):
+    """Two tensors equal bit for bit (NaNs included)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def check_sharded_plan(label, r, n_configs, n_shards, n_brackets=1):
+    """Stage counts of ``mesh_aligned_plan``, the evaluations they add up
+    to, every shard's even share and a finite incumbent."""
+    from hpbandster_tpu_torch.ops.bracket import mesh_aligned_plan
+
+    plan = mesh_aligned_plan(n_configs, 1, 9, 3, n_shards)
+    if (r["aligned_stage_counts"] != list(plan.num_configs) or r["n_shards"] != n_shards
+            or r["evaluations"] != n_brackets * sum(plan.num_configs)
+            or r["per_device_configs"] != [r["evaluations"] // n_shards] * n_shards):
+        raise AssertionError(f"{label}: stages {r['aligned_stage_counts']}, "
+                             f"{r['evaluations']} evaluations, shards "
+                             f"{r['per_device_configs']} against the plan {plan}")
+    if not np.isfinite(r["incumbent"]["loss"]):
+        raise AssertionError(f"{label}: incumbent {r['incumbent']}")
+
+
+def drive_sharded_100k(torch, dev, n_configs=2**17):
+    """``run_sharded_fused_sweep`` at 2^17 configurations on a one-shard
+    mesh (``bench.py:319``'s tier): the plan, a finite incumbent, the
+    incumbent of the unsharded incumbent-only sweep on the same generator
+    bit for bit; and on four shards of the card, the incumbent of the
+    unsharded sweep fed the same four per-shard stage-0 blocks."""
+    from hpbandster_tpu_torch.ops.bracket import mesh_aligned_plan
+    from hpbandster_tpu_torch.ops.sweep import (
+        GeneratorDraws,
+        build_space_codec,
+        codec_tables,
+        make_fused_sweep_fn,
+        random_unit_sharded,
+    )
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    first, rec = timed_path(torch, dev, "sharded_100k", lambda: sharded(
+        torch, dev, n_configs=n_configs, mesh=config_mesh([dev]), seed=0))
+    check_sharded_plan("sharded_100k", first, n_configs, 1)
+    codec = build_space_codec(branin_space(seed=0))
+    tables = codec_tables(codec, dev)
+    seed = first_seed()
+    kw = dict(device=dev, tables=tables, min_points_in_model=2**30, incumbent_only=True)
+    plain = make_fused_sweep_fn(branin, [mesh_aligned_plan(n_configs, 1, 9, 3, 1)], codec,
+                                **kw)(seed)
+    same_incumbent("sharded_100k one shard", first, plain)
+    four = sharded(torch, dev, n_configs=n_configs, mesh=config_mesh([dev] * 4), seed=0)
+    check_sharded_plan("sharded_100k four shards", four, n_configs, 4)
+
+    class ShardBlocks(GeneratorDraws):
+        """Stage 0 as the four shards draw it, one block per shard."""
+
+        def stage0(self, b_i, n0):
+            return random_unit_sharded(self.tables, list(self.shard_generators.values()), n0)
+
+    draws = ShardBlocks(tables, seed, 1.0, 3.0, 1e-3, shard_tables={s: tables for s in range(4)})
+    fed = make_fused_sweep_fn(branin, [mesh_aligned_plan(n_configs, 1, 9, 3, 4)], codec,
+                              **kw)(seed, draws=draws)
+    same_incumbent("sharded_100k four shards", four, fed)
+    rec.update(incumbent=first["incumbent"], four_shard_incumbent=four["incumbent"],
+               stages=first["aligned_stage_counts"], one_shard_equal_bitwise=True,
+               four_shard_equal_bitwise=True)
+    print("sharded_100k path " + json.dumps(rec), flush=True)
+    MESH_RUNS["sharded_100k"] = first
+    return first
+
+
+def drive_sharded_1m(torch, dev, n_configs=2**20):
+    """The same at 2^20 configurations, one shard, HyperBand mode: the
+    plan, a finite incumbent, and d2h bytes and host syncs equal to
+    sharded_100k's (the incumbent-only fetch is flat in the config
+    count)."""
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+
+    first, rec = timed_path(torch, dev, "sharded_1M", lambda: sharded(
+        torch, dev, n_configs=n_configs, mesh=config_mesh([dev]), seed=0))
+    check_sharded_plan("sharded_1M", first, n_configs, 1)
+    small = MESH_RUNS["sharded_100k"]
+    for key in ("h2d_bytes", "d2h_bytes", "host_syncs"):
+        if first[key] != small[key]:
+            raise AssertionError(f"sharded_1M: {key} {first[key]} != sharded_100k's "
+                                 f"{small[key]}")
+    rec.update(incumbent=first["incumbent"], stages=first["aligned_stage_counts"])
+    print("sharded_1M path " + json.dumps(rec), flush=True)
+    return first
+
+
+def drive_resident_sharded(torch, dev, sizes=(2**13, 2**17, 2**20), n_brackets=3):
+    """``resident=True, device_metrics=True`` over 3 brackets at 2^13,
+    2^17 and 2^20 configurations (``bench.py:435``'s tier): h2d and d2h
+    bytes and host syncs identical across the sizes, the decoded
+    telemetry's runs as planned, the resident round a captured graph, and
+    the replayed sweep equal to its eager twin bit for bit."""
+    from hpbandster_tpu_torch.ops import graphs
+    from hpbandster_tpu_torch.ops.bracket import mesh_aligned_plan
+    from hpbandster_tpu_torch.ops.sweep import (
+        build_space_codec,
+        codec_tables,
+        make_fused_sweep_fn,
+        plan_additions,
+        pow2_capacities,
+    )
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    mesh = config_mesh([dev])
+    codec = build_space_codec(branin_space(seed=0))
+    tables = codec_tables(codec, dev)
+    bills, out = set(), {}
+    for n in sizes:
+        label = f"resident_sharded_{n}"
+        captures = graphs.CAPTURES["resident_round"]
+        first, rec = timed_path(torch, dev, label, lambda: sharded(
+            torch, dev, n_configs=n, n_brackets=n_brackets, resident=True,
+            device_metrics=True, mesh=mesh, seed=0))
+        if graphs.CAPTURES["resident_round"] - captures != 1:
+            raise AssertionError(f"{label}: the resident round was not captured once")
+        plan = mesh_aligned_plan(n, 1, 9, 3, 1)
+        check_sharded_plan(label, first, n, 1, n_brackets)
+        tel = first["device_telemetry"]
+        want = {float(b): n_brackets * k for k, b in zip(plan.num_configs, plan.budgets)}
+        got = {r["budget"]: r["evals"] for r in tel["rungs"]}
+        if got != want or tel["evaluations"] != first["evaluations"] \
+                or tel["brackets"] != n_brackets:
+            raise AssertionError(f"{label}: telemetry runs {got} != plan {want}")
+        plans = [plan] * n_brackets
+        kw = dict(device=dev, tables=tables, min_points_in_model=2**30, mesh=mesh,
+                  shard_sampling=True, incumbent_only=True, dynamic_counts=True,
+                  capacities=pow2_capacities(plan_additions(plans)), resident=True,
+                  device_metrics=True)
+        replayed = make_fused_sweep_fn(branin, plans, codec, **kw)(first_seed())
+        eager = make_fused_sweep_fn(branin, plans, codec, _eager=True, **kw)(first_seed())
+        same_incumbent(f"{label} replayed", first, replayed[0])
+        if not all(same_bits(torch, a, b) for a, b in zip([*replayed[0], *replayed[1]],
+                                                          [*eager[0], *eager[1]])):
+            raise AssertionError(f"{label}: the replayed sweep differs from its eager twin")
+        bills.add((first["h2d_bytes"], first["d2h_bytes"], first["host_syncs"]))
+        out[n] = dict(rec, incumbent=first["incumbent"], telemetry_evaluations=tel["evaluations"],
+                      graph_equal_eager=True)
+    if len(bills) != 1:
+        raise AssertionError(f"resident_sharded: the host link's bill varies with size: {bills}")
+    (h2d, d2h, syncs), = bills
+    from hpbandster_tpu_torch.parallel import multihost
+
+    print("resident_sharded path " + json.dumps(dict(
+        sizes={str(k): v for k, v in out.items()}, transfer_bytes_h2d=h2d,
+        transfer_bytes_d2h=d2h, host_syncs=syncs,
+        sharded_cache_pinned_bytes=multihost._SHARDED_FN_CACHE.sizes())), flush=True)
+    return out
+
+
+def drive_sharded_model(torch, dev, n_configs=2**14, n_brackets=4):
+    """``model=True``, 4 brackets in chunks of 2, under the moment-kernel
+    fit (``tests/test_sharded.py:316`` at a size where the scorer works),
+    on one shard and on two shards of the card: one chunk program captured
+    per mesh, the observation state carried between its chunks on the
+    device (nothing uploaded), both kernels launched, and each run equal
+    to its eager twin bit for bit. Only the gated runs' launches are
+    recorded for phase 6 (the repeats' and twins' inputs have their
+    shapes)."""
+    from hpbandster_tpu_torch.ops import cuda_kde, graphs
+    from hpbandster_tpu_torch.ops import sweep as sweep_mod
+    from hpbandster_tpu_torch.parallel import multihost
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+
+    out = {}
+    kw = dict(n_configs=n_configs, n_brackets=n_brackets, chunk_brackets=2, model=True,
+              num_samples=SHARDED_MODEL_SAMPLES, seed=0)
+    with moments_fit_flag():
+        for shards in (1, 2):
+            label = f"sharded_model_{shards}"
+            mesh = config_mesh([dev] * shards)
+            captures = graphs.CAPTURES["sweep_chunk"]
+            first, first_rec = measured(torch, dev, lambda: sharded(torch, dev, mesh=mesh, **kw))
+            recorded, cuda_kde.RECORD = cuda_kde.RECORD, None
+            try:
+                reps = [measured(torch, dev, lambda: sharded(torch, dev, mesh=mesh, **kw))[1]
+                        for _ in range(MESH_REPEATS)]
+                if graphs.CAPTURES["sweep_chunk"] - captures != 1:
+                    raise AssertionError(f"{label}: {graphs.CAPTURES['sweep_chunk'] - captures}"
+                                         " chunk programs captured, not 1")
+                build = sweep_mod.make_fused_sweep_fn
+                sweep_mod.make_fused_sweep_fn = lambda *a, **k: build(*a, _eager=True, **k)
+                multihost._SHARDED_FN_CACHE.clear()
+                try:
+                    twin = sharded(torch, dev, mesh=mesh, **kw)
+                finally:
+                    sweep_mod.make_fused_sweep_fn = build
+                    multihost._SHARDED_FN_CACHE.clear()
+            finally:
+                cuda_kde.RECORD = recorded
+            for i, r in enumerate([first_rec] + reps):
+                print(f"{label} run " + json.dumps(dict(r, repeat=i, card=card_line())),
+                      flush=True)
+            check_sharded_plan(label, first, n_configs, shards, n_brackets)
+            if [c["warm_upload_bytes"] for c in first["chunks"]] != [0, 0]:
+                raise AssertionError(f"{label}: chunks uploaded {first['chunks']}")
+            if (twin["incumbent"], twin["per_bracket_loss"]) != (
+                    first["incumbent"], first["per_bracket_loss"]):
+                raise AssertionError(f"{label}: the captured run {first['incumbent']} differs "
+                                     f"from its eager twin {twin['incumbent']}")
+            out[label] = dict(first_rec, incumbent=first["incumbent"],
+                              repeats_wall_s=[r["wall_s"] for r in reps],
+                              equal_eager_bitwise=True)
+    print("sharded_model path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_fused_mesh(torch, dev, n_iterations=10):
+    """``FusedBOHB(mesh=config_mesh([card] * 2))`` at the toy setting
+    (``bench.py:241``: Hartmann-6, budgets 1..81, 10 brackets), static and
+    chunked in twos under the moment-kernel fit: each equal bit for bit to
+    the unmeshed run of the static and chunked paths (a mesh without shard
+    sampling only places rows), the chunked run's warm buffers streamed
+    shard slice by shard slice (the largest host slice printed)."""
+    from hpbandster_tpu_torch import FusedBOHB
+    from hpbandster_tpu_torch.obs.runtime import transfer_counters
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+    from hpbandster_tpu_torch.workloads.toys import hartmann6, hartmann6_space
+
+    mesh = config_mesh([dev] * 2)
+
+    def make():
+        return FusedBOHB(configspace=hartmann6_space(seed=0), eval_fn=hartmann6,
+                         min_budget=1, max_budget=81.0, eta=3, num_samples=64, seed=0,
+                         mesh=mesh)
+
+    out = {}
+    for label, want, run_kw in (
+            ("static", STATIC_RUNS["hartmann6"][1], {}),
+            ("chunked", CHUNKED_RUNS["hartmann6"], {"chunk_brackets": 2})):
+        walls, first = [], None
+        with moments_fit_flag() if run_kw else contextlib.nullcontext():
+            for i in range(1 + MESH_REPEATS):
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                link0 = transfer_counters()
+                t0 = time.perf_counter()
+                opt = make()
+                res = opt.run(n_iterations=n_iterations, **run_kw)
+                torch.cuda.synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+                row = dict(repeat=i, wall_s=walls[-1], **link_bill(link0),
+                           execute_fetch_s=sum(s["execute_fetch_s"] for s in opt.run_stats),
+                           configs_per_s=len(res.get_all_runs()) / walls[-1],
+                           peak_reserved_bytes=int(torch.cuda.max_memory_reserved(dev)),
+                           warm_upload_bytes=[s["warm_upload_bytes"] for s in opt.run_stats],
+                           warm_stream_slice_bytes=[s.get("warm_stream_slice_bytes", 0)
+                                                    for s in opt.run_stats],
+                           card=card_line())
+                print(f"fused_mesh {label} run " + json.dumps(row), flush=True)
+                if first is None:
+                    first = (opt, res, row)
+        opt, res, row = first
+        if _runs(res) != _runs(want):
+            raise AssertionError(f"fused_mesh {label}: the meshed run differs from the "
+                                 "unmeshed run")
+        if run_kw and not row["warm_stream_slice_bytes"][0]:
+            raise AssertionError("fused_mesh chunked: the first chunk did not stream its "
+                                 "warm buffers per shard")
+        out[label] = dict(row, equal_unmeshed_bitwise=True, runs=len(res.get_all_runs()),
+                          repeats_wall_s=walls[1:])
+    print("fused_mesh path " + json.dumps(out), flush=True)
+    return out
+
+
+def drive_batched_mesh(torch, dev, n_iterations=10):
+    """``BOHB`` over ``BatchedExecutor(VmapBackend(hartmann6,
+    mesh=config_mesh([card] * 2)))``, bucketed, 10 brackets: equal bit for
+    bit to ``batched_bohb_bucketed`` (same objective, same seed), every
+    fusable bracket on its bucket's graph, the widths even; and
+    ``TPUBatchedWorker(mesh="auto")`` on this machine reports its one
+    card."""
+    import hpbandster_tpu_torch as h
+    from hpbandster_tpu_torch.obs.runtime import transfer_counters
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+    from hpbandster_tpu_torch.workloads import toys
+
+    opt_b, res_b, _ = BATCHED_RUNS["batched_bohb_bucketed"]
+    objective = opt_b.executor.backend.eval_fn
+    mesh = config_mesh([dev] * 2)
+    runs, waves = [], 0
+    for i in range(1 + MESH_REPEATS):
+        torch.cuda.reset_peak_memory_stats(dev)
+        link0 = transfer_counters()
+        opt = batched_optimizer(dev, "BOHB", objective_fn=objective, mesh=mesh)
+        res, rec = run_batched(torch, dev, opt, n_iterations)
+        waves += model_waves(opt.iterations)
+        rec.update(repeat=i, peak_reserved_bytes=int(torch.cuda.max_memory_reserved(dev)),
+                   **link_bill(link0), card=card_line())
+        print("batched_mesh run " + json.dumps(rec), flush=True)
+        runs.append((opt, res, rec))
+    opt, res, rec = runs[0]
+    ex = opt.executor
+    if _runs(res) != _runs(res_b):
+        raise AssertionError("batched_mesh: the meshed run differs from batched_bohb_bucketed")
+    if ex.bucketed_brackets_run != opt_b.executor.bucketed_brackets_run or \
+            any(w % 2 for b in ex._bucket_set.buckets for w in b.widths):
+        raise AssertionError(f"batched_mesh: {ex.bucketed_brackets_run} bucketed brackets, "
+                             f"widths {[b.widths for b in ex._bucket_set.buckets]}")
+    check_wave_launches("batched_mesh", opt.iterations)
+    BATCHED_EXPECTED["batched_mesh"] = {"kde_score": waves, "kde_moments": 0}
+    worker = h.TPUBatchedWorker("batched_mesh_auto", toys.hartmann6,
+                                configspace=toys.hartmann6_space(seed=0))
+    caps = worker._rpc_capabilities()
+    if caps["devices"] != torch.cuda.device_count():
+        raise AssertionError(f"batched_mesh: TPUBatchedWorker(mesh='auto') reports {caps}")
+    rec.update(equal_bitwise=True, worker_auto_capabilities=caps,
+               repeats_wall_s=[r[2]["wall_s"] for r in runs[1:]])
+    print("batched_mesh path " + json.dumps(rec), flush=True)
+    return res
+
+
+def drive_multihost_one_rank(torch, dev, n_configs=2**17):
+    """``initialize_multihost`` with a one-rank NCCL group: the
+    ``MultiHostBatchedExecutor.run_sharded_sweep`` at 2^17 configurations
+    over the group's mesh equals sharded_100k's one-shard run bit for bit,
+    and over two shards of the card in the group (each gather an NCCL
+    ``all_gather``) equals the one-process two-shard run. The group is
+    destroyed before the script goes on."""
+    import socket
+
+    import hpbandster_tpu_torch as h
+    import torch.distributed as dist
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+    from hpbandster_tpu_torch.parallel.multihost import (
+        MultiHostBatchedExecutor,
+        initialize_multihost,
+    )
+    from hpbandster_tpu_torch.workloads.toys import branin, branin_space
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if initialize_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=60) != 0:
+        raise AssertionError("multihost_one_rank: not rank 0")
+    try:
+        backend = dist.get_backend()
+        mesh = config_mesh([dev], process_group=dist.group.WORLD)
+        ex = MultiHostBatchedExecutor(h.VmapBackend(branin, mesh=mesh), branin_space(seed=0))
+        first, rec = timed_path(torch, dev, "multihost_one_rank", lambda: ex.run_sharded_sweep(
+            n_configs=n_configs, seed=0))
+        want = MESH_RUNS["sharded_100k"]
+        if (first["incumbent"], first["per_bracket_loss"]) != (
+                want["incumbent"], want["per_bracket_loss"]):
+            raise AssertionError(f"multihost_one_rank: {first['incumbent']} != sharded_100k's "
+                                 f"{want['incumbent']}")
+        two = ex.run_sharded_sweep(n_configs=n_configs, seed=0,
+                                   mesh=config_mesh([dev, dev], process_group=dist.group.WORLD))
+        alone = sharded(torch, dev, n_configs=n_configs, mesh=config_mesh([dev] * 2), seed=0)
+        if (two["incumbent"], two["per_bracket_loss"]) != (
+                alone["incumbent"], alone["per_bracket_loss"]):
+            raise AssertionError(f"multihost_one_rank: two shards in the group "
+                                 f"{two['incumbent']} != one process's {alone['incumbent']}")
+        rec.update(backend=backend, primary=ex.primary, incumbent=first["incumbent"],
+                   equal_sharded_100k_bitwise=True, two_shard_group_equal_bitwise=True)
+    finally:
+        dist.destroy_process_group()
+    print("multihost_one_rank path " + json.dumps(rec), flush=True)
+    return first
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from hpbandster_tpu_torch.ops import _build
@@ -4444,6 +4984,7 @@ def main(argv=None) -> int:
         return 2
     from hpbandster_tpu_torch.ops import cuda_kde
     from hpbandster_tpu_torch.optimizers import fused_bohb
+    from hpbandster_tpu_torch.parallel import multihost
     from hpbandster_tpu_torch.workloads.toys import hartmann6
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4544,12 +5085,22 @@ def main(argv=None) -> int:
         "rpc_teacher": drive_rpc_teacher,
         "rpc_resume": drive_rpc_resume,
         "serve_frontend": drive_serve_frontend,
+        # the config-axis meshes: the sharded 100k-1M tier, FusedBOHB(mesh=),
+        # the Master-driven tier on a mesh, a one-rank NCCL group
+        "sharded_100k": drive_sharded_100k,
+        "sharded_1M": drive_sharded_1m,
+        "resident_sharded": drive_resident_sharded,
+        "sharded_model": drive_sharded_model,
+        "fused_mesh": drive_fused_mesh,
+        "batched_mesh": drive_batched_mesh,
+        "multihost_one_rank": drive_multihost_one_rank,
     }
     launches, recorded, results, seconds = {}, [], {}, {}
     for path, drive in paths.items():
         # each path builds and captures its own sweeps (and records their
         # launches); cached graphs hold their memory pools until dropped
         fused_bohb._SWEEP_CACHE.clear()
+        multihost._SHARDED_FN_CACHE.clear()
         for name in cuda_kde.LAUNCHES:
             cuda_kde.LAUNCHES[name] = 0
         cuda_kde.RECORD = []
@@ -4559,6 +5110,7 @@ def main(argv=None) -> int:
         launches[path] = dict(cuda_kde.LAUNCHES)
         recorded += [(path, name, inputs) for name, inputs in cuda_kde.RECORD]
         cuda_kde.RECORD = None
+    multihost._SHARDED_FN_CACHE.clear()
     print("main path launches " + json.dumps(launches), flush=True)
     print("main path seconds " + json.dumps(seconds), flush=True)
     expected = {**MAIN_PATH_LAUNCHES, **BATCHED_EXPECTED}

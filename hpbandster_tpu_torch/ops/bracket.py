@@ -2,7 +2,8 @@
 
 Ported from ``hpbandster_tpu/ops/bracket.py``: ``max_sh_iterations``,
 ``budget_ladder``, ``BracketPlan``, ``hyperband_bracket``,
-``hyperband_schedule``, the promotion rule on the tensor's device
+``hyperband_schedule``, ``mesh_aligned_plan`` (the sharded 100k-1M tier's
+one deep bracket), the promotion rule on the tensor's device
 (``sh_promotion_mask``, ``sh_promotion_mask_compiled``), its host twin
 ``sh_promotion_mask_np``, the resampling variant ``sh_resample_mask``, the
 Pareto promotion rule on the tensor's device (``pareto_rank``,
@@ -30,6 +31,7 @@ __all__ = [
     "BracketPlan",
     "hyperband_bracket",
     "hyperband_schedule",
+    "mesh_aligned_plan",
     "sh_promotion_mask",
     "sh_promotion_mask_compiled",
     "sh_promotion_mask_np",
@@ -102,6 +104,37 @@ def hyperband_schedule(
     return tuple(
         hyperband_bracket(i, min_budget, max_budget, eta) for i in range(n_iterations)
     )
+
+
+def mesh_aligned_plan(
+    n_configs: int,
+    min_budget: float,
+    max_budget: float,
+    eta: float,
+    mesh_size: int = 1,
+) -> BracketPlan:
+    """One deep successive-halving bracket sized for a sharded mesh.
+
+    The 100k-1M tier's schedule: stage 0 starts at ``n_configs`` and each
+    rung keeps ``1/eta`` of the survivors, every stage count rounded up to a
+    multiple of ``mesh_size`` (at least ``mesh_size``), so the config axis
+    splits evenly at every rung: the sharded sampler and the per-stage row
+    split both need divisible widths. Budgets are the full
+    ``min_budget..max_budget`` geometric ladder. The roundup adds at most
+    ``mesh_size - 1`` rows per stage, none when ``n_configs`` and ``eta``
+    are powers of two on a power-of-two mesh."""
+    m = max(int(mesh_size), 1)
+    ladder = budget_ladder(min_budget, max_budget, eta)
+    depth = len(ladder)
+    ns = []
+    for j in range(depth):
+        n = max(int(n_configs * float(eta) ** (-j)), 1)
+        ns.append(max(((n + m - 1) // m) * m, m))
+    # the roundup of a decreasing profile can make equal neighbours but must
+    # never make an increasing step
+    for j in range(depth - 2, -1, -1):
+        ns[j] = max(ns[j], ns[j + 1])
+    return BracketPlan(num_configs=tuple(ns), budgets=tuple(float(b) for b in ladder))
 
 
 def sh_promotion_mask(losses: torch.Tensor, k) -> torch.Tensor:

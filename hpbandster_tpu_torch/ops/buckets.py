@@ -13,7 +13,9 @@ Bucket geometry (:func:`build_bucket_set`): adjacent present depths
 ``(d, d-1)`` share a bucket aligned at the ladder's tail (the shallower
 member enters at stage 1), and each rung's width is the widest aligned
 member count rounded up to a power of two (floor 8). A shape whose budgets
-are not a suffix of its group's deepest member gets its own bucket.
+are not a suffix of its group's deepest member gets its own bucket. On a
+mesh (``mesh_size``) every stage width is also padded to a multiple of the
+config axis's shard count (:func:`_mesh_pad`), so each rung splits evenly.
 
 The bucketed bracket (:func:`fused_sh_bracket_bucketed`) promotes exactly
 as the per-shape bracket does: NaN (crashed) rows rank behind every clean
@@ -131,13 +133,9 @@ def build_bucket_set(
     aligned member count rounded up to a power of two. A shape whose
     budgets are not a suffix of its group's deepest member (a plan from
     another ladder) gets its own singleton bucket. Single-stage plans are
-    left out (nothing to fuse). ``mesh_size`` other than 1 (widths padded
-    for a device mesh) waits for the port's multi-GPU slice.
+    left out (nothing to fuse). ``mesh_size`` pads every bucket's widths
+    to a multiple of the config axis's shard count (:func:`_mesh_pad`).
     """
-    if int(mesh_size) != 1:
-        raise NotImplementedError(
-            "build_bucket_set(mesh_size=...) is not ported yet (ROADMAP A7: "
-            "multi-GPU)")
     shapes = sorted(
         {
             (
@@ -173,10 +171,10 @@ def build_bucket_set(
                     members.append((shape, entry))
                 else:
                     assignment[shape] = (len(buckets), 0)
-                    buckets.append(BucketPlan(
+                    buckets.append(_mesh_pad(BucketPlan(
                         widths=tuple(_pow2(int(n), min_width) for n in shape[0]),
                         budgets=shape[1],
-                    ))
+                    ), mesh_size))
         if not members:
             continue
         widths = [0] * len(bucket_budgets)
@@ -189,30 +187,61 @@ def build_bucket_set(
         for j in range(len(widths) - 2, -1, -1):
             widths[j] = max(widths[j], widths[j + 1])
         idx = len(buckets)
-        buckets.append(BucketPlan(widths=tuple(widths), budgets=bucket_budgets))
+        buckets.append(_mesh_pad(BucketPlan(widths=tuple(widths), budgets=bucket_budgets),
+                                 mesh_size))
         for shape, entry in members:
             assignment[shape] = (idx, entry)
     return BucketSet(buckets=tuple(buckets), assignment=assignment)
 
 
+def _mesh_pad(bucket: BucketPlan, mesh_size: int) -> BucketPlan:
+    """Every stage width padded to a multiple of ``mesh_size``, so each rung
+    of the ladder splits evenly over the config axis (an indivisible stage
+    would run whole on the home device). Widths are powers of two (floor 8),
+    so on a power-of-two mesh no wider than a stage nothing pads; per stage
+    the padding is at most ``mesh_size - 1`` rows."""
+    m = max(int(mesh_size), 1)
+    if m == 1 or all(w % m == 0 for w in bucket.widths):
+        return bucket
+    widths = [((w + m - 1) // m) * m for w in bucket.widths]
+    # the roundup of a non-increasing profile stays non-increasing; guarded
+    # as build_bucket_set guards it
+    for j in range(len(widths) - 2, -1, -1):
+        widths[j] = max(widths[j], widths[j + 1])
+    return BucketPlan(widths=tuple(widths), budgets=bucket.budgets)
+
+
 # --------------------------------------------------------------- kernels
-def _eval_lanes(eval_fn, vecs: torch.Tensor, budget: float) -> torch.Tensor:
+def _eval_lanes(eval_fn, vecs: torch.Tensor, budget: float, mesh=None,
+                axis: str = "config") -> torch.Tensor:
     """One stage of ``P`` lanes, ``vecs [P, w, d]``: ONE objective call on
-    ``P * w`` rows, reshaped back to ``[P, w]``."""
+    ``P * w`` rows, reshaped back to ``[P, w]``; on a mesh the rows split
+    over its config axis (``parallel.mesh.batch_sharding``)."""
     p, w, d = vecs.shape
-    losses = eval_fn(vecs.reshape(p * w, d), budget)
-    if losses.shape != (p * w,):
-        raise ValueError(
-            f"eval_fn must return one loss per row, f32[{p * w}], got shape "
-            f"{tuple(losses.shape)}")
-    return losses.to(_F32).reshape(p, w)
+
+    def evaluate(rows):
+        losses = eval_fn(rows, budget)
+        if losses.shape != (rows.shape[0],):
+            raise ValueError(
+                f"eval_fn must return one loss per row, f32[{rows.shape[0]}], got shape "
+                f"{tuple(losses.shape)}")
+        return losses.to(_F32)
+
+    flat = vecs.reshape(p * w, d)
+    if mesh is None:
+        return evaluate(flat).reshape(p, w)
+    from hpbandster_tpu_torch.parallel.mesh import batch_sharding
+
+    return batch_sharding(mesh, axis).map(evaluate, flat).reshape(p, w)
 
 
 def _bucketed_lanes(eval_fn, vectors: torch.Tensor, counts: torch.Tensor,
-                    bucket: BucketPlan) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+                    bucket: BucketPlan, mesh=None,
+                    axis: str = "config") -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """The one definition of a bucketed bracket, over ``P`` lanes:
     ``vectors [P, W0, d]``, ``counts`` integer ``[P, depth]`` on the same
-    device. Returns per-stage ``(idx int64 [P, w], losses f32 [P, w])``."""
+    device, each stage's rows split over ``mesh``'s config axis when one is
+    given. Returns per-stage ``(idx int64 [P, w], losses f32 [P, w])``."""
     widths, budgets = bucket.widths, bucket.budgets
     dev = vectors.device
     n_lanes = vectors.shape[0]
@@ -220,7 +249,7 @@ def _bucketed_lanes(eval_fn, vectors: torch.Tensor, counts: torch.Tensor,
     cur_idx = torch.arange(widths[0], device=dev).expand(n_lanes, -1)
     out = []
     for t in range(len(widths)):
-        losses = _eval_lanes(eval_fn, cur_vecs, float(budgets[t]))
+        losses = _eval_lanes(eval_fn, cur_vecs, float(budgets[t]), mesh, axis)
         out.append((cur_idx, losses))
         if t + 1 == len(widths):
             break
@@ -247,7 +276,8 @@ def _bucketed_lanes(eval_fn, vectors: torch.Tensor, counts: torch.Tensor,
 
 
 def fused_sh_bracket_bucketed(
-    eval_fn: Callable, vectors: torch.Tensor, counts: torch.Tensor, bucket: BucketPlan
+    eval_fn: Callable, vectors: torch.Tensor, counts: torch.Tensor, bucket: BucketPlan,
+    mesh=None, axis: str = "config",
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """One bucketed bracket on the device. ``vectors`` is ``f32[W0, d]``
     (member rows first, zero-padded); ``counts`` the member's true
@@ -255,8 +285,11 @@ def fused_sh_bracket_bucketed(
     before its entry). Returns per-stage ``(indices int64, losses f32)`` at
     bucket widths; rows past ``counts[t]`` are padding
     (:func:`slice_member_stages` cuts them). Nothing here reads a count on
-    the host, so the bracket captures into a CUDA graph."""
-    stages = _bucketed_lanes(eval_fn, vectors[None], counts[None], bucket)
+    the host, so the bracket captures into a CUDA graph. ``mesh``/``axis``
+    split each stage's evaluation over the config axis; the rank mask and
+    the survivor gather run on the home device, and the values are those
+    of the unsharded bracket."""
+    stages = _bucketed_lanes(eval_fn, vectors[None], counts[None], bucket, mesh, axis)
     return [(i[0], l[0]) for i, l in stages]
 
 
@@ -460,12 +493,15 @@ class StaticProgram:
     ``d`` dims; ``body(*buffers)`` computes the program and returns its
     output tensor (or a tuple of them). :meth:`run` copies host arrays into
     the buffers, runs or replays, and returns a fresh output, on the
-    stream, without waiting.
+    stream, without waiting. ``graphed=False`` runs the body eagerly on a
+    card too: a program whose work spans several cards or processes (a
+    mesh's shards) is not one capturable stream.
     The build happens once (``ensure``), thread-safe; a build that fails
     keeps its error and every later call raises it."""
 
-    def __init__(self, name: str, device, make_buffers, body):
+    def __init__(self, name: str, device, make_buffers, body, graphed: bool = True):
         self.name = name
+        self.graphed = bool(graphed)
         self.device = resolve_device(device)
         self._make_buffers = make_buffers
         self._body = body
@@ -499,7 +535,7 @@ class StaticProgram:
         t0 = time.perf_counter()
         try:
             buffers = self._make_buffers(d)
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and self.graphed:
                 from hpbandster_tpu_torch.ops.graphs import RoundGraph, shape_signature
 
                 def capture():
@@ -536,9 +572,9 @@ class StaticProgram:
             return out
 
 
-#: process-wide runner cache: an (objective, bucket, device) combination
-#: builds once per process; bounded, so throwaway closures cannot pin
-#: graphs forever
+#: process-wide runner cache: an (objective, bucket, mesh, device,
+#: telemetry flag) combination builds once per process; bounded, so
+#: throwaway closures cannot pin graphs forever
 _BUCKET_FN_CACHE: LRUCache = LRUCache(maxsize=64)
 
 
@@ -548,13 +584,20 @@ class _BucketRunner:
     time by :meth:`ensure_compiled` / :func:`precompile_buckets`), the same
     body eagerly on the CPU. ``device_metrics`` (default
     ``HPB_DEVICE_METRICS``) adds the stages' telemetry to the program and
-    publishes each member's decoded record at unpack."""
+    publishes each member's decoded record at unpack. ``mesh``/``axis``
+    split each stage's evaluation over the config axis (the bucket's
+    widths padded by :func:`_mesh_pad`); a mesh whose shards span several
+    cards or processes runs the program eagerly, one over a single card
+    captures it as before."""
 
     def __init__(self, eval_fn, bucket: BucketPlan, device=None,
-                 device_metrics: Optional[bool] = None):
+                 device_metrics: Optional[bool] = None, mesh=None, axis: str = "config"):
         from hpbandster_tpu_torch.obs.device_metrics import bin_edges, device_metrics_default
+        from hpbandster_tpu_torch.parallel.mesh import single_device
 
         self.bucket = bucket
+        self.mesh = mesh
+        self.axis = axis
         self.device_metrics = (device_metrics_default() if device_metrics is None
                                else bool(device_metrics))
         w0, depth = bucket.widths[0], bucket.depth
@@ -571,7 +614,7 @@ class _BucketRunner:
                     torch.zeros((depth,), dtype=torch.int64, device=dev))
 
         def body(vectors, counts):
-            stages = fused_sh_bracket_bucketed(eval_fn, vectors, counts, bucket)
+            stages = fused_sh_bracket_bucketed(eval_fn, vectors, counts, bucket, mesh, axis)
             packed = _packed_row(*(torch.cat(x) for x in zip(*stages)))
             if self._edges is None:
                 return packed
@@ -579,7 +622,8 @@ class _BucketRunner:
             return (packed, torch.stack([h for h, _ in tel]),
                     torch.stack([c for _, c in tel]))
 
-        self.program = StaticProgram("fused_bucket", device, make_buffers, body)
+        self.program = StaticProgram("fused_bucket", device, make_buffers, body,
+                                     graphed=single_device(mesh))
 
     def ensure_compiled(self, d: int) -> None:
         """Build the bucket's program for ``d``-dim vectors (idempotent,
@@ -629,20 +673,25 @@ class _BucketRunner:
         return slice_member_stages(self.unpack(self.dispatch(vectors, counts)), plan, entry)
 
 
-def make_bucketed_bracket_fn(eval_fn: Callable, bucket: BucketPlan, device=None,
+def make_bucketed_bracket_fn(eval_fn: Callable, bucket: BucketPlan, mesh=None,
+                             axis: str = "config", device=None,
                              device_metrics: Optional[bool] = None) -> _BucketRunner:
     """The process-cached runner of one bucket's program on ``device``
-    (``None`` means ``cuda``), with the telemetry flag resolved here
-    (``HPB_DEVICE_METRICS`` by default): it changes the program."""
+    (``None`` means ``cuda``; with a mesh, its home device), with the
+    telemetry flag resolved here (``HPB_DEVICE_METRICS`` by default): it
+    changes the program."""
     from hpbandster_tpu_torch.obs.device_metrics import device_metrics_default
+    from hpbandster_tpu_torch.parallel.mesh import mesh_device
 
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None or device is not None
+                         else mesh_device(mesh))
     if device_metrics is None:
         device_metrics = device_metrics_default()
-    key = (eval_fn, bucket, dev, bool(device_metrics))
+    key = (eval_fn, bucket, mesh, axis, dev, bool(device_metrics))
     runner = _BUCKET_FN_CACHE.get(key)
     if runner is None:
-        runner = _BucketRunner(eval_fn, bucket, device=dev, device_metrics=device_metrics)
+        runner = _BucketRunner(eval_fn, bucket, device=dev, device_metrics=device_metrics,
+                               mesh=mesh, axis=axis)
         _BUCKET_FN_CACHE[key] = runner
     return runner
 
@@ -677,8 +726,8 @@ class _Precompile:
 
 
 def precompile_buckets(
-    eval_fn: Callable, bucket_set: BucketSet, d: int, device=None,
-    background: bool = True,
+    eval_fn: Callable, bucket_set: BucketSet, d: int, mesh=None, axis: str = "config",
+    device=None, background: bool = True,
 ) -> _Precompile:
     """Build every bucket's program (on a card: capture its graph), in a
     daemon thread by default so the build overlaps the optimizer's stage-0
@@ -686,7 +735,7 @@ def precompile_buckets(
     ready; dispatching earlier is safe (a runner's lock serializes on its
     build in flight), and a failed build raises at its bucket's next
     dispatch."""
-    runners = [make_bucketed_bracket_fn(eval_fn, b, device=device)
+    runners = [make_bucketed_bracket_fn(eval_fn, b, mesh=mesh, axis=axis, device=device)
                for b in bucket_set.buckets]
     return start_precompile(runners, d, background, "bucket-precompile")
 

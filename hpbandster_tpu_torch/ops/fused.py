@@ -3,11 +3,18 @@ promotion without leaving the device.
 
 Ported from ``hpbandster_tpu/ops/fused.py``: ``_CRASH_RANK``,
 ``stage_telemetry`` (the device half of the metrics plane),
-``StatefulEval``, ``fused_sh_bracket`` (the stateless ``eval_fn`` seam or
-the ``StatefulEval`` warm-continuation seam, with the default promotion
-scores or a ``rank_fn`` over the survivors' loss history), ``_pack_stages``,
-``_unpack_stages`` and ``make_fused_bracket_fn`` (one bracket shape's
-runner, for the batched executor).
+``StatefulEval``, ``shard_rows``, ``_shard_state``, ``fused_sh_bracket``
+(the stateless ``eval_fn`` seam or the ``StatefulEval`` warm-continuation
+seam, with the default promotion scores or a ``rank_fn`` over the
+survivors' loss history, on one device or over a mesh's config axis),
+``_pack_stages``, ``_unpack_stages`` and ``make_fused_bracket_fn`` (one
+bracket shape's runner, for the batched executor).
+
+On a mesh (``parallel/mesh.py``) each stage's rows are evaluated block by
+block, shard ``s``'s block on shard ``s``'s device, and gathered back to the
+mesh's home device, where the rung is ranked and promoted: the values are
+those of the unsharded bracket for an objective that treats rows
+independently.
 
 Crashed configs surface as NaN losses and rank behind every clean loss but
 ahead of padding rows. Ties keep the lower row index: the reference's
@@ -28,7 +35,7 @@ from hpbandster_tpu_torch.obs.runtime import note_transfer
 from hpbandster_tpu_torch.utils.lru import LRUCache
 
 __all__ = ["StatefulEval", "fused_sh_bracket", "make_fused_bracket_fn", "rank_key",
-           "stage_telemetry", "tree_leaves", "tree_map"]
+           "shard_rows", "stage_telemetry", "tree_leaves", "tree_map"]
 
 #: crashed (NaN) losses map here for ranking: behind any real loss, ahead of
 #: the +inf padding rows
@@ -106,6 +113,25 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return out
 
 
+def shard_rows(x: torch.Tensor, mesh, axis: str = "config") -> torch.Tensor:
+    """A batch placed for a sharded computation over ``axis``: the rows on
+    the mesh's home device, where the stage-to-stage reductions run (a
+    sharded stage splits them per shard when it evaluates them). Identity
+    on values, and on the placement without a mesh."""
+    if mesh is None:
+        return x
+    from hpbandster_tpu_torch.parallel.mesh import mesh_device
+
+    return x.to(mesh_device(mesh))
+
+
+def _shard_state(state, mesh, axis: str):
+    """:func:`shard_rows` over every leaf of an ensemble state."""
+    if mesh is None:
+        return state
+    return tree_map(lambda leaf: shard_rows(leaf, mesh, axis), state)
+
+
 def _eval_stage(eval_fn: EvalFn, vecs: torch.Tensor, budget: float) -> torch.Tensor:
     losses = eval_fn(vecs, budget)
     if losses.shape != (vecs.shape[0],):
@@ -122,6 +148,8 @@ def fused_sh_bracket(
     num_configs: Sequence[int],
     budgets: Sequence[float],
     rank_fn: Optional[RankFn] = None,
+    mesh=None,
+    axis: str = "config",
     stateful: Optional[StatefulEval] = None,
     return_final_state: bool = False,
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -145,6 +173,12 @@ def fused_sh_bracket(
     plain successive halving. Where a score is NaN (an earlier stage
     crashed) the current loss stands in; a crash in the current stage
     ranks as a crash whatever the score.
+
+    ``mesh``/``axis`` split every stage's evaluation (and a stateful
+    bracket's lanes) over the mesh's config axis where its rows divide
+    evenly (``parallel.mesh.batch_sharding``); the ranking, the promotion
+    and the survivor gathers run on the mesh's home device. A one-shard
+    mesh is the unsharded bracket.
     """
     if (eval_fn is None) == (stateful is None):
         raise ValueError(
@@ -157,6 +191,23 @@ def fused_sh_bracket(
     n_rows = vectors.shape[0]
     if n_rows < n0:
         raise ValueError(f"need >= {n0} stage-0 vectors, got {n_rows}")
+    split = None
+    if mesh is not None:
+        from hpbandster_tpu_torch.parallel.mesh import batch_sharding
+
+        split = batch_sharding(mesh, axis)
+        vectors = shard_rows(vectors, mesh, axis)
+
+    def rows(fn, *trees):
+        """``fn`` over the rows, split per shard on a mesh."""
+        return fn(*trees) if split is None else split.map(fn, *trees)
+
+    def evaluate(vecs, budget):
+        return rows(lambda v: _eval_stage(eval_fn, v, budget), vecs)
+
+    def step(state, vecs, budget, prev):
+        return rows(lambda st, v: stateful.step_fn(st, v, budget, prev), state, vecs)
+
     dev = vectors.device
     # filled on the device, not copied from the host: no synchronising upload
     budgets_dev = [torch.full((1,), float(b), dtype=torch.float32, device=dev)
@@ -176,12 +227,11 @@ def fused_sh_bracket(
     state = None
     if stateful is not None:
         # one lane per row, padding rows included (never promoted)
-        state, losses = stateful.step_fn(
-            stateful.init_fn(vectors), vectors, float(budgets[0]), 0.0
-        )
+        state, losses = step(_shard_state(rows(stateful.init_fn, vectors), mesh, axis),
+                             vectors, float(budgets[0]), 0.0)
         losses = losses.to(torch.float32)
     else:
-        losses = _eval_stage(eval_fn, vectors, float(budgets[0]))
+        losses = evaluate(vectors, float(budgets[0]))
     cur_idx = torch.arange(n_rows, device=dev)
     history = [losses]  # per-stage losses of the current survivors
     cur_key = rank_key(scores_for(history, 0), cur_idx >= n0)
@@ -194,13 +244,13 @@ def fused_sh_bracket(
         if stateful is not None:
             # warm continuation: the surviving lanes, by the same indices
             # the rank promoted, train the budget increment only
-            state, losses = stateful.step_fn(
+            state, losses = step(
                 tree_map(lambda leaf: leaf[top], state), vectors[cur_idx],
                 float(budgets[s]), float(budgets[s - 1]),
             )
             losses = losses.to(torch.float32)
         else:
-            losses = _eval_stage(eval_fn, vectors[cur_idx], float(budgets[s]))
+            losses = evaluate(vectors[cur_idx], float(budgets[s]))
         history = ([col[top] for col in history] if rank_fn is not None else []) + [losses]
         if s + 1 < len(num_configs):
             cur_key = rank_key(scores_for(history, s),
@@ -230,8 +280,8 @@ def _unpack_stages(packed, num_configs) -> List[Tuple[np.ndarray, np.ndarray]]:
 
 
 #: process-wide runner cache: executors come and go, but an (objective,
-#: bracket shape, device) combination builds once. Bounded, so throwaway
-#: closures cannot pin their datasets forever.
+#: bracket shape, mesh, device) combination builds once. Bounded, so
+#: throwaway closures cannot pin their datasets forever.
 _FUSED_FN_CACHE = LRUCache(maxsize=64)
 
 
@@ -240,36 +290,49 @@ def make_fused_bracket_fn(
     num_configs: Sequence[int],
     budgets: Sequence[float],
     mesh=None,
+    axis: str = "config",
     device=None,
 ):
     """A runner for one bracket shape: ``fn(vectors f32[n0, d]) ->
     [(indices, losses), ...]`` as numpy, every stage and promotion on
-    ``device`` (``None`` means ``cuda``).
+    ``device`` (``None`` means ``cuda``; with a mesh, the mesh's home
+    device).
+
+    With a mesh the stage-0 batch is padded to a multiple of the ``axis``
+    shard count (padding rows are evaluated, never promoted or reported)
+    and every stage is evaluated over the mesh (:func:`fused_sh_bracket`).
 
     ``fn.dispatch(vectors)`` uploads the vectors and launches the whole
     bracket without waiting for it, returning the packed stages as one
     device tensor; ``fn.fetch(packed)`` brings them to the host (one
     transfer, which synchronises), so a caller can launch several brackets
     before fetching any. Runners are cached per ``(eval_fn, num_configs,
-    budgets, device)``.
+    budgets, mesh, axis, device)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_fused_bracket_fn(mesh=...) is not ported yet (ROADMAP A7: "
-            "multi-GPU)")
-    dev = resolve_device(device)
+    from hpbandster_tpu_torch.parallel.mesh import mesh_device, pad_to_shards
+
+    dev = resolve_device(device if mesh is None or device is not None
+                         else mesh_device(mesh))
     num_configs = tuple(int(n) for n in num_configs)
     budgets = tuple(float(b) for b in budgets)
-    cache_key = (eval_fn, num_configs, budgets, dev)
+    cache_key = (eval_fn, num_configs, budgets, mesh, axis, dev)
     cached = _FUSED_FN_CACHE.get(cache_key)
     if cached is not None:
         return cached
+    n0 = num_configs[0]
+    n_pad = pad_to_shards(n0, mesh, axis)
 
     def dispatch(vectors) -> torch.Tensor:
         vectors = np.asarray(vectors, np.float32)
+        if vectors.shape[0] != n0:
+            raise ValueError(f"expected {n0} stage-0 vectors, got {vectors.shape[0]}")
+        if n_pad != n0:
+            vectors = np.concatenate(
+                [vectors, np.zeros((n_pad - n0, vectors.shape[1]), np.float32)])
         note_transfer("h2d", vectors.nbytes)
         (v,) = upload(dev, vectors)
-        idx, losses = _pack_stages(fused_sh_bracket(eval_fn, v, num_configs, budgets))
+        idx, losses = _pack_stages(fused_sh_bracket(
+            eval_fn, v, num_configs, budgets, mesh=mesh, axis=axis))
         # one tensor, one transfer at the fetch (indices are exact in f32)
         return torch.cat([idx.to(torch.float32), losses])
 

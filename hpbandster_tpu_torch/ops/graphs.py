@@ -31,9 +31,9 @@ replay that fails raises; nothing falls back to running eagerly.
 
 A graph is re-armable: its owner may replay it in later calls, after
 writing new inputs into the captured buffers with ``copy_`` and resetting
-what the program carries, and :meth:`RoundGraph.reseed` reseeds the
-registered generators, so a replay draws what a fresh capture under that
-seed would. Every capture is recorded in the capture ledger
+what the program carries, and reseeding the registered generators
+(``manual_seed``, which also resets their offsets), so a replay draws what
+a fresh capture under that seed would. Every capture is recorded in the capture ledger
 (``obs/runtime.py``): the graph's name as the label, its shape signature,
 and the capture and instantiate seconds.
 """
@@ -138,13 +138,6 @@ class RoundGraph:
         torch.cuda.current_stream(device).wait_stream(stream)
         self._events: collections.deque = collections.deque(maxlen=_KEPT_REPLAYS)
         get_compile_tracker().record(name, signature, self.capture_s + self.instantiate_s)
-
-    def reseed(self, seed: int) -> None:
-        """Seed every registered generator with ``seed`` (offset 0): the
-        next replay draws what a fresh capture seeded with ``seed``
-        would."""
-        for gen in self.generators:
-            gen.manual_seed(int(seed))
 
     def replay(self) -> None:
         start = torch.cuda.Event(enable_timing=True)

@@ -8,8 +8,9 @@ rejection resampling as ``resample_forbidden``), ``pow2_capacities``,
 ``plan_additions``, ``_fit_kde_pair_device``, the static and
 dynamic-count tiers of ``make_fused_sweep_fn`` (``init_obs_state``,
 ``trained_split``, ``dynamic_gate``, ``dynamic_proposals``, ``run_bracket``
-and the unrolled ``sweep``), and the serving lanes' incumbent carry
-(``init_lane_state``, ``decode_lane_state``).
+and the unrolled ``sweep``), its mesh half (``random_unit_sharded``,
+``make_fused_sweep_fn(mesh=, axis=, shard_sampling=)``), and the serving
+lanes' incumbent carry (``init_lane_state``, ``decode_lane_state``).
 
 The static tier keeps every observation count a Python int, so the model
 gate, the good/bad split sizes and the choice of the largest trained budget
@@ -32,7 +33,10 @@ bracket asks it for its uniform stage-0 vectors, its candidate set, its
 model-based mask and, on conditional or forbidden spaces, its imputation
 uniforms and forbidden-row redraws. The default draws from one
 ``torch.Generator`` seeded from the run seed; a test can hand in the
-reference's own draws instead. The codec's constants reach the device
+reference's own draws instead. Under shard sampling each shard of the
+config axis draws its stage-0 rows from a generator of its own
+(:func:`shard_seed`), the port's counterpart of the reference's
+``fold_in(key, shard)``. The codec's constants reach the device
 once per optimizer (:class:`CodecTables`, built by the optimizer and
 handed to every sweep it builds and to the compiled masks), since every
 upload from host memory is a synchronising copy.
@@ -64,6 +68,13 @@ from hpbandster_tpu_torch.ops.kde import (
     impute_conditional_masked,
     normal_reference_bandwidths,
 )
+from hpbandster_tpu_torch.parallel.mesh import (
+    _normalize,
+    batch_sharding,
+    mesh_device,
+    shard_count,
+    single_device,
+)
 
 __all__ = [
     "SpaceCodec",
@@ -73,6 +84,8 @@ __all__ = [
     "quantize_unit",
     "random_unit",
     "random_unit_from",
+    "random_unit_sharded",
+    "shard_seed",
     "compile_active_mask",
     "compile_forbidden_mask",
     "resample_forbidden",
@@ -369,6 +382,43 @@ def random_unit(
     gumbel = -torch.log(-torch.log(torch.clamp(g, min=1e-20)))
     idx = torch.argmax(logits[None] + gumbel, dim=-1)
     return random_unit_from(tables, u, idx)
+
+
+def shard_seed(seed: int, shard: int) -> int:
+    """The seed of shard ``shard``'s stage-0 generator under run seed
+    ``seed``: the port's counterpart of ``jax.random.fold_in(key, shard)``.
+    Each shard's stream is independent of the others and of the batch's
+    size, so every shard draws its own rows where they live, and every rank
+    of a multi-process mesh derives the same seed."""
+    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF, 0x5EED, int(shard)])
+    return int(state.generate_state(1, np.uint64)[0])
+
+
+def random_unit_sharded(
+    tables, generators: Sequence[torch.Generator], n: int
+) -> torch.Tensor:
+    """:func:`random_unit` for a config batch split over ``len(generators)``
+    shards: shard ``s`` draws its ``n // len(generators)`` contiguous rows
+    from ``generators[s]`` (seeded :func:`shard_seed` of the run seed and
+    ``s``) on that generator's device, and the blocks concatenate on the
+    first shard's device. ``tables`` is one :class:`CodecTables`, or one per
+    shard on its generator's device. One generator is the unsplit case:
+    :func:`random_unit` from it, so a one-shard mesh draws bit for bit what
+    the unsharded sweep draws. Different shard counts are distinct, equally
+    valid consumers of random numbers."""
+    n_shards = max(len(generators), 1)
+    per_shard = [tables] * n_shards if isinstance(tables, CodecTables) else list(tables)
+    if n_shards == 1:
+        return random_unit(per_shard[0], generators[0], n)
+    if n % n_shards:
+        raise ValueError(
+            f"sharded sampling needs n % n_shards == 0, got {n} rows over {n_shards} "
+            "shards: pad the stage-0 count to a mesh multiple "
+            "(parallel.mesh.pad_to_shards / ops.bracket.mesh_aligned_plan)")
+    per = n // n_shards
+    home = per_shard[0].device
+    return torch.cat([random_unit(t, g, per).to(home)
+                      for t, g in zip(per_shard, generators)])
 
 
 def _decode_values(t: CodecTables, q: torch.Tensor) -> torch.Tensor:
@@ -808,10 +858,14 @@ def _bin_edges_on(device: torch.device) -> torch.Tensor:
 
 class GeneratorDraws:
     """The sweep's default draws, all from one ``torch.Generator`` seeded
-    with the run seed and consumed in bracket order.
+    with the run seed and consumed in bracket order; under shard sampling
+    the stage-0 rows of each shard this process draws from a generator of
+    that shard's own (``shard_tables``: shard index -> the codec tables on
+    its device).
 
     A draw source answers these questions per bracket ``b_i``: the uniform
-    stage-0 vectors (:meth:`stage0`), the candidate set around the fitted
+    stage-0 vectors (:meth:`stage0`; shard ``s``'s block under shard
+    sampling, :meth:`stage0_shard`), the candidate set around the fitted
     good KDE (:meth:`candidates`), which proposals are model-based
     (:meth:`model_mask`) and, on conditional or forbidden spaces, the
     imputation uniforms of each split side (:meth:`impute`) and the
@@ -825,6 +879,7 @@ class GeneratorDraws:
         random_fraction: float,
         bandwidth_factor: float,
         min_bandwidth: float,
+        shard_tables: Optional[Dict[int, CodecTables]] = None,
     ):
         self.tables = tables
         self.device = tables.device
@@ -832,10 +887,28 @@ class GeneratorDraws:
         self.bandwidth_factor = float(bandwidth_factor)
         self.min_bandwidth = float(min_bandwidth)
         self.generator = torch.Generator(device=self.device)
+        self.shard_tables = dict(shard_tables or {})
+        self.shard_generators = {s: torch.Generator(device=t.device)
+                                 for s, t in self.shard_tables.items()}
+        self.reseed(seed)
+
+    @property
+    def generators(self) -> List[torch.Generator]:
+        """Every generator the draws use (a captured sweep registers them)."""
+        return [self.generator] + list(self.shard_generators.values())
+
+    def reseed(self, seed: int) -> None:
+        """Seed every generator for run seed ``seed`` (offset 0)."""
         self.generator.manual_seed(int(seed))
+        for s, gen in self.shard_generators.items():
+            gen.manual_seed(shard_seed(seed, s))
 
     def stage0(self, b_i: int, n0: int) -> torch.Tensor:
         return random_unit(self.tables, self.generator, n0)
+
+    def stage0_shard(self, b_i: int, shard: int, n: int) -> torch.Tensor:
+        """Shard ``shard``'s ``n`` stage-0 rows, on its device."""
+        return random_unit(self.shard_tables[shard], self.shard_generators[shard], n)
 
     def candidates(self, b_i: int, good: KDE, total: int) -> torch.Tensor:
         return generate_candidates(
@@ -953,6 +1026,7 @@ def make_fused_sweep_fn(
     return_state: bool = False,
     resident: bool = False,
     mesh=None,
+    axis: str = "config",
     shard_sampling: bool = False,
     incumbent_only: bool = False,
     device_metrics: bool = False,
@@ -1035,13 +1109,24 @@ def make_fused_sweep_fn(
     ``eval_fn``) trains each bracket's configs with warm continuation
     across its rungs; the lanes' state stays inside the bracket.
 
-    Meshes (``mesh``, ``shard_sampling``) are not ported yet and raise
-    ``NotImplementedError``.
+    ``mesh``/``axis`` (``parallel/mesh.py``; ``device`` must be the mesh's
+    home device) split every stage's evaluation over the config axis where
+    a stage's rows divide evenly: values are the unsharded sweep's for an
+    objective that treats rows independently, so a mesh alone only places
+    rows. ``shard_sampling=True`` (the 100k-1M mode, needs a mesh) draws
+    stage 0 per shard (:func:`random_unit_sharded`: shard ``s`` from its own
+    generator, on its device), so every plan's stage-0 count must be a
+    multiple of the shard count (``ops.bracket.mesh_aligned_plan``); on a
+    one-shard mesh it is bit for bit the unsharded sweep, across shard
+    counts a distinct consumer of random numbers. The rows between stages,
+    the rung ranking, the observation state and the incumbent stay on the
+    home device. A captured CUDA graph holds one device's stream, so on a
+    mesh over several cards or processes the dynamic tiers run eagerly; a
+    mesh that repeats one card captures as before. On a multi-process mesh
+    every rank runs the same sweep and every output is replicated.
     """
-    if mesh is not None or shard_sampling:
-        raise NotImplementedError(
-            "meshes (mesh, shard_sampling) are not ported to the PyTorch sweep yet"
-        )
+    if shard_sampling and mesh is None:
+        raise ValueError("shard_sampling=True requires a mesh")
     if (eval_fn is None) == (stateful_eval is None):
         raise ValueError(
             "provide exactly one evaluation seam: eval_fn (stateless) or "
@@ -1063,7 +1148,17 @@ def make_fused_sweep_fn(
         )
     if resident and not plans:
         raise ValueError("resident=True needs at least one bracket")
+    n_shards = shard_count(mesh, axis) if shard_sampling else 1
+    if n_shards > 1:
+        for p in plans:
+            if int(p.num_configs[0]) % n_shards:
+                raise ValueError(
+                    f"shard_sampling: stage-0 count {p.num_configs[0]} is not a "
+                    f"multiple of the {n_shards}-way '{axis}' axis: build plans with "
+                    "ops.bracket.mesh_aligned_plan (or pad via parallel.mesh.pad_to_shards)")
     device = torch.device(device)
+    if mesh is not None and _normalize(device) != mesh_device(mesh):
+        raise ValueError(f"device {device} is not the mesh's home device {mesh_device(mesh)}")
     d = int(codec.kind.shape[0])
     min_pts = (d + 1) if min_points_in_model is None else max(int(min_points_in_model), d + 1)
     plans = [BracketPlan(tuple(p.num_configs), tuple(p.budgets)) for p in plans]
@@ -1085,6 +1180,11 @@ def make_fused_sweep_fn(
 
     if tables is None:
         tables = codec_tables(codec, device)
+    split = batch_sharding(mesh, axis) if n_shards > 1 else None
+    # the codec's constants on each shard's device, for its own draws
+    shard_tables = {} if split is None else {
+        s: tables if split.devices[s] == _normalize(tables.device)
+        else codec_tables(codec, split.devices[s]) for s in split.owned()}
     # the kernels take the float32 vartypes and cards as they are
     vartypes_dev, cards_dev = tables.vartypes, tables.cards
     fallback_dev = (
@@ -1246,7 +1346,12 @@ def make_fused_sweep_fn(
         the metrics write. Returns the :class:`SweepBracketOutput`, or None
         under ``incumbent_only``."""
         n0 = plan.num_configs[0]
-        rand_vecs = draws.stage0(b_i, n0).to(device)
+        if split is not None:
+            # each shard draws its own block where it lives
+            rand_vecs = split.generate(
+                lambda shard, rows: draws.stage0_shard(b_i, shard, rows), n0, device)
+        else:
+            rand_vecs = draws.stage0(b_i, n0).to(device)
         # the metrics' refit flag: was the model gate open this bracket
         fit_flag = None
         if dynamic_counts:
@@ -1307,7 +1412,7 @@ def make_fused_sweep_fn(
             eval_vectors = out_vectors = vectors
         stages = fused_sh_bracket(
             eval_fn, eval_vectors, plan.num_configs, plan.budgets, rank_fn=rank_fn,
-            stateful=stateful_eval,
+            mesh=mesh, axis=axis, stateful=stateful_eval,
         )
         for (idx_s, losses_s), k_s, budget in zip(stages, plan.num_configs, plan.budgets):
             b = float(budget)
@@ -1431,11 +1536,13 @@ def make_fused_sweep_fn(
         return (init_device_metrics(len(plans), dm_rungs, N_BINS, device)
                 if device_metrics else None)
 
+    def default_draws(seed):
+        return GeneratorDraws(tables, int(seed), random_fraction, bandwidth_factor,
+                              min_bandwidth, shard_tables=shard_tables)
+
     def eager_sweep(seed, warm_v, warm_l, warm_n, draws):
         if draws is None:
-            draws = GeneratorDraws(
-                tables, int(seed), random_fraction, bandwidth_factor, min_bandwidth
-            )
+            draws = default_draws(seed)
         state = init_obs_state(warm_v, warm_l, warm_n)
         inc = init_incumbent() if incumbent_only else None
         metrics = fresh_metrics()
@@ -1456,17 +1563,18 @@ def make_fused_sweep_fn(
         outputs."""
         from hpbandster_tpu_torch.ops.graphs import RoundGraph
 
-        draws = GeneratorDraws(tables, 0, random_fraction, bandwidth_factor, min_bandwidth)
+        draws = default_draws(0)
         caps_sig = ",".join(f"{b:g}:{c}" for b, c in sorted(caps.items()))
         flags = "".join(f" {k}" for k, on in (("metrics", device_metrics),
-                                             ("incumbent", incumbent_only)) if on)
+                                             ("incumbent", incumbent_only),
+                                             (f"shards={n_shards}", n_shards > 1)) if on)
         if resident:
             # the carried state, reset in place by every call
             state = init_obs_state(None, None, None)
             inc = init_incumbent() if incumbent_only else None
             metrics = fresh_metrics()
             r_idx, stacked, round_body = make_round(draws, state, inc, metrics)
-            graph = RoundGraph(round_body, device, generators=[draws.generator],
+            graph = RoundGraph(round_body, device, generators=draws.generators,
                                signature=_sig(caps_sig, round_plans, flags))
 
             def run(seed, warm_v, warm_l, warm_n):
@@ -1476,7 +1584,7 @@ def make_fused_sweep_fn(
                 if metrics is not None:
                     _copy_into(metrics, fresh_metrics())
                 r_idx.zero_()
-                graph.reseed(seed)
+                draws.reseed(seed)
                 for _ in range(n_rounds):
                     graph.replay()
                 tail = run_tail(draws, row, state, inc, metrics)
@@ -1498,7 +1606,7 @@ def make_fused_sweep_fn(
             holder["out"] = package(run_unrolled(draws, row, state, inc, metrics),
                                     inc, metrics, state)
 
-        graph = RoundGraph(chunk_body, device, generators=[draws.generator],
+        graph = RoundGraph(chunk_body, device, generators=draws.generators,
                            name="sweep_chunk", signature=_sig(caps_sig, plans, flags))
 
         def run(seed, warm_v, warm_l, warm_n):
@@ -1511,11 +1619,12 @@ def make_fused_sweep_fn(
                     inp_v[b].zero_()
                     inp_l[b].fill_(float("inf"))
                     inp_n[b].zero_()
-            graph.reseed(seed)
+            draws.reseed(seed)
             graph.replay()
             return holder["out"]
 
         return graph, run
 
-    graphed = device.type == "cuda" and dynamic_counts and not _eager
+    graphed = (device.type == "cuda" and dynamic_counts and not _eager
+               and single_device(mesh))
     return _Sweep(eager_sweep, capture if graphed else None, device)

@@ -41,7 +41,14 @@ entry count (16, the reference's) and by the device memory its graphs pin
 (promotion) where a replay runs in turn. The replay that overlaps the next
 chunk is not a span: its time is ``replay_overlap_s``.
 
-Not ported yet: meshes and multiprocess runs, and streamed warm uploads.
+With ``mesh=`` (``parallel/mesh.py``) every chunk's sweep evaluates its
+stages over the mesh's config axis (a mesh alone places rows: the results
+are the unmeshed run's for an objective that treats rows independently),
+and a dynamic chunk whose warm buffers must be uploaded streams them shard
+slice by shard slice (``_stream_warm_args``), so no full-capacity buffer is
+built on the host. On a mesh over several processes every rank constructs
+the same optimizer and calls ``run()`` (the SPMD driver contract of
+``parallel/multihost.py``); pass a ``result_logger`` on rank 0 only.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.core.result import Result
 from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
 from hpbandster_tpu_torch.core.warmstart import WarmStartIteration
-from hpbandster_tpu_torch.device import resolve_device
+from hpbandster_tpu_torch.device import resolve_device, upload
 from hpbandster_tpu_torch.obs.device_metrics import (
     decode_device_metrics,
     device_metrics_default,
@@ -105,6 +112,12 @@ from hpbandster_tpu_torch.ops.sweep import (
     pow2_capacities,
     resident_rotation,
     unstack_resident_outputs,
+)
+from hpbandster_tpu_torch.parallel.mesh import (
+    Mesh,
+    is_multiprocess_mesh,
+    mesh_device,
+    shard_count,
 )
 from hpbandster_tpu_torch.space import ConfigurationSpace
 from hpbandster_tpu_torch.utils.lru import LRUCache
@@ -181,6 +194,17 @@ def _fetch(out):
     return type(out)(_fetch(x) for x in out)
 
 
+def _warm_slice(src: Optional[np.ndarray], lo: int, hi: int, tail: tuple,
+                fill: float) -> np.ndarray:
+    """Rows ``lo:hi`` of a warm buffer on the host: ``src``'s rows where it
+    has them, ``fill`` beyond (the streamed upload's one allocation)."""
+    buf = np.full((hi - lo,) + tail, fill, np.float32)
+    if src is not None and lo < len(src):
+        take = src[lo:min(hi, len(src))]
+        buf[:len(take)] = take
+    return buf
+
+
 class _ReplayIteration(SuccessiveHalving):
     """SuccessiveHalving whose promotion decisions replay the device's.
 
@@ -199,7 +223,8 @@ class _ReplayIteration(SuccessiveHalving):
 
 
 class FusedBOHB:
-    """BOHB whose whole sweep runs on one device.
+    """BOHB whose whole sweep runs on the device (or over a mesh's config
+    axis: ``mesh``, ``axis``).
 
     ``eval_fn(vectors f32[n, d], budget) -> f32[n]`` evaluates a batch of
     unit-hypercube configuration vectors at a Python-float budget.
@@ -234,6 +259,8 @@ class FusedBOHB:
         bandwidth_factor: float = 3.0,
         min_bandwidth: float = 1e-3,
         seed: Optional[int] = None,
+        mesh=None,
+        axis: str = "config",
         result_logger=None,
         working_directory: str = ".",
         logger: Optional[logging.Logger] = None,
@@ -241,7 +268,14 @@ class FusedBOHB:
         device=None,
         stateful_eval: Optional[StatefulEval] = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (config_mesh(...)), "
+                            f"not {type(mesh).__name__}")
+        self.mesh = mesh
+        self.axis = axis
+        # a mesh's home device holds the rows between stages and the state
+        self.device = resolve_device(
+            device if mesh is None or device is not None else mesh_device(mesh))
         if configspace is None:
             raise ValueError("you have to provide a valid ConfigurationSpace object")
         if eval_fn is None and stateful_eval is None:
@@ -524,6 +558,7 @@ class FusedBOHB:
                 with phase_span("chunk_staging", TRANSFER):
                     warm_counts = {b: len(l) for b, l in self._warm_l.items()}
                     run_caps = None
+                    slice_bytes = 0
                     if dynamic:
                         # past-only capacities: warm counts at this boundary
                         # plus this chunk's additions, pow2-bucketed, so two
@@ -535,6 +570,12 @@ class FusedBOHB:
                         run_caps = pow2_capacities(run_caps)
                         if dev_state is not None and run_caps == dev_caps:
                             warm, upload_bytes = dev_state, 0
+                        elif self._can_stream_warm(run_caps):
+                            # a sharded mesh: the warm buffers go up shard
+                            # slice by shard slice, never whole on the host
+                            warm, upload_bytes, slice_bytes = self._stream_warm_args(
+                                run_caps, d)
+                            dev_state = None  # stale shapes: never reuse
                         else:
                             warm, upload_bytes = self._dynamic_warm(run_caps, d)
                             dev_state = None  # stale shapes: never reuse
@@ -607,6 +648,9 @@ class FusedBOHB:
                     # 0 when the previous chunk's device state carried them
                     "warm_upload_bytes": int(upload_bytes),
                 }
+                if slice_bytes:
+                    # the streamed upload's largest host slice
+                    stat["warm_stream_slice_bytes"] = int(slice_bytes)
                 if overlap_s is not None:
                     # the previous chunk's replay, run inside this chunk's window
                     stat["replay_overlap_s"] = overlap_s
@@ -701,6 +745,11 @@ class FusedBOHB:
         ``HPB_DEVICE_METRICS``) adds ``device_telemetry``, the decoded
         record, also kept as :attr:`last_device_telemetry`.
         """
+        if is_multiprocess_mesh(self.mesh):
+            raise ValueError(
+                "run_incumbent drives single-process meshes; use "
+                "parallel.multihost.run_sharded_fused_sweep(resident=True) for the "
+                "multi-process tier")
         plans = [self._plan(i) for i in range(int(n_iterations))]
         if not plans:
             raise ValueError("run_incumbent needs n_iterations >= 1")
@@ -784,6 +833,8 @@ class FusedBOHB:
             self.eval_fn, plans, self.codec,
             device=self.device,
             tables=self.codec_tables,
+            mesh=self.mesh,
+            axis=self.axis,
             num_samples=self.num_samples,
             random_fraction=self.random_fraction,
             top_n_percent=self.top_n_percent,
@@ -801,8 +852,8 @@ class FusedBOHB:
 
     def _sweep_key(self, plans, dynamic=False, caps=None, resident=False,
                    incumbent_only=False, device_metrics=False):
-        """The sweep cache's key: the reference's ``_sweep_key`` without
-        the mesh fields, with the device and the eager switch."""
+        """The sweep cache's key: the reference's ``_sweep_key``, with the
+        device and the eager switch."""
         if dynamic:
             # counts are device inputs, so only the capacities (shapes) key
             # the sweep; "state" marks the return_state sweep run() builds.
@@ -822,6 +873,8 @@ class FusedBOHB:
             self.min_points_in_model,
             self.bandwidth_factor,
             self.min_bandwidth,
+            self.mesh,
+            self.axis,
             obs_term,
             self.promotion_rank_fn,
             self._conditions_sig,
@@ -904,6 +957,50 @@ class FusedBOHB:
         )
         warm = dynamic_obs_from_numpy(warm_v_pad, warm_l_pad, warm_n, self.device)
         return warm, nbytes
+
+    def _can_stream_warm(self, run_caps: Dict[float, int]) -> bool:
+        """Streamed per-shard warm uploads apply on single-process meshes of
+        several shards whose capacities split evenly; anything else takes
+        the whole-buffer path (:meth:`_dynamic_warm`)."""
+        if self.mesh is None or is_multiprocess_mesh(self.mesh):
+            return False
+        n_shards = shard_count(self.mesh, self.axis)
+        return n_shards > 1 and all(cap % n_shards == 0 for cap in run_caps.values())
+
+    def _stream_warm_args(self, run_caps: Dict[float, int], d: int):
+        """The dynamic tier's warm inputs for a mesh run, built shard slice
+        by shard slice: each budget's full-capacity buffers are made on the
+        device, and each shard's ``capacity / shard count`` rows are filled
+        on the host (:func:`_warm_slice`) and uploaded on their own, so the
+        host holds one slice at a time, never a full buffer (at the 1M
+        scale the one place a chunked run would otherwise build O(configs)
+        host memory in one piece). Returns ``((warm_v, warm_l, warm_n),
+        bytes uploaded, the largest slice's host bytes)``."""
+        n_shards = shard_count(self.mesh, self.axis)
+        warm_v, warm_l, warm_n = {}, {}, {}
+        nbytes = largest = 0
+        for b, cap in run_caps.items():
+            if cap % n_shards:
+                raise ValueError(
+                    f"streamed warm upload needs capacities divisible by the "
+                    f"{n_shards}-way '{self.axis}' axis, got {cap} for budget {b} "
+                    "(gate with _can_stream_warm)")
+            src_v, src_l = self._warm_v.get(b), self._warm_l.get(b)
+            per = cap // n_shards
+            buf_v = torch.empty((cap, d), dtype=torch.float32, device=self.device)
+            buf_l = torch.empty((cap,), dtype=torch.float32, device=self.device)
+            for lo in range(0, cap, per):
+                part_v = _warm_slice(src_v, lo, lo + per, (d,), 0.0)
+                part_l = _warm_slice(src_l, lo, lo + per, (), np.inf)
+                up_v, up_l = upload(self.device, part_v, part_l)
+                buf_v[lo:lo + per].copy_(up_v)
+                buf_l[lo:lo + per].copy_(up_l)
+                largest = max(largest, part_v.nbytes + part_l.nbytes)
+            warm_v[b], warm_l[b] = buf_v, buf_l
+            n = 0 if src_v is None else len(src_v)
+            warm_n[b] = torch.full((), n, dtype=torch.int32, device=self.device)
+            nbytes += cap * d * 4 + cap * 4 + 4
+        return (warm_v, warm_l, warm_n), nbytes, largest
 
     def _write_timings_sidecar(self) -> None:
         """Write ``run_stats`` as ``fused_timings.json`` beside the result

@@ -25,6 +25,10 @@ schedule's shapes pad up to a small bucket set whose programs build in the
 background (on a card, one CUDA graph per bucket), overlapped with stage-0
 sampling. A shape the set does not cover runs on its own per-shape program
 (``ops.fused.make_fused_bracket_fn``). Bucketing never changes a result.
+With a mesh on the backend (``VmapBackend(mesh=)``) both programs split
+their stages over its config axis, and the bucket widths pad to the
+axis's shard count only: on a ``("config", "model")`` mesh the model axis
+replicates the batch.
 
 Where the reference falls back to the per-shape program on any bucketed
 failure, the port does so on the CPU only: on a card a failed bucketed
@@ -55,6 +59,7 @@ from hpbandster_tpu_torch.ops.buckets import (
     slice_member_stages,
 )
 from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
+from hpbandster_tpu_torch.parallel.mesh import shard_count
 from hpbandster_tpu_torch.space import ConfigurationSpace
 
 __all__ = ["BatchedExecutor"]
@@ -166,15 +171,21 @@ class BatchedExecutor:
         if not fusable:
             return
         self._bucket_plans.extend(fusable)
-        self._bucket_set = build_bucket_set(self._bucket_plans)
+        mesh, axis = self._mesh()
+        self._bucket_set = build_bucket_set(self._bucket_plans,
+                                            mesh_size=shard_count(mesh, axis))
         self._bucket_precompile = precompile_buckets(
             self.backend.eval_fn, self._bucket_set, d=self.configspace.dim,
-            device=self.device, background=True,
+            mesh=mesh, axis=axis, device=self.device, background=True,
         )
         self.logger.debug(
             "bucket set prepared: %d shapes -> %d programs",
             len(self._bucket_set.assignment), len(self._bucket_set.buckets),
         )
+
+    def _mesh(self):
+        """The backend's mesh and axis (None without one)."""
+        return getattr(self.backend, "mesh", None), getattr(self.backend, "axis", "config")
 
     def _bucket_runner_for(self, info):
         """The ``(runner, plan, entry)`` serving this bracket shape, or None
@@ -185,8 +196,10 @@ class BatchedExecutor:
         if placed is None:
             return None
         bucket_idx, entry = placed
+        mesh, axis = self._mesh()
         runner = make_bucketed_bracket_fn(
-            self.backend.eval_fn, self._bucket_set.buckets[bucket_idx], device=self.device)
+            self.backend.eval_fn, self._bucket_set.buckets[bucket_idx], mesh=mesh, axis=axis,
+            device=self.device)
         plan = BracketPlan(num_configs=tuple(info["num_configs"]),
                            budgets=tuple(info["budgets"]))
         return runner, plan, entry
@@ -243,9 +256,10 @@ class BatchedExecutor:
                 j.time_it("started")
             fetch = self._dispatch_bucketed(iteration, info, vectors)
             if fetch is None:
+                mesh, axis = self._mesh()
                 runner = make_fused_bracket_fn(
                     self.backend.eval_fn, info["num_configs"], info["budgets"],
-                    device=self.device,
+                    mesh=mesh, axis=axis, device=self.device,
                 )
                 try:
                     with obs.span("fused_dispatch", iteration=iteration,

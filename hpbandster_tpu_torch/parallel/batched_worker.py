@@ -42,9 +42,11 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from hpbandster_tpu_torch import obs
 from hpbandster_tpu_torch.core.worker import Worker
+from hpbandster_tpu_torch.parallel.mesh import config_mesh
 from hpbandster_tpu_torch.parallel.rpc import (
     CommunicationError,
     RPCError,
@@ -66,8 +68,11 @@ class TPUBatchedWorker(Worker):
 
     The backend runs each wave on ``device`` (``None`` means ``cuda``,
     which raises where there is none). ``mesh="auto"`` (the reference's
-    default) means that one device; an explicit mesh, sharding one worker
-    over several cards, is not ported (ROADMAP A7).
+    default) with ``device=None`` is a config mesh over every visible card
+    when there are several (``parallel.mesh.config_mesh()``), else that one
+    card; with a named device, that device alone. An explicit mesh shards
+    each wave over its config axis. ``capabilities`` reports the number of
+    devices the waves run on.
     """
 
     def __init__(
@@ -84,10 +89,10 @@ class TPUBatchedWorker(Worker):
         from hpbandster_tpu_torch.parallel.backends import VmapBackend
 
         self.configspace = configspace
-        self.backend = VmapBackend(
-            eval_fn, mesh=None if mesh == "auto" else mesh, min_pad=min_pad,
-            device=device,
-        )
+        if mesh == "auto":
+            mesh = (config_mesh() if device is None and torch.cuda.is_available()
+                    and torch.cuda.device_count() > 1 else None)
+        self.backend = VmapBackend(eval_fn, mesh=mesh, min_pad=min_pad, device=device)
 
     # ------------------------------------------------------------ rpc surface
     def _extra_rpc(self, server: RPCServer) -> None:

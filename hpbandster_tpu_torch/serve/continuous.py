@@ -28,7 +28,7 @@ fetched chunk a span-shaped ``serve_chunk`` record, and the
 ``serve.continuous.{joins,leaves,chunks,masked_lanes}`` counters and
 ``serve.family.<f>.{chunks,warm_age_s,lanes_occupied,lanes_starved}``
 gauges follow the lanes, as in the reference. Its 2-D lane x config mesh
-(``make_lane_mesh``, ``mesh=``) waits for the port's multi-GPU slice.
+(``make_lane_mesh``, ``mesh=``) waits for ROADMAP A7b, the lane meshes.
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ __all__ = ["ContinuousRunner", "LaneAllocator", "make_lane_mesh"]
 def make_lane_mesh(lane_shards: int, devices=None):
     """The reference's 2-D ``lane x config`` mesh: not ported yet."""
     raise NotImplementedError(
-        "make_lane_mesh is not ported yet (ROADMAP A7: multi-GPU)")
+        "make_lane_mesh is not ported yet (ROADMAP A7b: the serving tier's lane "
+        "meshes)")
 
 
 class LaneAllocator:
@@ -153,7 +154,8 @@ class ContinuousRunner:
                  mesh=None, family: int = 0, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "ContinuousRunner(mesh=...) is not ported yet (ROADMAP A7: multi-GPU)")
+                "ContinuousRunner(mesh=...) is not ported yet (ROADMAP A7b: the "
+                "serving tier's lane meshes)")
         self.bucket = bucket
         self.lane_count = int(lane_count)
         self.family = int(family)

@@ -97,7 +97,8 @@ class MegaRunner:
                  device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "MegaRunner(mesh=...) is not ported yet (ROADMAP A7: multi-GPU)")
+                "MegaRunner(mesh=...) is not ported yet (ROADMAP A7b: the serving "
+                "tier's lane meshes)")
         if pack_width < 1:
             raise ValueError("pack_width must be >= 1")
         self.bucket = bucket
@@ -146,7 +147,8 @@ def make_mega_runner(eval_fn, bucket: BucketPlan, pack_width: int = 8, mesh=None
     (``None`` means ``cuda``)."""
     if mesh is not None:
         raise NotImplementedError(
-            "make_mega_runner(mesh=...) is not ported yet (ROADMAP A7: multi-GPU)")
+            "make_mega_runner(mesh=...) is not ported yet (ROADMAP A7b: the serving "
+            "tier's lane meshes)")
     dev = resolve_device(device)
     key = (eval_fn, bucket, int(pack_width), dev)
     runner = _MEGA_FN_CACHE.get(key)

@@ -174,7 +174,8 @@ class ServePool:
     ``eval_fn``, ``evaluate(vectors, budget)``, ``device``,
     ``parallelism``); ``configspace`` is the pool's one search space:
     packing across tenants needs one objective and one vector width.
-    ``lane_mesh=`` (the reference's 2-D lane mesh) is not ported yet.
+    ``lane_mesh=`` (the reference's 2-D lane mesh) is not ported yet
+    (ROADMAP A7b).
     """
 
     def __init__(
@@ -194,7 +195,8 @@ class ServePool:
     ):
         if lane_mesh is not None:
             raise NotImplementedError(
-                "ServePool(lane_mesh=...) is not ported yet (ROADMAP A7: multi-GPU)")
+                "ServePool(lane_mesh=...) is not ported yet (ROADMAP A7b: the serving "
+                "tier's lane meshes)")
         self.backend = backend
         self.configspace = configspace
         self.device = getattr(backend, "device", None)

@@ -1,8 +1,9 @@
 """Objectives of the port: batched ``eval_fn(vectors f32[n, d], budget) ->
 f32[n]`` functions and ``StatefulEval`` trainers for ``FusedBOHB``.
 
-Exports as ``hpbandster_tpu/workloads/__init__.py`` does, without the
-mesh-only ``shard_ensemble_state`` and ``transformer_forward_seq_parallel``.
+Exports as ``hpbandster_tpu/workloads/__init__.py`` does.
+``transformer_forward_seq_parallel`` (the sequence-parallel ring) raises
+``NotImplementedError`` until ROADMAP A7b ports the ring.
 """
 
 from hpbandster_tpu_torch.workloads.toys import (  # noqa: F401
@@ -40,6 +41,7 @@ from hpbandster_tpu_torch.workloads.ensemble import (  # noqa: F401
     EnsembleState,
     ensemble_lane_bytes,
     make_mlp_ensemble,
+    shard_ensemble_state,
     make_uninterrupted_train_fn,
 )
 from hpbandster_tpu_torch.workloads.mlp import (  # noqa: F401
@@ -61,6 +63,7 @@ from hpbandster_tpu_torch.workloads.transformer import (  # noqa: F401
     make_transformer_error_fn,
     make_transformer_eval_fn,
     transformer_forward,
+    transformer_forward_seq_parallel,
     transformer_space,
 )
 from hpbandster_tpu_torch.workloads.teacher import (  # noqa: F401

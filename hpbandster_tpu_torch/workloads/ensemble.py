@@ -14,8 +14,9 @@ uninterrupted run of the same cumulative step count
 
 No op reduces across lanes (see ``workloads/train.py``), so a diverged
 lane's NaN stays in its lane, and its NaN loss ranks behind every real
-loss. ``shard_ensemble_state`` (the reference's mesh sharding) is not
-ported: the port runs on one device.
+loss. On a mesh the fused bracket splits the lanes over the config axis
+and gathers them back between rungs (``ops.fused.fused_sh_bracket(mesh=)``);
+:func:`shard_ensemble_state` places a state for a mesh by hand.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from hpbandster_tpu_torch.ops.fused import StatefulEval, tree_map
+from hpbandster_tpu_torch.ops.fused import StatefulEval, _shard_state, tree_map
 from hpbandster_tpu_torch.workloads.mlp import (
     MLPConfig,
     _xent,
@@ -41,6 +42,7 @@ __all__ = [
     "ensemble_lane_bytes",
     "make_mlp_ensemble",
     "make_uninterrupted_train_fn",
+    "shard_ensemble_state",
 ]
 
 
@@ -69,6 +71,16 @@ def ensemble_lane_bytes(cfg: MLPConfig = MLPConfig()) -> int:
         + cfg.width * cfg.n_classes + cfg.n_classes
     )
     return 2 * 4 * n_params
+
+
+def shard_ensemble_state(state, mesh, axis: str = "config"):
+    """An ensemble state placed for a mesh: every leaf through
+    ``ops.fused.shard_rows`` (its rows on the mesh's home device, from
+    where a sharded rung splits them per shard). Identity on values, the
+    contract ``shard_rows`` keeps for loss batches. The fused bracket does
+    this between rungs; call it only when driving ``step_fn`` by hand on a
+    mesh."""
+    return _shard_state(state, mesh, axis)
 
 
 def make_mlp_ensemble(cfg: MLPConfig = MLPConfig(), data_seed: int = 0, device=None,

@@ -43,6 +43,7 @@ __all__ = [
     "draw_transformer_unit_params",
     "init_transformer_params",
     "transformer_forward",
+    "transformer_forward_seq_parallel",
     "make_copy_dataset",
     "make_transformer_eval_fn",
     "make_transformer_error_fn",
@@ -170,6 +171,16 @@ def transformer_forward(params: dict, tokens: torch.Tensor,
         x = _layer(x, params[f"l{i}"], cfg.n_heads)
     x = _ln(x, params["ln_f"], params["ln_f_b"])
     return _mm(x, params["head"])
+
+
+def transformer_forward_seq_parallel(params: dict, tokens: torch.Tensor,
+                                     cfg: TransformerConfig, axis_name: str):
+    """The reference's sequence-parallel twin of :func:`transformer_forward`
+    (attention as a ring over a mesh's sequence axis): not ported yet, it
+    waits for the ring (``ops/ring_attention.py``, ROADMAP A7b)."""
+    raise NotImplementedError(
+        "transformer_forward_seq_parallel is not ported yet (ROADMAP A7b: the "
+        "sequence-parallel ring)")
 
 
 def make_copy_dataset(generator: torch.Generator, cfg: TransformerConfig):

@@ -27,6 +27,7 @@ from hpbandster_tpu_torch.ops import cuda_kde, kde
 from hpbandster_tpu_torch.ops import sweep as tsweep
 from hpbandster_tpu_torch.ops.bracket import hyperband_bracket, power_law_extrapolate
 from hpbandster_tpu_torch.ops.fused import fused_sh_bracket
+from hpbandster_tpu_torch.parallel.mesh import config_mesh
 from hpbandster_tpu_torch.workloads.toys import branin, branin_space
 from tests.test_torch_conditions import check_conditional_result, cond_loss
 from tests.test_torch_harness import cond_space, ref  # noqa: F401
@@ -246,8 +247,9 @@ def test_h2bo_resume_and_checkpoint_guard(tmp_path):
 
 
 def test_unported_optimizer_modes_raise():
-    """On every optimizer class and a conditional space: a mesh is refused
-    as an unknown argument, a ``stateful_eval`` beside an ``eval_fn`` is
+    """On every optimizer class and a conditional space: a mesh that is not
+    a ``parallel.mesh.Mesh`` is refused (a config mesh is taken), a
+    ``stateful_eval`` beside an ``eval_fn`` is
     refused, the resident tier refuses chunking and the static tier
     (``ValueError``, nothing runs), and ``run(resident=True,
     device_metrics=True)`` runs the plan with its telemetry."""
@@ -256,6 +258,7 @@ def test_unported_optimizer_modes_raise():
                   max_budget=9, seed=0, device="cpu")
         with pytest.raises(TypeError):
             cls(**kw, mesh=object())
+        assert cls(**kw, mesh=config_mesh(["cpu"] * 2)).mesh.shape == {"config": 2}
         with pytest.raises(ValueError, match="exclusive"):
             cls(**kw, stateful_eval=object())
         opt = cls(**kw)

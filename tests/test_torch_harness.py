@@ -29,7 +29,8 @@ import torch
 
 from hpbandster_tpu_torch import space as tspace
 from hpbandster_tpu_torch.convert import codec_from_numpy
-from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+from hpbandster_tpu_torch.ops.bracket import hyperband_bracket, mesh_aligned_plan
+from hpbandster_tpu_torch.ops.sweep import unstack_resident_outputs
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -132,6 +133,23 @@ def ref_host(ref):
     }
     return SimpleNamespace(**{
         k: importlib.import_module(f"hpbandster_tpu.{m}") for k, m in names.items()})
+
+
+@pytest.fixture(scope="module")
+def ref_mesh(ref):
+    """The reference's config-axis mesh tier (``parallel.mesh``,
+    ``parallel.multihost``, ``ops.buckets``, ``workloads.ensemble``) and
+    jax's devices (eight virtual CPU devices under ``tests/conftest.py``),
+    imported inside :func:`ref`'s window and removed with it."""
+    import importlib
+
+    import jax
+
+    names = {"mesh": "parallel.mesh", "multihost": "parallel.multihost",
+             "buckets": "ops.buckets", "ensemble": "workloads.ensemble",
+             "parallel": "parallel"}
+    mods = {k: importlib.import_module(f"hpbandster_tpu.{m}") for k, m in names.items()}
+    return SimpleNamespace(devices=jax.devices(), **mods)
 
 
 def sequential(opt):
@@ -401,7 +419,8 @@ def plans_for(n_iterations: int, max_budget: float = 27.0):
 class ReferenceDraws:
     """The reference's own random draws, fed into the port's sweep through
     its draw seam: bracket ``b_i`` uses ``split(fold_in(key(seed), b_i),
-    4)`` as ``ops/sweep.py``'s ``run_bracket`` does, for ``random_unit``,
+    4)`` as ``ops/sweep.py``'s ``run_bracket`` does, for ``random_unit``
+    (under shard sampling each shard's ``fold_in`` of it),
     ``generate_candidates`` (around the PORT's fitted good KDE), the
     ``uniform >= random_fraction`` model mask, the fit's imputation
     uniforms and the forbidden-row redraws."""
@@ -427,6 +446,16 @@ class ReferenceDraws:
         return torch.from_numpy(
             np.array(self.ref.sweep.random_unit(self.codec, k_rand, n0))
         )
+
+    def stage0_shard(self, b_i, shard, n):
+        """Shard ``shard``'s block under shard sampling:
+        ``random_unit(fold_in(k_rand, shard), n)``, as the reference's
+        ``random_unit_sharded`` draws it."""
+        import jax
+
+        k_rand = self._bracket_keys(b_i)[0]
+        return torch.from_numpy(np.array(self.ref.sweep.random_unit(
+            self.codec, jax.random.fold_in(k_rand, shard), n)))
 
     def candidates(self, b_i, good, total):
         import jax.numpy as jnp
@@ -612,6 +641,8 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.parallel.batched_worker",
     "hpbandster_tpu_torch.parallel.chaos",
     "hpbandster_tpu_torch.parallel.dispatcher",
+    "hpbandster_tpu_torch.parallel.mesh",
+    "hpbandster_tpu_torch.parallel.multihost",
     "hpbandster_tpu_torch.parallel.rpc",
     "hpbandster_tpu_torch.serve",
     "hpbandster_tpu_torch.serve.continuous",
@@ -736,20 +767,35 @@ def test_scorer_refuses_unknown_devices():
 
 
 def test_unported_tiers_raise(tmp_path):
-    """What later slices port (meshes) raises ``NotImplementedError``
-    instead of silently running without one; the resident tier refuses,
-    with the reference's ``ValueError``, the tiers it cannot run on. The
-    host tier is ported: ``wal_path=`` journals and ``resume()`` replays,
-    and no ``NotImplementedError`` of the port names it."""
+    """What later slices port (the serving tier's lane meshes and the
+    sequence-parallel ring, ROADMAP A7b) raises ``NotImplementedError``
+    naming A7b instead of silently running without them; the config-axis
+    meshes are ported and run. The resident tier refuses, with the
+    reference's ``ValueError``, the tiers it cannot run on. The host tier
+    is ported: ``wal_path=`` journals and ``resume()`` replays, and no
+    ``NotImplementedError`` of the port names it."""
     from hpbandster_tpu_torch import FusedBOHB
     from hpbandster_tpu_torch.ops.sweep import build_space_codec, make_fused_sweep_fn
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
     from hpbandster_tpu_torch.workloads.toys import branin, branin_space
 
     codec = build_space_codec(branin_space())
-    for kw in ({"mesh": object()}, {"shard_sampling": True},
-               {"mesh": object(), "resident": True, "dynamic_counts": True}):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", **kw)
+    mesh = config_mesh(["cpu"] * 2)
+    plain = make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu")(5)
+    for kw in ({"mesh": mesh}, {"mesh": mesh, "resident": True, "dynamic_counts": True}):
+        got = make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", **kw)(5)
+        got = got if isinstance(got, list) else unstack_resident_outputs(got, 1)
+        assert len(got) == 2 and all(torch.isfinite(o.vectors).all() for o in got)
+    # a mesh alone places rows: the unmeshed sweep's values
+    for a, b in zip(plain, make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu",
+                                               mesh=mesh)(5)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError, match="requires a mesh"):
+        make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", shard_sampling=True)
+    sharded = make_fused_sweep_fn(
+        branin, [mesh_aligned_plan(18, 1, 9, 3, 2)], codec, device="cpu", mesh=mesh,
+        shard_sampling=True, incumbent_only=True)(5)
+    assert torch.isfinite(sharded.loss)
     with pytest.raises(ValueError, match="dynamic_counts"):
         make_fused_sweep_fn(branin, plans_for(2), codec, device="cpu", resident=True)
     for kw in ({"resident": True}, {"incumbent_only": True}):
@@ -788,21 +834,31 @@ def test_unported_tiers_raise(tmp_path):
     assert BOHB(executor=executor(), promotion_rule="asha",
                 **common).iteration_class is ASHAIteration
     from hpbandster_tpu_torch.ops.buckets import build_bucket_set
-    from hpbandster_tpu_torch.serve import ContinuousRunner, ServePool, make_lane_mesh
+    from hpbandster_tpu_torch.serve import (
+        ContinuousRunner,
+        MegaRunner,
+        ServePool,
+        make_lane_mesh,
+    )
+    from hpbandster_tpu_torch.workloads import transformer_forward_seq_parallel
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_bucket_set(plans_for(2), mesh_size=2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    assert all(w % 2 == 0 for b in build_bucket_set(plans_for(2), mesh_size=2).buckets
+               for w in b.widths)
+    x = np.random.default_rng(0).uniform(size=(9, 2)).astype(np.float32)
+    assert VmapBackend(branin, mesh=mesh).evaluate(x, 3.0).shape == (9,)
+    stages = make_fused_bracket_fn(branin, (9, 3), (1.0, 3.0), mesh=mesh)(x)
+    assert [len(i) for i, _ in stages] == [9, 3]
+    with pytest.raises(NotImplementedError, match="A7b"):
         make_lane_mesh(2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7b"):
         ServePool(VmapBackend(branin, device="cpu"), cs, continuous=True, lane_mesh=object())
     bucket = build_bucket_set(plans_for(2)).buckets[0]
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7b"):
         ContinuousRunner(branin, bucket, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        VmapBackend(branin, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        make_fused_bracket_fn(branin, (9, 3), (1.0, 3.0), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7b"):
+        MegaRunner(branin, bucket, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A7b"):
+        transformer_forward_seq_parallel({}, torch.zeros((1, 4), dtype=torch.long), None, "seq")
     hb = HyperBand(configspace=cs, run_id="unported", executor=executor(),
                    min_budget=1, max_budget=9, checkpoint_path=str(tmp_path / "c.pkl"))
     hb.run(n_iterations=1)
