@@ -206,7 +206,29 @@ Phases, each fatal on failure:
    ``TPUBatchedWorker(mesh="auto")`` reports the card) and
    ``multihost_one_rank`` (a one-rank NCCL group: the group's sweep equal
    to ``sharded_100k``'s, two shards in the group, gathered by NCCL, equal
-   to one process's; the group destroyed after). The
+   to one process's; the group destroyed after); then the serving tier's
+   lane meshes and the sequence-parallel ring, each path with its counts
+   reset and read the same way: ``serve_lane_mesh`` (``serve_continuous``
+   with ``lane_mesh=make_lane_mesh(2, devices=[card] * 4)``: its gates,
+   every lane program on the mesh and captured, at most one graph per
+   family, each tenant equal to ``serve_continuous``'s bit for bit),
+   ``serve_megabatch_mesh`` (``serve_megabatch`` over ``VmapBackend(
+   mesh=config_mesh([card] * 2))``: even bucket widths, every program on
+   the mesh, each tenant equal to ``serve_megabatch``'s bit for bit),
+   ``serve_lane_telemetry`` (packed and lane-meshed continuous runners with
+   ``device_metrics=True`` on the toy schedule's bracket shapes: one
+   ``device_telemetry`` record per member lane, each equal to the solo
+   bucketed record, the stages equal to the solo dispatch's),
+   ``ring_attention`` (512 positions per shard, 4 heads of 64, rings of 4
+   and 8 shards of the card; forward and backward, contiguous and
+   striped, float32 and bfloat16 products, held to dense attention on
+   the card; the ms of one forward and backward against dense attention's
+   and the peak memory of each), ``transformer_seq_parallel`` (the
+   default ``TransformerConfig`` on 2 shards and ``prefix_len=1024`` on 4:
+   logits within 5e-2 of ``transformer_forward``, gradients within a
+   relative norm of 0.08) and ``ring_one_rank`` (a one-rank NCCL group: the
+   process-group form of the ring and of the transformer, its gradients
+   summed by NCCL, equal to one process's bit for bit). The
    launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
@@ -243,7 +265,7 @@ Phases, each fatal on failure:
    the bucketed run must equal the same run with
    ``bucket_brackets=False`` bit for bit, and each serving tenant its own
    seed run alone in a ``ServePool(pack_window_s=0.0)`` on the same
-   objective; ``rpc_batched`` must equal the in-process run over
+   objective (``serve_lane_mesh``'s tenants too); ``rpc_batched`` must equal the in-process run over
    ``VmapBackend`` with fusion off, ``rpc_teacher`` the in-process batched
    run with one worker and fusion off, each ``serve_frontend`` tenant its
    solo ``TenantMaster`` run and the warm resubmission the in-process warm
@@ -385,7 +407,15 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "resident_sharded": {"kde_score": 0, "kde_moments": 0},
                       "sharded_model": {"kde_score": 40, "kde_moments": 40},
                       "fused_mesh": {"kde_score": 76, "kde_moments": 40},
-                      "multihost_one_rank": {"kde_score": 0, "kde_moments": 0}}
+                      "multihost_one_rank": {"kde_score": 0, "kde_moments": 0},
+                      # per-lane telemetry on synthetic members (no model),
+                      # the ring and the sequence-parallel transformer: no
+                      # KDE; the lane-meshed serving paths count their
+                      # tenants' model waves
+                      "serve_lane_telemetry": {"kde_score": 0, "kde_moments": 0},
+                      "ring_attention": {"kde_score": 0, "kde_moments": 0},
+                      "transformer_seq_parallel": {"kde_score": 0, "kde_moments": 0},
+                      "ring_one_rank": {"kde_score": 0, "kde_moments": 0}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -1989,10 +2019,10 @@ def check_bucketed_parity(torch, dev, n_iterations=10):
     print("batched_bohb_bucketed compare " + json.dumps(rec), flush=True)
 
 
-def serve_pool(dev, objective, space, **kw):
+def serve_pool(dev, objective, space, mesh=None, **kw):
     import hpbandster_tpu_torch as h
 
-    return h.ServePool(h.VmapBackend(objective, device=dev), space, **kw)
+    return h.ServePool(h.VmapBackend(objective, mesh=mesh, device=dev), space, **kw)
 
 
 def bracket_quantum(max_budget, n_iterations):
@@ -2114,11 +2144,12 @@ def serve_tenant_checks(torch, dev, label, opts, results, max_budget, n_iteratio
     return out
 
 
-def drive_serve(torch, dev, label, continuous, n_iterations=10):
+def drive_serve(torch, dev, label, continuous, n_iterations=10, mesh=None, lane_mesh=None):
     """4 ``BOHB`` tenants (seeds 0-3) at the toy setting on Hartmann-6
     through one ``ServePool`` (``pack_window_s=0.05``, a scheduler quantum
     of one bracket's cost; megabatched, or ``continuous=True,
-    lane_count=8``), each in its own thread, the
+    lane_count=8``; ``mesh`` meshes the backend, ``lane_mesh`` the lane
+    programs), each in its own thread, the
     background precompile overlapping their stage-0 sampling. Gates: each
     tenant's runs per budget and incumbent, the scorer launches equal to
     the model waves over the tenants' Results, the precompile overlapping
@@ -2129,9 +2160,9 @@ def drive_serve(torch, dev, label, continuous, n_iterations=10):
     from hpbandster_tpu_torch.workloads import toys
 
     objective = fresh_objective(toys.hartmann6)
-    pool = serve_pool(dev, objective, toys.hartmann6_space(seed=0), pack_window_s=0.05,
-                      continuous=continuous, lane_count=8,
-                      scheduler=bracket_quantum(81.0, n_iterations))
+    pool = serve_pool(dev, objective, toys.hartmann6_space(seed=0), mesh=mesh,
+                      pack_window_s=0.05, continuous=continuous, lane_count=8,
+                      lane_mesh=lane_mesh, scheduler=bracket_quantum(81.0, n_iterations))
     before = capture_counts()
     # continuous: the lanes' events and the live detectors' journal
     with (live_detectors(label) if continuous else contextlib.nullcontext({})) as live, \
@@ -4943,6 +4974,400 @@ def drive_multihost_one_rank(torch, dev, n_configs=2**17):
     return first
 
 
+# ------------------------------------------ lane meshes, telemetry, the ring
+#: the ring's shapes at ``examples/example_12_long_context_ring.py``'s
+#: width: (shards of the card, positions per shard); 4 heads of 64
+RING_SHAPES = ((4, 512), (8, 512))
+RING_HEADS, RING_HEAD_DIM = 4, 64
+#: the ring against dense attention: float32 products, and bfloat16
+#: products against float32 dense attention (``tests/test_ring_attention.py``)
+RING_F32_ATOL, RING_F32_RTOL = 2e-5, 2e-4
+RING_BF16_TOL = 5e-2
+#: the sequence-parallel transformer against the local forward: logits, and
+#: the relative norm of each gradient's difference
+#: (``tests/test_transformer_workload.py``)
+SEQ_PARALLEL_LOGITS_TOL = 5e-2
+SEQ_PARALLEL_GRAD_REL = 0.08
+#: timed repeats of a ring or dense forward and backward
+RING_REPEATS = 5
+
+
+def same_runs_as(label, results, twin):
+    """Every tenant of a serving path equals its tenant of ``twin``'s run
+    bit for bit (runs and configurations)."""
+    _, _, want, _ = SERVE_RUNS[twin]
+    for t, res in results.items():
+        got, exp = _runs(res), _runs(want[t])
+        if got != exp:
+            diff = sorted(k for k in set(got) | set(exp) if got.get(k) != exp.get(k))
+            raise AssertionError(f"{label}: tenant {t}: {len(diff)} runs differ from {twin}, "
+                                 f"first {diff[:3]}")
+    print(f"{label} compare " + json.dumps(dict(twin=twin, equal_bitwise=True,
+                                                tenants=sorted(results))), flush=True)
+
+
+def drive_serve_lane_mesh(torch, dev):
+    """``serve_continuous``'s setting (4 ``BOHB`` tenants, Hartmann-6, 10
+    brackets, ``bench.py:741``) with ``lane_mesh=make_lane_mesh(2,
+    devices=[card] * 4)``: lanes split over two lane shards, each lane's
+    rows over two config shards, all on the card. Gated as
+    ``serve_continuous`` (each family's graph captured once, at most one
+    per bucket), every lane program on the lane mesh and captured, and
+    each tenant equal to ``serve_continuous``'s bit for bit (its solo run
+    in phase 5)."""
+    from hpbandster_tpu_torch.serve import make_lane_mesh
+
+    lane_mesh = make_lane_mesh(2, devices=[dev] * 4)
+    before = capture_counts()["continuous_bracket"]
+    results = drive_serve(torch, dev, "serve_lane_mesh", continuous=True, lane_mesh=lane_mesh)
+    pool = SERVE_RUNS["serve_lane_mesh"][0]
+    captured = capture_counts()["continuous_bracket"] - before
+    runners = list(pool._continuous_runners.values())
+    if not 1 <= captured <= len(pool._bucket_set.buckets) or any(
+            r.mesh is not lane_mesh or r.program.graph is None for r in runners):
+        raise AssertionError(f"serve_lane_mesh: {captured} graphs for "
+                             f"{len(pool._bucket_set.buckets)} families, meshes "
+                             f"{[r.mesh for r in runners]}")
+    same_runs_as("serve_lane_mesh", results, "serve_continuous")
+    return results
+
+
+def drive_serve_megabatch_mesh(torch, dev):
+    """``serve_megabatch``'s setting over ``VmapBackend(mesh=config_mesh(
+    [card] * 2))``: the pool pads its bucket set to the mesh axis (even
+    widths), every solo and packed program it ran lies on the mesh (lanes,
+    and a solo bracket's rows, split over it), and each tenant equals
+    ``serve_megabatch``'s bit for bit."""
+    from hpbandster_tpu_torch.parallel.mesh import config_mesh
+
+    mesh = config_mesh([dev] * 2)
+    results = drive_serve(torch, dev, "serve_megabatch_mesh", continuous=False, mesh=mesh)
+    pool = SERVE_RUNS["serve_megabatch_mesh"][0]
+    widths = [list(b.widths) for b in pool._bucket_set.buckets]
+    programs = pool.programs()
+    if any(w % 2 for ws in widths for w in ws) or not programs or any(
+            r.mesh is not mesh for r in programs):
+        raise AssertionError(f"serve_megabatch_mesh: widths {widths}, program meshes "
+                             f"{[getattr(r, 'mesh', None) for r in programs]}")
+    same_runs_as("serve_megabatch_mesh", results, "serve_megabatch")
+    return results
+
+
+def telemetry_records(run):
+    """``run()``'s result and the ``device_telemetry`` records it put on the
+    bus, timing fields dropped."""
+    from hpbandster_tpu_torch import obs
+
+    timing = {"t_wall", "t_mono", "host", "pid", "trace_id"}
+    recs = []
+    detach = obs.get_bus().subscribe(lambda ev: recs.append(
+        {k: v for k, v in ev.fields.items() if k not in timing})
+        if ev.name == "device_telemetry" else None)
+    try:
+        out = run()
+    finally:
+        detach()
+    return out, recs
+
+
+def drive_serve_lane_telemetry(torch, dev, per_shape=3):
+    """Both lane kinds with ``device_metrics=True`` on the toy schedule's
+    bracket shapes (Hartmann-6, budgets 1..81, 5 brackets; ``per_shape``
+    seeded members of each fusable shape): per bucket one packed dispatch
+    (``make_mega_runner``, 8 lanes) and one chunk of a continuous runner
+    on ``make_lane_mesh(2, [card] * 4)`` (8 lanes). Each emits one
+    ``device_telemetry`` record per member lane, none for a masked lane,
+    each equal to the member's solo bucketed record, with the stages equal
+    to the solo dispatch's bit for bit."""
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+    from hpbandster_tpu_torch.ops.buckets import build_bucket_set, make_bucketed_bracket_fn
+    from hpbandster_tpu_torch.serve import (
+        ContinuousRunner,
+        PackEntry,
+        make_lane_mesh,
+        make_mega_runner,
+    )
+    from hpbandster_tpu_torch.workloads import toys
+
+    t0 = time.perf_counter()
+    objective = fresh_objective(toys.hartmann6)
+    plans = [p for p in (hyperband_bracket(i, 1.0, 81.0, 3.0) for i in range(5))
+             if len(p.num_configs) >= 2]
+    bucket_set = build_bucket_set(plans, mesh_size=2)
+    lane_mesh = make_lane_mesh(2, devices=[dev] * 4)
+    rng = np.random.default_rng(0)
+    by_bucket = {}
+    for plan in plans:
+        bi, entry = bucket_set.lookup(plan.num_configs, plan.budgets)
+        for m in range(per_shape):
+            vectors = rng.uniform(size=(plan.num_configs[0], 6)).astype(np.float32)
+            by_bucket.setdefault(bi, []).append(
+                PackEntry(f"s{len(plan.num_configs)}m{m}", vectors, plan, entry))
+    rec = dict(buckets=len(bucket_set.buckets), members=0, records={"megabatch": 0,
+                                                                    "continuous": 0})
+    for bi, entries in sorted(by_bucket.items()):
+        bucket = bucket_set.buckets[bi]
+        solo = make_bucketed_bracket_fn(objective, bucket, device=dev, device_metrics=True)
+        want = [telemetry_records(lambda e=e: solo.run_member(e.vectors, e.plan, e.entry))
+                for e in entries]
+        mega = make_mega_runner(objective, bucket, pack_width=8, device=dev,
+                                device_metrics=True)
+        lanes = ContinuousRunner(objective, bucket, lane_count=8, mesh=lane_mesh,
+                                 device_metrics=True)
+        for kind, run in (("megabatch", lambda: mega.run_packed(entries, d=6)),
+                          ("continuous", lambda: lanes.run_chunk(entries, d=6))):
+            out, recs = telemetry_records(run)
+            if len(recs) != len(entries) or any(
+                    r != w_recs[0] for r, (_, w_recs) in zip(recs, want)):
+                raise AssertionError(f"serve_lane_telemetry {kind}: {len(recs)} records for "
+                                     f"{len(entries)} members, or a record differs from the "
+                                     "solo bucketed one")
+            for member, (stages, _) in zip(out, want):
+                if any(not (np.array_equal(i, wi) and np.array_equal(loss, wl, equal_nan=True))
+                       for (i, loss), (wi, wl) in zip(member, stages)):
+                    raise AssertionError(f"serve_lane_telemetry {kind}: a member's stages "
+                                         "differ from its solo dispatch")
+            rec["records"][kind] += len(recs)
+        rec["members"] += len(entries)
+    torch.cuda.synchronize(dev)
+    rec.update(wall_s=time.perf_counter() - t0, equal_solo_records=True, card=card_line())
+    print("serve_lane_telemetry path " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _fwd_bwd(fn, inputs, cotangent):
+    """``fn`` on fresh leaves of ``inputs`` and its backward of
+    ``cotangent``: ``[out, *grads]``."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    out.backward(cotangent)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+def _timed_fwd_bwd(torch, dev, fn, inputs, cotangent):
+    """CUDA-event milliseconds of one forward and backward (median of
+    ``RING_REPEATS`` after a warm-up), and its peak reserved and allocated
+    bytes from an emptied cache."""
+    _fwd_bwd(fn, inputs, cotangent)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms = []
+    for _ in range(RING_REPEATS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _fwd_bwd(fn, inputs, cotangent)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms)), dict(
+        peak_reserved_bytes=int(torch.cuda.max_memory_reserved(dev)),
+        peak_allocated_above_inputs_bytes=int(torch.cuda.max_memory_allocated(dev)) - base)
+
+
+def _held(name, got, want, atol, rtol):
+    """Max abs error of each of ``got`` against ``want`` (out, dq, dk,
+    dv), raising past ``atol + rtol * |want|``."""
+    errs = {}
+    for part, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs()
+        if not bool((err <= atol + rtol * b.float().abs()).all()):
+            raise AssertionError(f"{name} {part}: max abs err {float(err.max())} past "
+                                 f"atol {atol} rtol {rtol}")
+        errs[part] = float(err.max())
+    return errs
+
+
+def drive_ring_attention(torch, dev):
+    """Ring attention at ``examples/example_12_long_context_ring.py``'s
+    width (512 positions per shard, 4 heads of 64) on rings of 4 and 8
+    shards of the card (T = 2048 and 4096): forward and backward (a seeded
+    cotangent), contiguous and striped, float32 and bfloat16 products.
+    Held to plain dense attention on the card (``dense_attention``, float32)
+    on values and dq, dk, dv: float32 within ``RING_F32_ATOL`` +
+    ``RING_F32_RTOL`` * |dense|, bfloat16 within ``RING_BF16_TOL`` both
+    ways. Prints the ms of one forward and backward against the dense
+    version's and the peak memory of each."""
+    from hpbandster_tpu_torch.ops.ring_attention import (
+        dense_attention,
+        make_ring_attention,
+        seq_mesh,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for shards, per_shard in RING_SHAPES:
+        t = shards * per_shard
+        q, k, v, co = (torch.randn((t, RING_HEADS, RING_HEAD_DIM), generator=gen, device=dev)
+                       for _ in range(4))
+        dense_fn = lambda a, b, c: dense_attention(a, b, c)  # noqa: E731
+        want = _fwd_bwd(dense_fn, (q, k, v), co)
+        dense_ms, dense_mem = _timed_fwd_bwd(torch, dev, dense_fn, (q, k, v), co)
+        mesh = seq_mesh([dev] * shards)
+        for striped in (False, True):
+            for dtype, atol, rtol in ((torch.float32, RING_F32_ATOL, RING_F32_RTOL),
+                                      (torch.bfloat16, RING_BF16_TOL, RING_BF16_TOL)):
+                fn = make_ring_attention(mesh, striped=striped, compute_dtype=dtype)
+                label = f"ring_attention T={t} P={shards} striped={striped} {dtype}"
+                errs = _held(label, _fwd_bwd(fn, (q, k, v), co), want, atol, rtol)
+                ms, mem = _timed_fwd_bwd(torch, dev, fn, (q, k, v), co)
+                row = dict(t=t, shards=shards, heads=RING_HEADS, head_dim=RING_HEAD_DIM,
+                           striped=striped, compute_dtype=str(dtype).split(".")[-1],
+                           max_abs_err=errs, fwd_bwd_ms=ms, dense_fwd_bwd_ms=dense_ms,
+                           **mem, **{f"dense_{k_}": v_ for k_, v_ in dense_mem.items()},
+                           card=card_line())
+                print("ring_attention run " + json.dumps(row), flush=True)
+                rows.append(row)
+    rec = dict(wall_s=time.perf_counter() - t0, cases=len(rows), card=card_line())
+    print("ring_attention path " + json.dumps(rec), flush=True)
+    return rows
+
+
+def _seq_parallel_grads(torch, dev, forward, unit, tokens):
+    """Logits of ``forward(params, tokens)`` over two lanes (init scales 1
+    and 0.7) and each parameter's gradient of ``mean(logits^2)``."""
+    from hpbandster_tpu_torch.ops.fused import tree_map
+    from hpbandster_tpu_torch.workloads import transformer as tfm
+
+    params = tree_map(lambda p: p.detach().clone().requires_grad_(),
+                      tfm.init_transformer_params(unit, torch.tensor([1.0, 0.7], device=dev)))
+    logits = forward(params, tokens)
+    (logits ** 2).mean().backward()
+    return logits.detach(), params
+
+
+def drive_transformer_seq_parallel(torch, dev):
+    """``transformer_forward_seq_parallel`` against ``transformer_forward``
+    (two lanes of seeded weights, two sequences): the default
+    ``TransformerConfig`` (T = 62) on 2 shards of the card and
+    ``prefix_len=1024`` (T = 2048) on 4. Logits within
+    ``SEQ_PARALLEL_LOGITS_TOL``; every gradient the reference's test
+    checks (embeddings, head, final norm, layer 0's weights) within a
+    relative norm of ``SEQ_PARALLEL_GRAD_REL``. Prints each forward and
+    backward's wall and peak memory."""
+    from hpbandster_tpu_torch.ops.ring_attention import seq_mesh
+    from hpbandster_tpu_torch.workloads import transformer as tfm
+
+    t0 = time.perf_counter()
+    rows = []
+    for label, cfg, shards in (("default", tfm.TransformerConfig(), 2),
+                               ("prefix_1024", tfm.TransformerConfig(prefix_len=1024), 4)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        unit = tfm.draw_transformer_unit_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab + 1, (2, cfg.seq_len - 1), generator=gen,
+                               device=dev)
+        mesh = seq_mesh([dev] * shards)
+        row = dict(label=label, t=cfg.seq_len - 1, shards=shards)
+        out = {}
+        for name, forward in (
+                ("ring", lambda p, tk: tfm.transformer_forward_seq_parallel(p, tk, cfg, mesh)),
+                ("local", lambda p, tk: tfm.transformer_forward(p, tk, cfg))):
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t1 = time.perf_counter()
+            out[name] = _seq_parallel_grads(torch, dev, forward, unit, tokens)
+            torch.cuda.synchronize(dev)
+            row[f"{name}_fwd_bwd_s"] = time.perf_counter() - t1
+            row[f"{name}_peak_reserved_bytes"] = int(torch.cuda.max_memory_reserved(dev))
+        (ring_logits, p_ring), (local_logits, p_local) = out["ring"], out["local"]
+        err = (ring_logits - local_logits).abs()
+        if not bool((err <= SEQ_PARALLEL_LOGITS_TOL * (1 + local_logits.abs())).all()):
+            raise AssertionError(f"transformer_seq_parallel {label}: logits max abs err "
+                                 f"{float(err.max())}")
+        rel = {}
+        for name in ("tok_emb", "pos_emb", "head", "ln_f") + tuple(
+                f"l0.{w}" for w in ("wq", "wk", "wv", "wo", "w1", "w2")):
+            a, b = p_ring, p_local
+            for part in name.split("."):
+                a, b = a[part], b[part]
+            ga, gb = a.grad.double(), b.grad.double()
+            rel[name] = float((ga - gb).norm() / max(float(gb.norm()), 1e-6))
+            if not rel[name] < SEQ_PARALLEL_GRAD_REL:
+                raise AssertionError(f"transformer_seq_parallel {label}: {name} relative "
+                                     f"grad error {rel[name]:.4f}")
+        row.update(logits_max_abs_err=float(err.max()), grad_rel_err=rel, card=card_line())
+        print("transformer_seq_parallel run " + json.dumps(row), flush=True)
+        rows.append(row)
+    print("transformer_seq_parallel path " + json.dumps(dict(
+        wall_s=time.perf_counter() - t0, card=card_line())), flush=True)
+    return rows
+
+
+def drive_ring_one_rank(torch, dev, shards=4, per_shard=512):
+    """The process-group form in a one-rank NCCL group: the ring over
+    ``seq_mesh([card] * 4, process_group=WORLD)`` (each rank's blocks: here
+    all four) equals the one-process ring bit for bit, values and grads;
+    the sequence-parallel transformer over the group (its parameter
+    gradients summed over the ranks by an NCCL ``all_reduce``) equals the
+    one-process run bit for bit. NCCL refuses a send to oneself, so no
+    block crosses the group here; two ranks' sends run over gloo in the
+    CPU tests. The group is destroyed before the script goes on."""
+    import socket
+
+    import torch.distributed as dist
+    from hpbandster_tpu_torch.ops.fused import tree_leaves
+    from hpbandster_tpu_torch.ops.ring_attention import (
+        make_ring_attention,
+        ring_attention_block,
+        seq_mesh,
+    )
+    from hpbandster_tpu_torch.parallel.multihost import initialize_multihost
+    from hpbandster_tpu_torch.workloads import transformer as tfm
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    if initialize_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=60) != 0:
+        raise AssertionError("ring_one_rank: not rank 0")
+    try:
+        backend = dist.get_backend()
+        group_mesh = seq_mesh([dev] * shards, process_group=dist.group.WORLD)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t = shards * per_shard
+        q, k, v, co = (torch.randn((t, RING_HEADS, RING_HEAD_DIM), generator=gen, device=dev)
+                       for _ in range(4))
+        for striped in (False, True):
+            one = make_ring_attention(seq_mesh([dev] * shards), striped=striped,
+                                      compute_dtype=torch.float32)
+            want = _fwd_bwd(one, (q, k, v), co)
+            layout = torch.arange(t, device=dev)
+            if striped:
+                layout = layout.reshape(per_shard, shards).T.reshape(-1)
+            got = _fwd_bwd(lambda a, b, c: ring_attention_block(
+                a[layout], b[layout], c[layout], group_mesh, striped=striped,
+                compute_dtype=torch.float32), (q, k, v), co[layout])
+            natural = torch.empty_like(layout)
+            natural[layout] = torch.arange(t, device=dev)
+            if not (same_bits(torch, got[0][natural], want[0]) and all(
+                    same_bits(torch, g, w) for g, w in zip(got[1:], want[1:]))):
+                raise AssertionError(f"ring_one_rank striped={striped}: the group's ring "
+                                     "differs from one process's")
+        cfg = tfm.TransformerConfig()
+        unit = tfm.draw_transformer_unit_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab + 1, (2, cfg.seq_len - 1), generator=gen,
+                               device=dev)
+        runs = [_seq_parallel_grads(torch, dev, lambda p, tk, m=m: (
+            tfm.transformer_forward_seq_parallel(p, tk, cfg, m)), unit, tokens)
+            for m in (seq_mesh([dev] * 2, process_group=dist.group.WORLD),
+                      seq_mesh([dev] * 2))]
+        (g_logits, g_params), (o_logits, o_params) = runs
+        if not same_bits(torch, g_logits, o_logits) or not all(
+                same_bits(torch, a.grad, b.grad)
+                for a, b in zip(tree_leaves(g_params), tree_leaves(o_params))):
+            raise AssertionError("ring_one_rank: the group's transformer differs from one "
+                                 "process's")
+    finally:
+        dist.destroy_process_group()
+    rec = dict(backend=backend, wall_s=time.perf_counter() - t0, ring_equal_bitwise=True,
+               transformer_equal_bitwise=True, card=card_line())
+    print("ring_one_rank path " + json.dumps(rec), flush=True)
+    return rec
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from hpbandster_tpu_torch.ops import _build
@@ -5094,6 +5519,14 @@ def main(argv=None) -> int:
         "fused_mesh": drive_fused_mesh,
         "batched_mesh": drive_batched_mesh,
         "multihost_one_rank": drive_multihost_one_rank,
+        # the serving tier's lane meshes and per-lane telemetry, the
+        # sequence-parallel ring
+        "serve_lane_mesh": drive_serve_lane_mesh,
+        "serve_megabatch_mesh": drive_serve_megabatch_mesh,
+        "serve_lane_telemetry": drive_serve_lane_telemetry,
+        "ring_attention": drive_ring_attention,
+        "transformer_seq_parallel": drive_transformer_seq_parallel,
+        "ring_one_rank": drive_ring_one_rank,
     }
     launches, recorded, results, seconds = {}, [], {}, {}
     for path, drive in paths.items():
@@ -5150,6 +5583,7 @@ def main(argv=None) -> int:
     check_bucketed_parity(torch, dev)
     check_serve_parity(torch, dev, "serve_megabatch")
     check_serve_parity(torch, dev, "serve_continuous")
+    check_serve_parity(torch, dev, "serve_lane_mesh")
     check_rpc_batched_parity(torch, dev)
     check_rpc_teacher_parity(torch, dev)
     check_serve_frontend_parity(torch, dev)

@@ -328,6 +328,7 @@ def _lane_telemetry(stages, counts, edges):
 def fused_sh_bracket_bucketed_packed(
     eval_fn: Callable, vectors: torch.Tensor, counts: torch.Tensor,
     bucket: BucketPlan, telemetry_edges: Optional[torch.Tensor] = None,
+    mesh=None, axis: str = "config",
 ):
     """A lane-packed stack of bucketed brackets: ``vectors f32[P, W0, d]``
     and integer ``counts [P, depth]``, ``P`` member brackets of the same
@@ -337,8 +338,9 @@ def fused_sh_bracket_bucketed_packed(
     the solo runner's flat layout with a lane axis; with ``telemetry_edges``
     (the metrics plane's bin edges on the device) also per-lane ``(hist,
     crashes)``. An all-zero-count lane is padding: evaluated, carried by
-    the identity slice, never reported."""
-    stages = _bucketed_lanes(eval_fn, vectors, counts, bucket)
+    the identity slice, never reported. ``mesh``/``axis`` split each
+    stage's evaluation over that axis, as for the solo bracket."""
+    stages = _bucketed_lanes(eval_fn, vectors, counts, bucket, mesh, axis)
     idx, loss = _flat(stages)
     if telemetry_edges is None:
         return idx, loss
@@ -348,7 +350,7 @@ def fused_sh_bracket_bucketed_packed(
 def fused_sh_bracket_bucketed_packed_carry(
     eval_fn: Callable, vectors: torch.Tensor, counts: torch.Tensor,
     carry: torch.Tensor, reset: torch.Tensor, bucket: BucketPlan,
-    telemetry_edges: Optional[torch.Tensor] = None,
+    telemetry_edges: Optional[torch.Tensor] = None, mesh=None, axis: str = "config",
 ):
     """The carried lane-packed kernel, the continuous-batching tier's
     program (``serve/continuous.py``): the lanes of
@@ -359,8 +361,9 @@ def fused_sh_bracket_bucketed_packed_carry(
     rank)``, NaN ranking at the crash constant and rows past the lane's
     final count at +inf, so an empty lane's carry passes through. Returns
     ``((idx, losses), new_carry)``, and the per-lane telemetry third with
-    ``telemetry_edges``."""
-    stages = _bucketed_lanes(eval_fn, vectors, counts, bucket)
+    ``telemetry_edges``. ``mesh``/``axis`` split each stage's evaluation
+    over that axis (a lane mesh's config axis)."""
+    stages = _bucketed_lanes(eval_fn, vectors, counts, bucket, mesh, axis)
     f_loss = stages[-1][1]
     valid = torch.arange(bucket.widths[-1], device=f_loss.device)[None, :] < counts[:, -1:]
     rank = torch.where(torch.isnan(f_loss),
@@ -469,6 +472,14 @@ def unpack_flat(flat: np.ndarray, widths: Sequence[int]) -> List[Tuple[np.ndarra
         out.append((idx_flat[off:off + w], loss_flat[off:off + w]))
         off += w
     return out
+
+
+def fetch_telemetry(hist: torch.Tensor, crashes: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """A dispatch's telemetry (histograms and crash counts) on the host,
+    counted as two buffers."""
+    hist, crashes = hist.cpu().numpy(), crashes.cpu().numpy()
+    note_transfer("d2h", hist.nbytes + crashes.nbytes, buffers=2)
+    return hist, crashes
 
 
 def _packed_row(idx: torch.Tensor, losses: torch.Tensor) -> torch.Tensor:
@@ -661,8 +672,7 @@ class _BucketRunner:
             return unpack_flat(fetch_packed(packed), self.bucket.widths)
         (row, hist, crashes), counts = packed
         out = unpack_flat(fetch_packed(row), self.bucket.widths)
-        hist, crashes = hist.cpu().numpy(), crashes.cpu().numpy()
-        note_transfer("d2h", hist.nbytes + crashes.nbytes, buffers=2)
+        hist, crashes = fetch_telemetry(hist, crashes)
         _publish_member_telemetry(hist, crashes, counts, self.bucket.budgets, out)
         return out
 

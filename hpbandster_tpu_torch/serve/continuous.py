@@ -27,8 +27,19 @@ released lane a ``lane_released`` one (warm re-boardings are silent), each
 fetched chunk a span-shaped ``serve_chunk`` record, and the
 ``serve.continuous.{joins,leaves,chunks,masked_lanes}`` counters and
 ``serve.family.<f>.{chunks,warm_age_s,lanes_occupied,lanes_starved}``
-gauges follow the lanes, as in the reference. Its 2-D lane x config mesh
-(``make_lane_mesh``, ``mesh=``) waits for ROADMAP A7b, the lane meshes.
+gauges follow the lanes, as in the reference. With the device metrics plane
+on (``device_metrics=``, default ``HPB_DEVICE_METRICS``) the chunk also
+returns each lane's loss histograms and crash counts, and the fetch
+publishes one decoded ``device_telemetry`` record per occupied lane.
+
+Over a 2-D ``lane x config`` mesh (:func:`make_lane_mesh`, ``mesh=``) whole
+lanes split over the ``lane`` axis and each lane's rows over the
+``config`` axis: lane shard ``s`` runs its block of lanes (vectors, counts,
+carry and reset mask) on its device, each stage's rows split over its row
+of the config axis, and the blocks gather back on the mesh's home device,
+where the carry stays in one tensor (ROADMAP C.25). A mesh that repeats
+one card captures the family's one graph as before; a mesh over several
+cards runs the chunk eagerly. A lane mesh lies in one process.
 """
 
 from __future__ import annotations
@@ -47,20 +58,59 @@ from hpbandster_tpu_torch.ops.buckets import (
     StaticProgram,
     _packed_row,
     fetch_packed,
+    fetch_telemetry,
     fused_sh_bracket_bucketed_packed_carry,
     member_counts_for,
 )
 from hpbandster_tpu_torch.ops.sweep import decode_lane_state, init_lane_state
-from hpbandster_tpu_torch.serve.megabatch import PackEntry, demux
+from hpbandster_tpu_torch.serve.megabatch import PackEntry, demux, publish_lane_telemetry
 
 __all__ = ["ContinuousRunner", "LaneAllocator", "make_lane_mesh"]
 
 
 def make_lane_mesh(lane_shards: int, devices=None):
-    """The reference's 2-D ``lane x config`` mesh: not ported yet."""
-    raise NotImplementedError(
-        "make_lane_mesh is not ported yet (ROADMAP A7b: the serving tier's lane "
-        "meshes)")
+    """The 2-D ``lane x config`` mesh of a continuous-batching program:
+    ``lane_shards`` rows of whole lanes, the rest of the devices splitting
+    each lane's rows. Over ``devices`` (which may repeat one), or every
+    visible card without them (raises where there is none);
+    ``lane_shards`` must divide the device count."""
+    from hpbandster_tpu_torch.parallel.mesh import Mesh, _object_array, _visible_cuda
+
+    devices = list(devices) if devices is not None else _visible_cuda()
+    n, lane_shards = len(devices), int(lane_shards)
+    if lane_shards < 1 or n % lane_shards:
+        raise ValueError(f"lane_shards={lane_shards} must divide the {n} devices")
+    return Mesh(_object_array(devices, (lane_shards, n // lane_shards)), ("lane", "config"))
+
+
+def _lane_shards(mesh, lane_axis: str, config_axis: str):
+    """The lane axis's split of a lane mesh (a ``parallel.mesh.RowSplit``
+    over the lane shards' first devices, which run their lanes) and, per
+    lane shard, its row of the config axis as a 1-D mesh (None when the
+    config axis has one shard), which splits each stage's rows."""
+    from hpbandster_tpu_torch.parallel.mesh import (
+        Mesh,
+        RowSplit,
+        _by_shard,
+        _object_array,
+        shard_count,
+    )
+
+    if mesh.process_group is not None:
+        raise ValueError("a lane mesh lies in one process; got a mesh over a process group")
+    extra = set(mesh.axis_names) - {lane_axis, config_axis}
+    if extra:
+        raise ValueError(f"a lane mesh has the axes {lane_axis!r} and {config_axis!r} only, "
+                         f"got {mesh.axis_names}")
+    flat = list(mesh.devices.flat)
+    rows = [[flat[p] for p in row] for row in (
+        _by_shard(mesh, lane_axis) if lane_axis in mesh.axis_names
+        else np.arange(mesh.size)[None])]
+    split = RowSplit(n_shards=len(rows), devices=tuple(r[0] for r in rows), owners=None,
+                     group=None)
+    subs = [Mesh(_object_array(r, (len(r),)), (config_axis,))
+            if shard_count(mesh, config_axis) > 1 else None for r in rows]
+    return split, subs
 
 
 class LaneAllocator:
@@ -148,16 +198,21 @@ class ContinuousRunner:
     device-resident per-lane incumbent carry and its lane allocator.
     :meth:`run_chunk` is one iteration: occupied lanes evaluate their
     brackets, empty lanes are masked (their carries pass through), and the
-    carry stays on the device for the next chunk."""
+    carry stays on the device for the next chunk. On a lane mesh
+    (``mesh=``) ``lane_count`` must be a multiple of the ``lane_axis`` size
+    and the bucket's widths multiples of the ``config_axis`` size."""
 
     def __init__(self, eval_fn: Callable, bucket: BucketPlan, lane_count: int = 8,
-                 mesh=None, family: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousRunner(mesh=...) is not ported yet (ROADMAP A7b: the "
-                "serving tier's lane meshes)")
+                 mesh=None, lane_axis: str = "lane", config_axis: str = "config",
+                 family: int = 0, device=None, device_metrics: Optional[bool] = None):
+        from hpbandster_tpu_torch.obs.device_metrics import bin_edges, device_metrics_default
+        from hpbandster_tpu_torch.parallel.mesh import mesh_device, shard_count, single_device
+
         self.bucket = bucket
         self.lane_count = int(lane_count)
+        self.mesh = mesh
+        self.lane_axis = lane_axis
+        self.config_axis = config_axis
         self.family = int(family)
         self.lanes = LaneAllocator(self.lane_count)
         self._lock = threading.Lock()
@@ -166,22 +221,57 @@ class ContinuousRunner:
         #: masked lanes of the last chunk while same-family items waited
         #: for a later chunk (0 by construction)
         self._last_starved = 0
+        self.device_metrics = (device_metrics_default() if device_metrics is None
+                               else bool(device_metrics))
+        split = subs = None
+        if mesh is not None:
+            lane_size = shard_count(mesh, lane_axis)
+            if lane_size > 1 and self.lane_count % lane_size:
+                raise ValueError(f"lane_count {self.lane_count} must be a multiple of the "
+                                 f"{lane_axis!r} mesh axis ({lane_size})")
+            cfg_size = shard_count(mesh, config_axis)
+            if cfg_size > 1 and any(w % cfg_size for w in bucket.widths):
+                raise ValueError(f"bucket widths {bucket.widths} must be multiples of the "
+                                 f"{config_axis!r} mesh axis ({cfg_size}): build the bucket "
+                                 "set with mesh_size set to it")
+            split, subs = _lane_shards(mesh, lane_axis, config_axis)
+            device = mesh_device(mesh) if device is None else device
         n, w0, depth = self.lane_count, bucket.widths[0], bucket.depth
+        edges = bin_edges().astype(np.float32) if self.device_metrics else None
+        #: the bin edges on the device, made with the buffers (before any
+        #: capture)
+        self._edges: Optional[torch.Tensor] = None
 
         def make_buffers(d):
             dev = self.program.device
             self._carry = init_lane_state(n, dev)
+            if edges is not None:
+                self._edges = torch.as_tensor(edges, device=dev)
             return (torch.zeros((n, w0, d), dtype=torch.float32, device=dev),
                     torch.zeros((n, depth), dtype=torch.int64, device=dev),
                     torch.zeros((n,), dtype=torch.bool, device=dev))
 
-        def body(vectors, counts, reset):
-            (idx, loss), new_carry = fused_sh_bracket_bucketed_packed_carry(
-                eval_fn, vectors, counts, self._carry, reset, bucket)
-            self._carry.copy_(new_carry)
-            return _packed_row(idx, loss)
+        def chunk(vectors, counts, carry, reset, sub_mesh):
+            return fused_sh_bracket_bucketed_packed_carry(
+                eval_fn, vectors, counts, carry, reset, bucket,
+                telemetry_edges=None if self._edges is None else self._edges.to(vectors.device),
+                mesh=sub_mesh, axis=config_axis)
 
-        self.program = StaticProgram("continuous_bracket", device, make_buffers, body)
+        def body(vectors, counts, reset):
+            if split is None:
+                out = chunk(vectors, counts, self._carry, reset, None)
+            else:
+                out = split.gather({
+                    s: chunk(*(t[span.start:span.stop].to(split.devices[s])
+                               for t in (vectors, counts, self._carry, reset)), subs[s])
+                    for s, span in enumerate(split.blocks(n) or [range(n)])}, vectors.device)
+            (idx, loss), new_carry = out[0], out[1]
+            self._carry.copy_(new_carry)
+            packed = _packed_row(idx, loss)
+            return packed if self._edges is None else (packed,) + tuple(out[2])
+
+        self.program = StaticProgram("continuous_bracket", device, make_buffers, body,
+                                     graphed=single_device(mesh))
 
     def ensure_compiled(self, d: int) -> None:
         """Build the family's one program (idempotent, thread-safe)."""
@@ -248,7 +338,13 @@ class ContinuousRunner:
         lanes = [lane for lane, _ in placements]
 
         def fetch():
-            out = demux(fetch_packed(packed), self.bucket, entries, lanes)
+            if not self.device_metrics:
+                out = demux(fetch_packed(packed), self.bucket, entries, lanes)
+            else:
+                row, hist, crashes = packed
+                out = demux(fetch_packed(row), self.bucket, entries, lanes)
+                publish_lane_telemetry(*fetch_telemetry(hist, crashes), self.bucket, entries,
+                                       out, lanes)
             if E.get_bus().active:
                 # span-shaped chunk record, dispatch to fetch: the flight
                 # recorder's rung_compute slice for a serving round, and

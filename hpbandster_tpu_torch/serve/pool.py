@@ -65,6 +65,7 @@ from hpbandster_tpu_torch.ops.buckets import (
     slice_member_stages,
     start_precompile,
 )
+from hpbandster_tpu_torch.parallel.mesh import shard_count
 from hpbandster_tpu_torch.serve.continuous import ContinuousRunner
 from hpbandster_tpu_torch.serve.megabatch import PackEntry, make_mega_runner
 from hpbandster_tpu_torch.serve.scheduler import (
@@ -172,10 +173,12 @@ class ServePool:
 
     ``backend`` is a batched evaluation backend (``VmapBackend``-shaped:
     ``eval_fn``, ``evaluate(vectors, budget)``, ``device``,
-    ``parallelism``); ``configspace`` is the pool's one search space:
+    ``parallelism``, and ``mesh``/``axis`` for a meshed backend: the
+    bucket set pads to the mesh's axis, and the solo and packed programs
+    split over it); ``configspace`` is the pool's one search space:
     packing across tenants needs one objective and one vector width.
-    ``lane_mesh=`` (the reference's 2-D lane mesh) is not ported yet
-    (ROADMAP A7b).
+    ``lane_mesh=`` (``serve.continuous.make_lane_mesh``) places the
+    continuous mode's lane programs on a 2-D lane x config mesh.
     """
 
     def __init__(
@@ -193,10 +196,6 @@ class ServePool:
         lane_mesh=None,
         logger: Optional[logging.Logger] = None,
     ):
-        if lane_mesh is not None:
-            raise NotImplementedError(
-                "ServePool(lane_mesh=...) is not ported yet (ROADMAP A7b: the serving "
-                "tier's lane meshes)")
         self.backend = backend
         self.configspace = configspace
         self.device = getattr(backend, "device", None)
@@ -212,6 +211,9 @@ class ServePool:
         #: bracket items ride one resident lane program per bucket family
         self.continuous = bool(continuous)
         self.lane_count = max(int(lane_count), 1)
+        #: optional 2-D lane x config mesh of the lane programs (None:
+        #: unsharded lanes)
+        self.lane_mesh = lane_mesh
         self._continuous_runners: Dict[Any, ContinuousRunner] = {}
         self.logger = logger or logging.getLogger("hpbandster_tpu_torch.serve")
 
@@ -294,7 +296,13 @@ class ServePool:
             if not fresh:
                 return
             self._bucket_plans.extend(fresh)
-            self._bucket_set = build_bucket_set(self._bucket_plans)
+            mesh, axis = self._backend_mesh()
+            mesh_size = shard_count(mesh, axis)
+            if self.continuous and self.lane_mesh is not None:
+                # the lane programs split each lane's rows over the lane
+                # mesh's config axis: the widths must be multiples of it
+                mesh_size = max(mesh_size, shard_count(self.lane_mesh, "config"))
+            self._bucket_set = build_bucket_set(self._bucket_plans, mesh_size=mesh_size)
             bucket_set = self._bucket_set
         try:
             d = self.configspace.dim
@@ -304,13 +312,18 @@ class ServePool:
                     True, "continuous-precompile")
             else:
                 self.precompile = precompile_buckets(
-                    self.backend.eval_fn, bucket_set, d=d, device=self.device)
+                    self.backend.eval_fn, bucket_set, d=d, mesh=mesh, axis=axis,
+                    device=self.device)
             for r in self.precompile._runners:
                 self._note_program(r)
         except Exception:
             if self._strict():
                 raise
             self.logger.exception("bucket precompile failed; continuing")
+
+    def _backend_mesh(self):
+        """The backend's mesh and axis (``(None, "config")`` unmeshed)."""
+        return getattr(self.backend, "mesh", None), getattr(self.backend, "axis", "config")
 
     def _note_program(self, runner) -> None:
         with self._cond:
@@ -332,7 +345,8 @@ class ServePool:
             if runner is None:
                 runner = ContinuousRunner(
                     self.backend.eval_fn, bucket, lane_count=self.lane_count,
-                    family=len(self._continuous_runners), device=self.device)
+                    mesh=self.lane_mesh, family=len(self._continuous_runners),
+                    device=self.device if self.lane_mesh is None else None)
                 self._continuous_runners[bucket] = runner
             return runner
 
@@ -600,8 +614,9 @@ class ServePool:
         """Launch one packed cross-tenant dispatch; returns its fetcher."""
         entries = [PackEntry(it.tenant, it.vectors, it.plan, it.entry) for it in chunk]
         try:
-            runner = make_mega_runner(self.backend.eval_fn, bucket,
-                                      pack_width=self.pack_width, device=self.device)
+            mesh, axis = self._backend_mesh()
+            runner = make_mega_runner(self.backend.eval_fn, bucket, pack_width=self.pack_width,
+                                      mesh=mesh, axis=axis, device=self.device)
             self._note_program(runner)
             with obs.span("megabatch_dispatch", n_brackets=len(chunk),
                           tenants=len({it.tenant for it in chunk})):
@@ -626,8 +641,9 @@ class ServePool:
         runner every solo path in the process shares)."""
         counts = member_counts_for(bucket, item.plan, item.entry)
         try:
-            runner = make_bucketed_bracket_fn(self.backend.eval_fn, bucket,
-                                              device=self.device)
+            mesh, axis = self._backend_mesh()
+            runner = make_bucketed_bracket_fn(self.backend.eval_fn, bucket, mesh=mesh,
+                                              axis=axis, device=self.device)
             self._note_program(runner)
             with obs.span("fused_dispatch", n=len(item.jobs), bucketed=True):
                 packed = runner.dispatch(item.vectors, counts)

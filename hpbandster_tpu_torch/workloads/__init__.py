@@ -1,9 +1,8 @@
 """Objectives of the port: batched ``eval_fn(vectors f32[n, d], budget) ->
 f32[n]`` functions and ``StatefulEval`` trainers for ``FusedBOHB``.
 
-Exports as ``hpbandster_tpu/workloads/__init__.py`` does.
-``transformer_forward_seq_parallel`` (the sequence-parallel ring) raises
-``NotImplementedError`` until ROADMAP A7b ports the ring.
+Exports as ``hpbandster_tpu/workloads/__init__.py`` does, the
+sequence-parallel ``transformer_forward_seq_parallel`` included.
 """
 
 from hpbandster_tpu_torch.workloads.toys import (  # noqa: F401

@@ -17,8 +17,10 @@ TF32 off for that. Layer norms (eps 1e-6), softmax and the optimizer are
 float32. The attention is written as the reference writes it: scores,
 causal mask (-1e30), softmax. Budget = SGD steps.
 
-The reference's sequence-parallel forward (ring attention across devices)
-is not ported: the port runs on one device.
+:func:`transformer_forward_seq_parallel` is the long-context twin: the
+sequence split over a mesh's ring, attention as exact ring attention
+(``ops/ring_attention.py``), everything else per position. Dense and ring
+attention are drop-in twins behind :func:`_layer`'s ``attn_fn``.
 """
 
 from __future__ import annotations
@@ -149,38 +151,83 @@ def _dense_attention(q, k, v, scale):
     return torch.einsum("nbhqk,nbkhd->nbqhd", _bf16(att), _bf16(v))
 
 
-def _layer(x, p, n_heads):
-    """One pre-LN block: attention, then the MLP."""
+def _layer(x, p, n_heads, attn_fn):
+    """One pre-LN block: attention (``attn_fn(q, k, v) -> [n, B, T, H,
+    dh]``, dense or ring), then the MLP. The one definition the local and
+    the sequence-parallel forwards share."""
     n, bsz, t, d = x.shape
     dh = d // n_heads
     h = _ln(x, p["ln1"], p["ln1_b"])
     q = _mm(h, p["wq"]).reshape(n, bsz, t, n_heads, dh)
     k = _mm(h, p["wk"]).reshape(n, bsz, t, n_heads, dh)
     v = _mm(h, p["wv"]).reshape(n, bsz, t, n_heads, dh)
-    x = x + _mm(_dense_attention(q, k, v, dh ** -0.5).reshape(n, bsz, t, d), p["wo"])
+    x = x + _mm(attn_fn(q, k, v).reshape(n, bsz, t, d), p["wo"])
     h = _ln(x, p["ln2"], p["ln2_b"])
     return x + _mm(torch.relu(_mm(h, p["w1"])), p["w2"])
+
+
+def _forward_impl(params, x, cfg: TransformerConfig, attn_fn):
+    for i in range(cfg.n_layers):
+        x = _layer(x, params[f"l{i}"], cfg.n_heads, attn_fn)
+    x = _ln(x, params["ln_f"], params["ln_f_b"])
+    return _mm(x, params["head"])
 
 
 def transformer_forward(params: dict, tokens: torch.Tensor,
                         cfg: TransformerConfig) -> torch.Tensor:
     """``tokens`` int64 ``[B, T]`` (T = seq_len - 1 teacher-forced inputs)
     -> logits ``[n, B, T, vocab + 1]``."""
+    dh = cfg.d_model // cfg.n_heads
     x = params["tok_emb"][:, tokens] + params["pos_emb"].unsqueeze(1)
-    for i in range(cfg.n_layers):
-        x = _layer(x, params[f"l{i}"], cfg.n_heads)
-    x = _ln(x, params["ln_f"], params["ln_f_b"])
-    return _mm(x, params["head"])
+    return _forward_impl(params, x, cfg, lambda q, k, v: _dense_attention(q, k, v, dh ** -0.5))
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the process
+    group's ranks (the psum that ``shard_map``'s transpose gives a
+    replicated input in the reference)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return None, grad
 
 
 def transformer_forward_seq_parallel(params: dict, tokens: torch.Tensor,
-                                     cfg: TransformerConfig, axis_name: str):
-    """The reference's sequence-parallel twin of :func:`transformer_forward`
-    (attention as a ring over a mesh's sequence axis): not ported yet, it
-    waits for the ring (``ops/ring_attention.py``, ROADMAP A7b)."""
-    raise NotImplementedError(
-        "transformer_forward_seq_parallel is not ported yet (ROADMAP A7b: the "
-        "sequence-parallel ring)")
+                                     cfg: TransformerConfig, mesh,
+                                     axis: str = "seq") -> torch.Tensor:
+    """The long-context twin of :func:`transformer_forward`, the sequence
+    split over ``mesh[axis]`` (the reference takes the axis name inside a
+    ``shard_map``; the port takes the mesh and the axis).
+
+    ``tokens`` int64 ``[B, T_local]``: this process's positions, the
+    blocks of the shards it owns in shard order (in one process the whole
+    sequence). Embeddings, layer norms, the MLP and the head run per
+    position; attention is exact ring attention
+    (``ops.ring_attention.ring_attention_block``), K/V blocks rotating
+    while queries stay. Positions are global: shard ``i``'s block reads
+    ``pos_emb[i * T_blk + arange(T_blk)]``. Returns logits ``[n, B,
+    T_local, vocab + 1]``. On a mesh over a process group every parameter's
+    gradient is summed over the ranks in the backward, so each rank's
+    backward of its share of a global loss gives the global gradient."""
+    from hpbandster_tpu_torch.ops.fused import tree_map
+    from hpbandster_tpu_torch.ops.ring_attention import ring_attention_block, shard_positions
+
+    if mesh.process_group is not None:
+        params = tree_map(lambda p: _SumOverRanks.apply(mesh.process_group, p), params)
+    dh = cfg.d_model // cfg.n_heads
+    pos = shard_positions(mesh, tokens.shape[1], axis, device=tokens.device)
+    x = params["tok_emb"][:, tokens] + params["pos_emb"][:, pos].unsqueeze(1)
+    return _forward_impl(params, x, cfg, lambda q, k, v: ring_attention_block(
+        q, k, v, mesh, axis, causal=True, scale=dh ** -0.5))
 
 
 def make_copy_dataset(generator: torch.Generator, cfg: TransformerConfig):

@@ -623,6 +623,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.ops.fused",
     "hpbandster_tpu_torch.ops.graphs",
     "hpbandster_tpu_torch.ops.kde",
+    "hpbandster_tpu_torch.ops.ring_attention",
     "hpbandster_tpu_torch.ops.sweep",
     "hpbandster_tpu_torch.models",
     "hpbandster_tpu_torch.models.base",
@@ -658,6 +659,8 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.utils.lru",
     "hpbandster_tpu_torch.utils.network",
     "hpbandster_tpu_torch.utils.profiling",
+    "hpbandster_tpu_torch.viz",
+    "hpbandster_tpu_torch.viz.plots",
     "hpbandster_tpu_torch.workloads",
     "hpbandster_tpu_torch.workloads.cnn",
     "hpbandster_tpu_torch.workloads.ensemble",
@@ -767,13 +770,12 @@ def test_scorer_refuses_unknown_devices():
 
 
 def test_unported_tiers_raise(tmp_path):
-    """What later slices port (the serving tier's lane meshes and the
-    sequence-parallel ring, ROADMAP A7b) raises ``NotImplementedError``
-    naming A7b instead of silently running without them; the config-axis
-    meshes are ported and run. The resident tier refuses, with the
-    reference's ``ValueError``, the tiers it cannot run on. The host tier
-    is ported: ``wal_path=`` journals and ``resume()`` replays, and no
-    ``NotImplementedError`` of the port names it."""
+    """Every tier of the reference is ported and runs: the config-axis
+    meshes, the serving tier's lane meshes and the sequence-parallel ring
+    (ROADMAP A7b) run, and no source of the port raises
+    ``NotImplementedError`` naming A7b or A9. The resident tier refuses,
+    with the reference's ``ValueError``, the tiers it cannot run on. The
+    host tier is ported: ``wal_path=`` journals and ``resume()`` replays."""
     from hpbandster_tpu_torch import FusedBOHB
     from hpbandster_tpu_torch.ops.sweep import build_space_codec, make_fused_sweep_fn
     from hpbandster_tpu_torch.parallel.mesh import config_mesh
@@ -809,8 +811,8 @@ def test_unported_tiers_raise(tmp_path):
             opt.run(n_iterations=2, **kw)
     assert opt.iterations == []
 
-    # the Master-driven tier and the serving tier: meshes wait for a later
-    # slice; the host tier (the Dispatcher, the write-ahead journal) is in
+    # the Master-driven tier, the serving tier and its meshes, the host tier
+    # (the Dispatcher, the write-ahead journal)
     from hpbandster_tpu_torch import BOHB, BatchedExecutor, HyperBand, VmapBackend
     from hpbandster_tpu_torch.ops.fused import make_fused_bracket_fn
 
@@ -848,17 +850,37 @@ def test_unported_tiers_raise(tmp_path):
     assert VmapBackend(branin, mesh=mesh).evaluate(x, 3.0).shape == (9,)
     stages = make_fused_bracket_fn(branin, (9, 3), (1.0, 3.0), mesh=mesh)(x)
     assert [len(i) for i, _ in stages] == [9, 3]
-    with pytest.raises(NotImplementedError, match="A7b"):
-        make_lane_mesh(2)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        ServePool(VmapBackend(branin, device="cpu"), cs, continuous=True, lane_mesh=object())
-    bucket = build_bucket_set(plans_for(2)).buckets[0]
-    with pytest.raises(NotImplementedError, match="A7b"):
-        ContinuousRunner(branin, bucket, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        MegaRunner(branin, bucket, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        transformer_forward_seq_parallel({}, torch.zeros((1, 4), dtype=torch.long), None, "seq")
+    lane_mesh = make_lane_mesh(2, ["cpu"] * 4)
+    assert lane_mesh.shape == {"lane": 2, "config": 2}
+    pool = ServePool(VmapBackend(branin, device="cpu"), cs, continuous=True, lane_count=4,
+                     lane_mesh=lane_mesh)
+    assert pool.lane_mesh is lane_mesh
+    bucket = build_bucket_set(plans_for(2), mesh_size=2).buckets[0]
+    from hpbandster_tpu_torch.ops.bracket import BracketPlan
+    from hpbandster_tpu_torch.serve import PackEntry
+
+    member = bucket.widths[0]
+    entry = PackEntry("t", x[:1].repeat(member, 0), BracketPlan((member,) + bucket.widths[1:],
+                                                                bucket.budgets), 0)
+    out = ContinuousRunner(branin, bucket, lane_count=4, mesh=lane_mesh).run_chunk([entry], d=2)
+    assert [len(i) for i, _ in out[0]] == list(bucket.widths)
+    out = MegaRunner(branin, bucket, pack_width=2, mesh=mesh).run_packed([entry], d=2)
+    assert [len(i) for i, _ in out[0]] == list(bucket.widths)
+    from hpbandster_tpu_torch.ops.ring_attention import make_ring_attention, seq_mesh
+    from hpbandster_tpu_torch.workloads.transformer import TransformerConfig
+
+    q = torch.ones((8, 2, 4))
+    assert make_ring_attention(seq_mesh(["cpu"] * 2))(q, q, q).shape == (8, 2, 4)
+    tcfg = TransformerConfig(vocab=4, prefix_len=2, d_model=8, n_heads=2, n_layers=1, d_ff=8)
+    params = {"tok_emb": torch.zeros((1, 5, 8)), "pos_emb": torch.zeros((1, 4, 8)),
+              "head": torch.zeros((1, 8, 5)), "ln_f": torch.ones((1, 8)),
+              "ln_f_b": torch.zeros((1, 8)),
+              "l0": {**{w: torch.zeros((1, 8, 8)) for w in ("wq", "wk", "wv", "wo", "w1", "w2")},
+                     **{n: torch.ones((1, 8)) for n in ("ln1", "ln2")},
+                     **{n: torch.zeros((1, 8)) for n in ("ln1_b", "ln2_b")}}}
+    logits = transformer_forward_seq_parallel(params, torch.zeros((1, 4), dtype=torch.long),
+                                              tcfg, seq_mesh(["cpu"] * 2))
+    assert logits.shape == (1, 1, 4, 5)
     hb = HyperBand(configspace=cs, run_id="unported", executor=executor(),
                    min_budget=1, max_budget=9, checkpoint_path=str(tmp_path / "c.pkl"))
     hb.run(n_iterations=1)
@@ -869,7 +891,7 @@ def test_unported_tiers_raise(tmp_path):
     assert hb2.resume(str(tmp_path / "c.pkl"), wal) == {"replayed": 0, "skipped": 13}
     assert len(hb2.iterations) == 1
     sources = (REPO / "hpbandster_tpu_torch").rglob("*.py")
-    assert not [f.name for f in sources if "A9" in f.read_text()]
+    assert not [f.name for f in sources if "A9" in f.read_text() or "A7b" in f.read_text()]
 
 
 def test_master_optimizers_refuse_to_run_without_a_device(monkeypatch):

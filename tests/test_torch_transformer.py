@@ -13,6 +13,13 @@ bfloat16 operands again, while the port's gradient meets the rounded
 operands in float32 and is rounded to bfloat16 only where the cast is
 undone; at learning rates up to 0.4 the losses part by up to 0.5% after
 3 steps.
+
+The sequence-parallel forward (prefix 8, a ring of 8 shards of the ``cpu``
+device) is held as the reference's own test holds its: logits within 5e-2
+of the local forward, every parameter's gradient within a relative norm of
+0.08 of the local forward's; and against the reference's sequence-parallel
+forward on its eight devices: logits within 1e-4, gradients within a
+relative norm of 0.02.
 """
 
 import numpy as np
@@ -124,3 +131,98 @@ def test_poisoned_lane_leaves_other_lanes_unchanged(pair):
     bad[0] = float("nan")
     out = fn(bad, 2.0)
     assert torch.isnan(out[0]) and torch.equal(out[1:], clean[1:])
+
+
+# ------------------------------------------------ the sequence-parallel twin
+SEQ_CFG = dict(CFG, prefix_len=8)  # 16 teacher-forced positions: 2 per shard of 8
+
+
+@pytest.fixture(scope="module")
+def seq_pair(ref_wl):
+    """The reference's and the port's config at prefix 8, the reference's
+    unit-scale weights and its first training sequence."""
+    import jax
+
+    rcfg = ref_wl.transformer.TransformerConfig(**SEQ_CFG)
+    unit = ref_wl.transformer.init_transformer_params(jax.random.key(0), rcfg, 1.0)
+    (xt, _), _, _ = ref_wl.transformer.make_copy_dataset(jax.random.key(1), rcfg)
+    tokens = np.array(xt[0])
+    return rcfg, tfm.TransformerConfig(**SEQ_CFG), unit, tokens
+
+
+def _ref_seq_forward(ref_wl, rcfg):
+    from jax.sharding import PartitionSpec
+
+    from hpbandster_tpu.ops.ring_attention import seq_mesh, shard_map
+
+    return shard_map(
+        lambda p, t: ref_wl.transformer.transformer_forward_seq_parallel(p, t, rcfg, "seq"),
+        mesh=seq_mesh(), in_specs=(PartitionSpec(), PartitionSpec("seq")),
+        out_specs=PartitionSpec("seq"))
+
+
+def _port_params(unit):
+    import jax
+
+    return tfm.init_transformer_params(params_from_numpy(jax.tree.map(np.asarray, unit)),
+                                       torch.ones(1))
+
+
+def test_ring_forward_matches_local_forward(seq_pair, ref_wl):
+    """The sequence over a ring of 8 (``cpu`` repeated), attention on the
+    ring: logits within 5e-2 of the port's local forward (bfloat16 products
+    summed in another order), the reference's tolerance, and within 1e-4
+    of the reference's sequence-parallel forward on its eight devices."""
+    import jax
+
+    from hpbandster_tpu_torch.ops.ring_attention import seq_mesh
+
+    rcfg, cfg, unit, tokens = seq_pair
+    assert tokens.shape[0] % 8 == 0
+    params = _port_params(unit)
+    tok = torch.from_numpy(tokens)[None]
+    ring = tfm.transformer_forward_seq_parallel(params, tok, cfg,
+                                                seq_mesh([torch.device("cpu")] * 8))
+    local = tfm.transformer_forward(params, tok, cfg)
+    assert ring.shape == local.shape == (1, 1, 16, cfg.vocab + 1)
+    np.testing.assert_allclose(ring.numpy(), local.numpy(), atol=5e-2, rtol=5e-2)
+    want = np.asarray(jax.jit(_ref_seq_forward(ref_wl, rcfg))(unit, tokens))
+    np.testing.assert_allclose(ring[0, 0].numpy(), want, atol=1e-4, rtol=0)
+
+
+def _rel_close(a, b, name, bar=0.08):
+    """The reference test's check: the relative norm of the difference.
+    bfloat16 attention products summed in another order drift a few
+    elements; a structural error (a dropped sum over shards, wrong
+    positions, a dead layer) moves the whole tensor."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-6)
+    assert rel < bar, f"{name}: relative grad error {rel:.3f}"
+
+
+def test_ring_forward_grads_match_local(seq_pair, ref_wl):
+    """Training through the ring: every parameter's gradient of
+    ``mean(logits^2)`` against the port's local forward's (the reference's
+    bar, 0.08) and against the reference's sequence-parallel gradients
+    (0.02)."""
+    import jax
+
+    from hpbandster_tpu_torch.ops.fused import tree_map
+    from hpbandster_tpu_torch.ops.ring_attention import seq_mesh
+
+    rcfg, cfg, unit, tokens = seq_pair
+    tok = torch.from_numpy(tokens)[None]
+    p_ring = tree_map(lambda p: p.requires_grad_(), _port_params(unit))
+    p_local = tree_map(lambda p: p.requires_grad_(), _port_params(unit))
+    (tfm.transformer_forward_seq_parallel(p_ring, tok, cfg, seq_mesh([torch.device("cpu")] * 8))
+     ** 2).mean().backward()
+    (tfm.transformer_forward(p_local, tok, cfg) ** 2).mean().backward()
+    fwd = _ref_seq_forward(ref_wl, rcfg)
+    g_ref = jax.jit(jax.grad(lambda p: (fwd(p, tokens) ** 2).mean()))(unit)
+    for name in ("tok_emb", "pos_emb", "head", "ln_f"):
+        _rel_close(p_ring[name].grad[0], p_local[name].grad[0], name)
+        _rel_close(p_ring[name].grad[0], g_ref[name], f"{name} (reference)", bar=0.02)
+    for key in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        _rel_close(p_ring["l0"][key].grad[0], p_local["l0"][key].grad[0], f"l0.{key}")
+        _rel_close(p_ring["l0"][key].grad[0], g_ref["l0"][key], f"l0.{key} (reference)",
+                   bar=0.02)
