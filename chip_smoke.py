@@ -235,6 +235,18 @@ Phases, each fatal on failure:
    launch, of at least ``BATCHED_MIN_S`` candidates, per sampling wave with
    a model-based pick (under ASHA one of 64 per model-based pick), and with
    the in-trace moments fit one moments launch beside it);
+4b. the examples (``hpbandster_tpu_torch/examples``) on the card, each
+   with the launch counts reset just before and read just after: the
+   twelve at ``tests/test_examples.py``'s arguments (example 4, which that
+   file does not run, as a master and a worker thread; example 6 without
+   ``--plot`` where matplotlib is missing; example 8 fused, chunked with a
+   checkpoint under ``HPB_PALLAS_KDE_FIT=1``, and per bracket; example 10 a
+   one-rank NCCL group, held to the same sweep in this process; example 11
+   ``--tiny``), in this process (3 and 10 spawn their own processes); each
+   must print its counterpart's asserted lines, run per budget the
+   HyperBand plan, and have finite losses; examples 1, 7 and 8 must launch
+   the scorer, example 8 chunked the moments kernel; one ``example`` line
+   each, with its seconds;
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
@@ -3669,7 +3681,7 @@ def check_exporter_and_collector(torch, dev):
     from hpbandster_tpu_torch.obs.events import EventBus
     from hpbandster_tpu_torch.obs.metrics import MetricsRegistry
 
-    server = export.ExporterServer(0, host="127.0.0.1").start()
+    server = export.ExporterServer(0).start()
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/metrics",
                                     timeout=30) as resp:
@@ -5368,6 +5380,174 @@ def drive_ring_one_rank(torch, dev, shards=4, per_shard=512):
     return rec
 
 
+# ------------------------------------------------------------- the examples
+def _example(module, args, expect, plan=None, launch=None, flags=None):
+    """One example's drive: its module under ``hpbandster_tpu_torch.examples``,
+    its arguments, the lines its counterpart's test asserts, its plan as
+    ``[(n_iterations, min_budget, max_budget), ...]`` (summed), the kernel
+    it must launch and the environment flags it runs under."""
+    return dict(module=module, args=list(args), expect=list(expect), plan=plan or [],
+                launch=launch, flags=flags or {})
+
+
+def example_drives(workdir):
+    """The examples phase's drives, by label (``workdir`` holds their files)."""
+    import importlib.util
+
+    plot = ["--plot"] if importlib.util.find_spec("matplotlib") else []
+    return {
+        "example_1": _example("example_1_local_sequential", ["--n_iterations", "2"],
+                              ["best found configuration"], [(2, 1, 9)], "kde_score"),
+        "example_2": _example("example_2_local_parallel_threads",
+                              ["--n_workers", "3", "--n_iterations", "2"], ["best:"],
+                              [(2, 1, 9)]),
+        "example_3": _example("example_3_local_parallel_processes",
+                              ["--n_workers", "2", "--n_iterations", "2"], ["best:"],
+                              [(2, 1, 9)]),
+        "example_4": _example("example_4_cluster",
+                              ["--master", "--shared_directory", f"{workdir}/ex4",
+                               "--min_n_workers", "1", "--n_iterations", "2"], ["best:"],
+                              [(2, 1, 9)]),
+        "example_5": _example("example_5_mlp_worker",
+                              ["--n_workers", "1", "--n_iterations", "1", "--min_budget", "5",
+                               "--max_budget", "15"], ["val loss at max budget"], [(1, 5, 15)]),
+        "example_6": _example("example_6_analysis_warmstart",
+                              ["--out_dir", f"{workdir}/ex6", *plot],
+                              ["phase 3 final incumbent loss"], [(4, 1, 27), (2, 1, 27)]),
+        "example_7": _example("example_7_tpu_batched",
+                              ["--n_iterations", "2", "--min_budget", "5", "--max_budget", "45"],
+                              ["configs/s"], [(2, 5, 45)], "kde_score"),
+        "example_8": _example("example_8_large_sweep", ["--n_iterations", "4", "--max_budget", "9"],
+                              ["incumbent loss", "fused whole-sweep"], [(4, 1, 9)], "kde_score"),
+        "example_8_chunked": _example(
+            "example_8_large_sweep",
+            ["--n_iterations", "4", "--max_budget", "9", "--chunk_brackets", "2",
+             "--checkpoint", f"{workdir}/sweep.pkl"],
+            ["incumbent loss", "2-bracket chunks"], [(4, 1, 9)], "kde_moments",
+            {"HPB_PALLAS_KDE_FIT": "1"}),
+        "example_8_per_bracket": _example(
+            "example_8_large_sweep", ["--n_iterations", "4", "--max_budget", "9", "--no-fused"],
+            ["incumbent loss", "per-bracket batched"], [(4, 1, 9)], "kde_score"),
+        "example_9": _example("example_9_multihost_batched_workers",
+                              ["--n_iterations", "3", "--max_budget", "9"],
+                              ["batched workers", "incumbent loss"], [(3, 1, 9)]),
+        "example_10": _example("example_10_multihost_fused_spmd", [], ["SPMD OK"], [(4, 1, 27)]),
+        "example_11": _example("example_11_transformer_fused",
+                               ["--tiny", "--n_iterations", "2", "--min_budget", "9",
+                                "--max_budget", "81"],
+                               ["configs/s", "copied-half val accuracy"], [(2, 9, 81)]),
+        "example_12": _example("example_12_long_context_ring",
+                               ["--seq_per_device", "32", "--head_dim", "16", "--striped"],
+                               ["never", "grads finite: OK", "prefix parity vs dense"]),
+    }
+
+
+class _Tee:
+    """Writes to the console and keeps a copy (an example's printed lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def run_example_on(dev, spec):
+    """``(returned value, printed text)`` of one example's ``main`` on ``dev``.
+    Example 4 runs its master here and one worker on a thread, meeting in
+    the shared directory."""
+    import importlib
+
+    module = importlib.import_module(f"hpbandster_tpu_torch.examples.{spec['module']}")
+    argv = spec["args"] + ["--device", str(dev)]
+    worker = None
+    if spec["module"] == "example_4_cluster":
+        shared = argv[argv.index("--shared_directory") + 1]
+        os.makedirs(shared, exist_ok=True)
+        worker = threading.Thread(target=module.main, daemon=True, args=(
+            ["--worker", "--shared_directory", shared, "--device", str(dev)],))
+        worker.start()
+    tee = _Tee(sys.stdout)
+    with env_flags(**spec["flags"]), contextlib.redirect_stdout(tee):
+        out = module.main(argv)
+    if worker is not None:
+        worker.join(timeout=60)
+        if worker.is_alive():
+            raise AssertionError("example_4: the worker did not shut down")
+    return out, tee.text()
+
+
+def example_runs(out):
+    """``[(budget, loss), ...]`` of an example's returned value."""
+    if out is None or isinstance(out, dict) and "records" not in out:
+        return None
+    if isinstance(out, dict):
+        return [(b, loss) for _, b, loss in out["records"]]
+    return [(r.budget, r.loss) for r in out.get_all_runs()]
+
+
+def drive_examples(torch, dev, workdir):
+    """Phase 4b: every example on ``dev`` with the launch counts reset just
+    before and read just after, every launch's inputs recorded; gates as
+    the docstring's item 4b says. Returns each example's row (seconds,
+    launches, runs per budget) and the recorded ``(label, kernel, inputs)``
+    for phase 6."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    rows, recorded = {}, []
+    for label, spec in example_drives(workdir).items():
+        fused_bohb._SWEEP_CACHE.clear()
+        for name in cuda_kde.LAUNCHES:
+            cuda_kde.LAUNCHES[name] = 0
+        cuda_kde.RECORD = []
+        t0 = time.perf_counter()
+        try:
+            out, text = run_example_on(dev, spec)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            seconds = time.perf_counter() - t0
+            launches = dict(cuda_kde.LAUNCHES)
+            recorded += [(label, name, inputs) for name, inputs in cuda_kde.RECORD]
+        finally:
+            cuda_kde.RECORD = None
+        missing = [line for line in spec["expect"] if line not in text]
+        if missing:
+            raise AssertionError(f"{label}: did not print {missing}")
+        row = dict(seconds=seconds, launches=launches, args=spec["args"])
+        runs = example_runs(out)
+        if spec["plan"]:
+            want = {}
+            for n_iterations, lo, hi in spec["plan"]:
+                for b, k in plan_runs_per_budget(hi, n_iterations, min_budget=lo).items():
+                    want[b] = want.get(b, 0) + k
+            got = {}
+            for b, _ in runs:
+                got[float(b)] = got.get(float(b), 0) + 1
+            if got != want:
+                raise AssertionError(f"{label}: runs per budget {got} != plan {want}")
+            if not np.isfinite(np.asarray([loss for _, loss in runs], np.float64)).all():
+                raise AssertionError(f"{label}: non-finite losses")
+            row["runs_per_budget"] = got
+        elif not (out["grads_finite"] and out["err"] < 5e-2):
+            raise AssertionError(f"{label}: ring error {out['err']}, grads finite "
+                                 f"{out['grads_finite']}")
+        if spec["launch"] is not None and launches.get(spec["launch"], 0) <= 0:
+            raise AssertionError(f"{label}: no {spec['launch']} launch on the card")
+        rows[label] = row
+        print(f"example {label} " + json.dumps(dict(row, card=card_line())), flush=True)
+    # the later phases start from the cache the paths before them left
+    fused_bohb._SWEEP_CACHE.clear()
+    return rows, recorded
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from hpbandster_tpu_torch.ops import _build
@@ -5563,6 +5743,14 @@ def main(argv=None) -> int:
         if not facts[path]["kde_moments_discrete_cards"]:
             raise AssertionError(f"{path}: no kde_moments launch saw discrete cards")
 
+    # phase 4b: the examples, each with its counts reset and read the same way
+    example_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    atexit.register(shutil.rmtree, example_dir, True)
+    t0 = time.perf_counter()
+    examples, example_records = drive_examples(torch, dev, example_dir)
+    print(f"examples phase seconds {time.perf_counter() - t0:.3f}", flush=True)
+    recorded += example_records
+
     # phase 5: resume on the card equals the uninterrupted chunked runs
     check_resume(torch, dev, "hartmann6_chunked", results["chunked"], chunked_optimizer)
     check_resume(torch, dev, "conditional_chunked", results["conditional_chunked"],
@@ -5619,8 +5807,10 @@ def main(argv=None) -> int:
         main_rec = per_path[path]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(launches[p][name] for p in launches),
-            launches_by_path={p: launches[p][name] for p in launches},
+            launches=sum(launches[p][name] for p in launches)
+            + sum(r["launches"][name] for r in examples.values()),
+            launches_by_path={**{p: launches[p][name] for p in launches},
+                              **{p: r["launches"][name] for p, r in examples.items()}},
             max_abs_err=max([main_err] + [c["max_abs_err"] for c in checks[name]]),
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
@@ -5629,6 +5819,7 @@ def main(argv=None) -> int:
             largest_launch_path=path,
             ms_by_path={p: r["ms"] for p, r in per_path.items()},
             device_ms_by_path={p: r["device_ms"] for p, r in per_path.items()},
+            host_ms_by_path={p: r["host_ms"] for p, r in per_path.items()},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

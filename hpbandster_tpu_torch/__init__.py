@@ -9,6 +9,13 @@ built with ``nvcc`` at first launch.
 """
 
 from hpbandster_tpu_torch.core.nameserver import NameServer  # noqa: F401
+from hpbandster_tpu_torch.core.result import (  # noqa: F401
+    Result,
+    Run,
+    json_result_logger,
+    logged_results_to_HBS_result,
+)
+from hpbandster_tpu_torch.core.successive_halving import JaxSuccessiveHalving  # noqa: F401
 from hpbandster_tpu_torch.core.worker import Worker  # noqa: F401
 from hpbandster_tpu_torch.optimizers import (  # noqa: F401
     BOHB,
@@ -32,4 +39,6 @@ from hpbandster_tpu_torch.space import ConfigurationSpace  # noqa: F401
 __all__ = ["BOHB", "HyperBand", "RandomSearch", "H2BO", "BatchedExecutor",
            "VmapBackend", "FusedBOHB", "FusedHyperBand", "FusedH2BO",
            "FusedRandomSearch", "ConfigurationSpace", "ServePool", "NameServer",
-           "Worker", "TPUBatchedWorker", "RPCBatchBackend", "ServeFrontend"]
+           "Worker", "TPUBatchedWorker", "RPCBatchBackend", "ServeFrontend",
+           "Result", "Run", "json_result_logger", "logged_results_to_HBS_result",
+           "JaxSuccessiveHalving"]

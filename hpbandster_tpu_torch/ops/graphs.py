@@ -80,7 +80,10 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
             for dtype in (torch.float32, torch.bfloat16):
                 a = torch.ones((16, 16), dtype=dtype, device=device)
                 torch.addmm(a, a, a)
-        stream.synchronize()
+        # once per card and process, under the capture lock or a program's
+        # build lock: every caller is about to capture on this stream and
+        # must wait for its warm-up either way
+        stream.synchronize()  # graftlint: disable=lock-blocking — one-off warm-up of the capture stream
         _CAPTURE_STREAMS[index] = stream
     return stream
 
@@ -118,7 +121,9 @@ class RoundGraph:
             self.graph.register_generator_state(gen)
         with CAPTURE_LOCK:
             stream = _capture_stream(device)
-            cuda_kde.prepare_capture(device, stream)
+            # the process's first capture builds the kernels (nvcc, once); a
+            # capture cannot run without them, so other captures wait anyway
+            cuda_kde.prepare_capture(device, stream)  # graftlint: disable=lock-blocking — first-use kernel build
             stream.wait_stream(torch.cuda.current_stream(device))
             if warmup:
                 with torch.cuda.stream(stream):

@@ -150,7 +150,9 @@ def _pinned_reserved(device: torch.device) -> int:
     from hpbandster_tpu_torch.ops.graphs import CAPTURE_LOCK
 
     with CAPTURE_LOCK:
-        torch.cuda.empty_cache()
+        # emptying the allocator's cache while a capture runs is illegal, so
+        # the device-wide wait of its cudaFree happens under the lock
+        torch.cuda.empty_cache()  # graftlint: disable=lock-blocking — must exclude captures
         return int(torch.cuda.memory_reserved(device))
 
 

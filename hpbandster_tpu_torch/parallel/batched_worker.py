@@ -121,7 +121,9 @@ class TPUBatchedWorker(Worker):
             self._last_active = time.monotonic()
             t0 = time.perf_counter()
             with obs.span("worker_evaluate_batch", n=len(arr), budget=float(budget)):
-                losses = self.backend.evaluate(arr, float(budget))
+                # the busy lock is held over the wave and its fetch by design
+                # (see above): waves serialize on the local devices
+                losses = self.backend.evaluate(arr, float(budget))  # graftlint: disable=lock-blocking — busy for the wave
             elapsed = time.perf_counter() - t0
             # each wave's evaluate span, readable over RPC (obs_snapshot)
             obs.get_metrics().histogram("worker.evaluate_batch_s").observe(elapsed)

@@ -15,8 +15,9 @@ setup(
         "hpbandster_tpu", "hpbandster_tpu.*",
         "hpbandster_tpu_torch", "hpbandster_tpu_torch.*",
     ]),
-    # the PyTorch port's CUDA sources, compiled with nvcc at first launch
-    package_data={"hpbandster_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch port's CUDA sources, compiled with nvcc at first launch,
+    # and its graftlint rule fixtures (modules the rule tests parse)
+    package_data={"hpbandster_tpu_torch": ["csrc/*.cu", "analysis/analysis_fixtures/*.py"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -91,8 +91,7 @@ def test_malformed_exposition_is_refused(ref_obs_all):
 
 def test_exporter_serves_the_registry_on_localhost(capsys):
     reg = fill_registry(MetricsRegistry(), 4)
-    server = export.ExporterServer(0, fetch=lambda: export.render_registry(reg),
-                                   host="127.0.0.1").start()
+    server = export.ExporterServer(0, fetch=lambda: export.render_registry(reg)).start()
     try:
         url = f"http://127.0.0.1:{server.port}/metrics"
         with urllib.request.urlopen(url, timeout=10) as resp:

@@ -61,8 +61,15 @@ def ref():
             pallas_kde=pallas_kde, sweep=sweep, toys=toys,
             device_metrics=device_metrics,
         )
+    keep_analysis = "hpbandster_tpu.analysis.core" in before
     for name in sorted(set(sys.modules) - before, reverse=True):
         if not _is_reference_module(name):
+            continue
+        if keep_analysis and name.startswith("hpbandster_tpu.analysis."):
+            # the reference's analysis registers its rules once per import
+            # of its core: rules imported here stay with the core that
+            # holds their registrations, or a later import would register
+            # them twice
             continue
         del sys.modules[name]
         parent, _, child = name.rpartition(".")
@@ -576,8 +583,29 @@ class ReferenceKDEDraws:
 
 
 # ------------------------------------------------------ import and device
+#: the example ladder's modules
+EXAMPLE_MODULES = [
+    "example_1_local_sequential",
+    "example_2_local_parallel_threads",
+    "example_3_local_parallel_processes",
+    "example_4_cluster",
+    "example_5_mlp_worker",
+    "example_6_analysis_warmstart",
+    "example_7_tpu_batched",
+    "example_8_large_sweep",
+    "example_9_multihost_batched_workers",
+    "example_10_multihost_fused_spmd",
+    "example_11_transformer_fused",
+    "example_12_long_context_ring",
+]
+
 PORT_MODULES = [
     "hpbandster_tpu_torch",
+    "hpbandster_tpu_torch.analysis",
+    "hpbandster_tpu_torch.analysis.__main__",
+    "hpbandster_tpu_torch.analysis.core",
+    "hpbandster_tpu_torch.analysis.graph",
+    "hpbandster_tpu_torch.analysis.rules",
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
     "hpbandster_tpu_torch.obs",
@@ -671,13 +699,15 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.workloads.toys",
     "hpbandster_tpu_torch.workloads.train",
     "hpbandster_tpu_torch.workloads.transformer",
-]
+    "hpbandster_tpu_torch.examples",
+] + [f"hpbandster_tpu_torch.examples.{m}" for m in EXAMPLE_MODULES]
 
 
 def test_port_imports_without_jax():
-    """Importing the port pulls in neither jax nor any module of the JAX
-    package (checked in a fresh interpreter: this one already holds jax),
-    and neither does running its obs CLI."""
+    """Importing the port (its analysis and its examples included) pulls in
+    neither jax nor any module of the JAX package (checked in a fresh
+    interpreter: this one already holds jax), and neither does running its
+    obs CLI or its graftlint."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
@@ -708,6 +738,22 @@ def test_port_imports_without_jax():
     assert "python -m hpbandster_tpu_torch.obs" in proc.stdout
     for command in ("summarize", "report", "timeline", "slo", "alerts", "export"):
         assert command in proc.stdout
+    lint = (
+        "import runpy, sys\n"
+        "sys.argv = ['analysis', '--list-rules']\n"
+        "try:\n"
+        "    runpy.run_module('hpbandster_tpu_torch.analysis', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'hpbandster_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", lint], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "capture-host-sync" in proc.stdout
 
 
 def test_port_sources_never_import_jax():
@@ -726,18 +772,38 @@ def test_port_sources_never_import_jax():
     assert not offenders, offenders
 
 
+#: an example's arguments where it needs one
+_EXAMPLE_ARGS = {"example_4_cluster": ["--master", "--shared_directory", "."]}
+
+
 @pytest.mark.parametrize("script", [["chip_smoke.py"],
-                                    ["compare_kernels.py", "--root", "."]])
+                                    ["compare_kernels.py", "--root", "."]] + [
+    ["-m", f"hpbandster_tpu_torch.examples.{m}", *_EXAMPLE_ARGS.get(m, [])]
+    for m in EXAMPLE_MODULES], ids=lambda s: s[0] if s[0] != "-m" else s[1].rsplit(".", 1)[1])
 def test_card_scripts_fail_without_a_card(script):
     """The scripts that need a CUDA card exit non-zero and print no result
-    where there is none."""
+    where there is none; so does every example without ``--device cpu``."""
     proc = subprocess.run(
         [sys.executable, *script], cwd=REPO, capture_output=True, text=True,
         timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "compare {" not in proc.stdout
+    if script[0] == "-m":
+        assert proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+def test_flat_api_matches_the_reference(ref):
+    """Every name of the reference's flat API (``hpbandster_tpu._EXPORTS``)
+    is an attribute of the port's package."""
+    import hpbandster_tpu
+    import hpbandster_tpu_torch
+
+    missing = [n for n in hpbandster_tpu._EXPORTS if not hasattr(hpbandster_tpu_torch, n)]
+    assert not missing, missing
+    assert hpbandster_tpu_torch.json_result_logger.__module__ == (
+        "hpbandster_tpu_torch.core.result")
 
 
 def test_fused_bohb_refuses_to_run_without_a_device(monkeypatch):
