@@ -228,7 +228,21 @@ Phases, each fatal on failure:
    logits within 5e-2 of ``transformer_forward``, gradients within a
    relative norm of 0.08) and ``ring_one_rank`` (a one-rank NCCL group: the
    process-group form of the ring and of the transformer, its gradients
-   summed by NCCL, equal to one process's bit for bit). The
+   summed by NCCL, equal to one process's bit for bit); then the root
+   entry's counterpart (``hpbandster_tpu_torch/entry.py``), each path with
+   its counts reset and read the same way: ``tensor_parallel`` (the
+   batched MLP step split over ``model``, ``parallel/tensor_parallel.py``,
+   at ``MLPConfig()``'s widths with 64 and 512 lanes on meshes (1, 2),
+   (4, 2) and (2, 4) of the card: held to the unsplit step on the card
+   and to the same split on the CPU within 1e-5 relative / 1e-6 absolute,
+   TF32 off; ms per step split and unsplit and the split's peak allocated
+   bytes; no kernel) and ``dryrun`` (the multichip dry run's body on 8
+   positions of the card: the split step, the fused bracket, the fused
+   whole sweep, the conditional space, the meshed checkpoint resumed bit
+   for bit, the ring, and one sweep over two rank processes of a gloo
+   group on the card with bit-identical promotions; the checkpoint stage
+   again with ``HPB_PALLAS_KDE_FIT=1``; then ``dryrun_multichip(8)``
+   through its child, which must exit 0 with every stage's line). The
    launch counts of every path are gated
    (``MAIN_PATH_LAUNCHES``; a graph's launches count once per replay; a
    Master-driven path's count is derived from its ``Result``: one scorer
@@ -309,6 +323,10 @@ Phases, each fatal on failure:
    launches), the card's name and power limit, and last the JSON result
    line.
 
+Each phase prints one ``phase seconds`` line with its wall seconds (1 the
+build, 2, 3-4 the main paths, 4b, 5, 6 and 7); the main paths' seconds
+are also printed by path.
+
 There is no gate on the first bracket's stage 0: when the incumbent comes
 from bracket 0 it cannot fail. The random-search and model-vs-random checks
 carry the signal.
@@ -328,6 +346,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -427,7 +446,14 @@ MAIN_PATH_LAUNCHES = {"static": {"kde_score": 18, "kde_moments": 0},
                       "serve_lane_telemetry": {"kde_score": 0, "kde_moments": 0},
                       "ring_attention": {"kde_score": 0, "kde_moments": 0},
                       "transformer_seq_parallel": {"kde_score": 0, "kde_moments": 0},
-                      "ring_one_rank": {"kde_score": 0, "kde_moments": 0}}
+                      "ring_one_rank": {"kde_score": 0, "kde_moments": 0},
+                      # the tensor-parallel step runs no KDE; the dry run's
+                      # meshed sweeps in this process: the whole sweep 1,
+                      # the conditional space 2, the checkpoint stage's 8
+                      # chunked brackets (4 + 2 + 2) each fitting and scoring,
+                      # and those 8 again with the moments fit
+                      "tensor_parallel": {"kde_score": 0, "kde_moments": 0},
+                      "dryrun": {"kde_score": 19, "kde_moments": 8}}
 #: seeded random searches that the incumbent is held against
 RANDOM_SEARCH_REPLICATES = 64
 
@@ -5380,6 +5406,151 @@ def drive_ring_one_rank(torch, dev, shards=4, per_shard=512):
     return rec
 
 
+# ------------------------------------------- the tensor-parallel step, the dry run
+#: the split step's meshes (config, model) over the repeated card, and its
+#: lane counts, at ``MLPConfig()``'s widths
+TP_MESHES = ((1, 2), (4, 2), (2, 4))
+TP_LANES = (64, 512)
+TP_RTOL = 1e-5
+TP_ATOL = 1e-6
+
+
+def _tp_inputs(torch, dev, cfg, n, seed=0):
+    """The split step's inputs on ``dev``, made from numpy: ``n`` lanes of
+    He-scaled weights, a small velocity, one shared batch and per-lane
+    hyperparameters."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w1": (n, cfg.d_in, cfg.width), "b1": (n, cfg.width),
+              "w2": (n, cfg.width, cfg.width), "b2": (n, cfg.width),
+              "w3": (n, cfg.width, cfg.n_classes), "b3": (n, cfg.n_classes)}
+    f32 = np.float32
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    params = {k: t((rng.normal(size=s) / np.sqrt(s[1] if len(s) == 3 else 1)).astype(f32))
+              for k, s in shapes.items()}
+    velocity = {k: t((0.01 * rng.normal(size=s)).astype(f32)) for k, s in shapes.items()}
+    x = t(rng.normal(size=(cfg.batch_size, cfg.d_in)).astype(f32))
+    y = t(rng.integers(0, cfg.n_classes, size=(cfg.batch_size,)))
+    hp = [t(rng.uniform(lo, hi, n).astype(f32))
+          for lo, hi in ((0.01, 0.3), (0.0, 0.99), (1e-6, 1e-3))]
+    return params, velocity, x, y, hp
+
+
+def _held_tree(label, got, want):
+    """The largest ``|got - want|`` over the leaves of two trees (on any
+    devices); raises past ``TP_ATOL + TP_RTOL * |want|``."""
+    worst = 0.0
+    for k in want:
+        a, b = got[k].detach().cpu(), want[k].detach().cpu()
+        err = (a - b).abs()
+        if not bool((err <= TP_ATOL + TP_RTOL * b.abs()).all()):
+            raise AssertionError(f"{label}: {k} off by {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def drive_tensor_parallel(torch, dev):
+    """The tensor-parallel batched MLP step (``parallel/tensor_parallel.py``)
+    at ``MLPConfig()``'s widths, 64 and 512 lanes, on the meshes
+    ``TP_MESHES`` over the repeated card: the new trees and losses held to
+    the unsplit step on the card and to the same split on the CPU (``TP_RTOL``
+    / ``TP_ATOL``, TF32 off); ms per step split and unsplit (median of 20
+    after warm-up) and the split step's peak allocated bytes, with the
+    card. No kernel launches here."""
+    from hpbandster_tpu_torch.parallel.mesh import config_model_mesh
+    from hpbandster_tpu_torch.parallel.tensor_parallel import (
+        gather_mlp_params,
+        sgd_train_step_batch_tp,
+        shard_mlp_params,
+    )
+    from hpbandster_tpu_torch.workloads.mlp import MLPConfig, sgd_train_step_batch
+
+    cfg = MLPConfig()
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    rows = []
+    for n in TP_LANES:
+        params, velocity, x, y, hp = _tp_inputs(torch, dev, cfg, n)
+        want = sgd_train_step_batch(params, velocity, x, y, *hp)
+        unsplit_ms = _median_ms(lambda: sgd_train_step_batch(params, velocity, x, y, *hp),
+                                torch)
+        for c, m in TP_MESHES:
+            mesh = config_model_mesh(c, [dev] * (c * m))
+            sp, sv = shard_mlp_params(params, mesh), shard_mlp_params(velocity, mesh)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            new_p, new_v, losses = sgd_train_step_batch_tp(sp, sv, x, y, *hp, mesh)
+            torch.cuda.synchronize(dev)
+            peak = int(torch.cuda.max_memory_allocated(dev)) - base
+            got = (gather_mlp_params(new_p, mesh), gather_mlp_params(new_v, mesh))
+            label = f"tensor_parallel n={n} mesh=({c}, {m})"
+            err = max(_held_tree(label + " params", got[0], want[0]),
+                      _held_tree(label + " velocity", got[1], want[1]),
+                      _held_tree(label + " losses", {"l": losses}, {"l": want[2]}))
+            cpu_mesh = config_model_mesh(c, [cpu] * (c * m))
+            on_cpu = sgd_train_step_batch_tp(
+                shard_mlp_params({k: v.cpu() for k, v in params.items()}, cpu_mesh),
+                shard_mlp_params({k: v.cpu() for k, v in velocity.items()}, cpu_mesh),
+                x.cpu(), y.cpu(), *(h.cpu() for h in hp), cpu_mesh)
+            err_cpu = max(_held_tree(label + " card vs cpu params", got[0],
+                                     gather_mlp_params(on_cpu[0], cpu_mesh)),
+                          _held_tree(label + " card vs cpu losses", {"l": losses},
+                                     {"l": on_cpu[2]}))
+            split_ms = _median_ms(lambda: sgd_train_step_batch_tp(sp, sv, x, y, *hp, mesh),
+                                  torch)
+            row = dict(lanes=n, mesh=[c, m], split_ms=split_ms, unsplit_ms=unsplit_ms,
+                       split_over_unsplit=split_ms / unsplit_ms,
+                       split_peak_allocated_bytes=peak,
+                       max_abs_err_vs_unsplit=err, max_abs_err_vs_cpu=err_cpu,
+                       card=card_line())
+            print("tensor_parallel run " + json.dumps(row), flush=True)
+            rows.append(row)
+    print("tensor_parallel path " + json.dumps(dict(
+        wall_s=time.perf_counter() - t0, card=card_line())), flush=True)
+    return rows
+
+
+#: the dry run's positions on the card: mesh (4, 2)
+DRYRUN_POSITIONS = 8
+
+
+def drive_dryrun(torch, dev):
+    """The counterpart of the reference's multichip dry run
+    (``hpbandster_tpu_torch/entry.py``): its body in this process on
+    ``DRYRUN_POSITIONS`` positions of the card (every stage's ``dryrun:``
+    line; stage (d) as two rank processes of a gloo group on the card),
+    stage (b) once more with ``HPB_PALLAS_KDE_FIT=1`` (the moments kernel),
+    then ``dryrun_multichip`` through its child, which must exit 0. The
+    launches counted are this process's."""
+    from hpbandster_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    out = entry.run_dryrun(DRYRUN_POSITIONS, dev)
+    t_body = time.perf_counter() - t0
+    with env_flags(HPB_PALLAS_KDE_FIT="1"):
+        n = entry.meshed_checkpoint_round_trip(entry.dryrun_mesh(DRYRUN_POSITIONS, dev))
+    print(f"dryrun: fused mesh checkpoint/resume with the moments fit OK ({n} runs, "
+          f"resume == uninterrupted bitwise)", flush=True)
+    t_fit = time.perf_counter() - t0 - t_body
+    t1 = time.perf_counter()
+    forwarded = io.StringIO()
+    with contextlib.redirect_stdout(forwarded):
+        entry.dryrun_multichip(DRYRUN_POSITIONS, dev)  # raises unless the child exits 0
+    lines = forwarded.getvalue().splitlines()
+    for line in lines:
+        print(f"dryrun_multichip child: {line}", flush=True)
+    if sum(ln.startswith("dryrun") for ln in lines) != 9 or lines[-1] != "dryrun child: OK":
+        raise AssertionError(f"dryrun_multichip: unexpected output {lines!r}")
+    rec = dict(stages=out, body_s=t_body, moments_fit_checkpoint_s=t_fit,
+               child_s=time.perf_counter() - t1,
+               wall_s=time.perf_counter() - t0, card=card_line())
+    print("dryrun path " + json.dumps(rec), flush=True)
+    return rec
+
+
 # ------------------------------------------------------------- the examples
 def _example(module, args, expect, plan=None, launch=None, flags=None):
     """One example's drive: its module under ``hpbandster_tpu_torch.examples``,
@@ -5548,6 +5719,12 @@ def drive_examples(torch, dev, workdir):
     return rows, recorded
 
 
+def phase_seconds(number, name, t0):
+    """One ``phase seconds`` line: a phase's wall seconds since ``t0``."""
+    print("phase seconds " + json.dumps(dict(
+        phase=number, name=name, s=time.perf_counter() - t0)), flush=True)
+
+
 def build_kernels():
     """Phase 1: one nvcc per kernel source, all started together."""
     from hpbandster_tpu_torch.ops import _build
@@ -5605,7 +5782,9 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    phase_t0 = time.perf_counter()
     build_kernels()
+    phase_seconds("1", "build", phase_t0)
     if args.cache_pressure:
         try:
             measure_cache_pressure(torch, dev)
@@ -5616,8 +5795,10 @@ def main(argv=None) -> int:
         return 0
 
     # phase 2: kernels against plain versions at scale checks
+    phase_t0 = time.perf_counter()
     checks = {"kde_score": check_kde_score(torch, dev),
               "kde_moments": check_kde_moments(torch, dev)}
+    phase_seconds("2", "kernels at scale", phase_t0)
 
     # phases 3 and 4: each main path with the counts reset just before and
     # read just after, every launch's inputs recorded
@@ -5707,8 +5888,13 @@ def main(argv=None) -> int:
         "ring_attention": drive_ring_attention,
         "transformer_seq_parallel": drive_transformer_seq_parallel,
         "ring_one_rank": drive_ring_one_rank,
+        # the root entry's counterpart: the tensor-parallel step at full
+        # width, the multichip dry run
+        "tensor_parallel": drive_tensor_parallel,
+        "dryrun": drive_dryrun,
     }
     launches, recorded, results, seconds = {}, [], {}, {}
+    phase_t0 = time.perf_counter()
     for path, drive in paths.items():
         # each path builds and captures its own sweeps (and records their
         # launches); cached graphs hold their memory pools until dropped
@@ -5743,15 +5929,19 @@ def main(argv=None) -> int:
         if not facts[path]["kde_moments_discrete_cards"]:
             raise AssertionError(f"{path}: no kde_moments launch saw discrete cards")
 
+    phase_seconds("3-4", "main paths", phase_t0)
+
     # phase 4b: the examples, each with its counts reset and read the same way
     example_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
     atexit.register(shutil.rmtree, example_dir, True)
     t0 = time.perf_counter()
     examples, example_records = drive_examples(torch, dev, example_dir)
     print(f"examples phase seconds {time.perf_counter() - t0:.3f}", flush=True)
+    phase_seconds("4b", "examples", t0)
     recorded += example_records
 
     # phase 5: resume on the card equals the uninterrupted chunked runs
+    phase_t0 = time.perf_counter()
     check_resume(torch, dev, "hartmann6_chunked", results["chunked"], chunked_optimizer)
     check_resume(torch, dev, "conditional_chunked", results["conditional_chunked"],
                  cond_optimizer)
@@ -5783,9 +5973,13 @@ def main(argv=None) -> int:
     measure_cache_memory(torch, dev)
     measure_cache_pressure(torch, dev)
     check_exporter_and_collector(torch, dev)
+    phase_seconds("5", "parity and measurements", phase_t0)
 
     # phase 6: kernels against plain versions on the main paths' own inputs
+    phase_t0 = time.perf_counter()
     held = check_recorded_launches(torch, recorded)
+    phase_seconds("6", "kernels on the main paths' inputs", phase_t0)
+    phase_t0 = time.perf_counter()
 
     profiled = {}
     if args.profile:
@@ -5821,6 +6015,7 @@ def main(argv=None) -> int:
             device_ms_by_path={p: r["device_ms"] for p, r in per_path.items()},
             host_ms_by_path={p: r["host_ms"] for p, r in per_path.items()},
         ))
+    phase_seconds("7", "profiles, launch floor, result lines", phase_t0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -136,6 +136,38 @@ def _visible_cuda() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _group_positions(devices: Optional[Sequence], group):
+    """The devices every rank of ``group`` names, rank by rank, and the
+    owning rank of each: each rank names its own local devices (default:
+    its current CUDA device), and every rank must name as many. A
+    collective call: every rank of the group makes it."""
+    import torch.distributed as dist
+
+    local = [str(_normalize(d)) for d in (
+        devices if devices is not None
+        else [torch.device("cuda", torch.cuda.current_device())])]
+    per_rank: List[Optional[List[str]]] = [None] * dist.get_world_size(group)
+    dist.all_gather_object(per_rank, local, group=group)
+    if len({len(p) for p in per_rank}) != 1:
+        raise ValueError(
+            f"every rank must name as many local devices, got {[len(p) for p in per_rank]}")
+    flat = [torch.device(d) for p in per_rank for d in p]
+    ranks = [r for r, p in enumerate(per_rank) for _ in p]
+    return flat, ranks
+
+
+def _default_group(devices, process_group):
+    """``process_group``, or the default group where no devices are named
+    after ``parallel.multihost.initialize_multihost`` joined a group of
+    several ranks; None in one process."""
+    import torch.distributed as dist
+
+    if (process_group is None and devices is None and dist.is_available()
+            and dist.is_initialized() and dist.get_world_size() > 1):
+        return dist.group.WORLD
+    return process_group
+
+
 def config_mesh(devices: Optional[Sequence] = None, axis_name: str = "config",
                 process_group=None) -> Mesh:
     """1-D mesh over ``devices``; without them, over every visible CUDA
@@ -148,45 +180,50 @@ def config_mesh(devices: Optional[Sequence] = None, axis_name: str = "config",
     then names its own local devices (default: its current CUDA device);
     every rank must name as many, and the mesh lists them rank by rank.
     This is a collective call: every rank of the group makes it."""
-    import torch.distributed as dist
-
-    group = process_group
-    if (group is None and devices is None and dist.is_available()
-            and dist.is_initialized() and dist.get_world_size() > 1):
-        group = dist.group.WORLD
+    group = _default_group(devices, process_group)
     if group is None:
         devices = list(devices) if devices is not None else _visible_cuda()
         return Mesh(_object_array([_normalize(d) for d in devices], (len(devices),)),
                     (axis_name,))
-    local = [str(_normalize(d)) for d in (
-        devices if devices is not None
-        else [torch.device("cuda", torch.cuda.current_device())])]
-    per_rank: List[Optional[List[str]]] = [None] * dist.get_world_size(group)
-    dist.all_gather_object(per_rank, local, group=group)
-    if len({len(p) for p in per_rank}) != 1:
-        raise ValueError(
-            f"every rank must name as many local devices, got {[len(p) for p in per_rank]}")
-    flat = [torch.device(d) for p in per_rank for d in p]
-    ranks = [r for r, p in enumerate(per_rank) for _ in p]
+    flat, ranks = _group_positions(devices, group)
     return Mesh(_object_array(flat, (len(flat),)), (axis_name,), ranks=ranks,
                 process_group=group)
 
 
 def config_model_mesh(config_parallel: Optional[int] = None,
-                      devices: Optional[Sequence] = None) -> Mesh:
+                      devices: Optional[Sequence] = None,
+                      process_group=None) -> Mesh:
     """2-D ``("config", "model")`` mesh: configs split over ``config``,
-    each model over ``model``. The port's objectives are not
-    model-parallel, so the model axis replicates each config shard: the
-    shard's rows run on the first device of its model row."""
-    devices = list(devices) if devices is not None else _visible_cuda()
-    n = len(devices)
+    each model over ``model``. The model axis splits the tensor-parallel
+    MLP step (``parallel/tensor_parallel.py``, the hidden dims as the
+    reference's root entry module shards them) and replicates everywhere
+    else: the port's objectives are not model-parallel, so a config
+    shard's rows run on the first device of its model row.
+
+    The positions fill the grid row by row from the device list: without
+    ``devices`` every visible CUDA device (raises where there is none).
+    Over ``torch.distributed`` ranks (``process_group``, or the default
+    group as :func:`config_mesh` takes it) the list is every rank's local
+    devices, rank by rank, and each position remembers its rank: with one
+    device a rank and ``config_parallel=1`` the model axis spans the
+    ranks, with a rank's devices filling a row each the config axis does.
+    ``config_parallel`` defaults to every position."""
+    group = _default_group(devices, process_group)
+    ranks = None
+    if group is None:
+        flat = [_normalize(d) for d in (list(devices) if devices is not None
+                                        else _visible_cuda())]
+    else:
+        flat, ranks = _group_positions(devices, group)
+    n = len(flat)
     if config_parallel is None:
         config_parallel = n
     if n % config_parallel != 0:
         raise ValueError(f"{n} devices not divisible by config_parallel={config_parallel}")
-    return Mesh(_object_array([_normalize(d) for d in devices],
-                              (config_parallel, n // config_parallel)),
-                ("config", "model"))
+    shape = (config_parallel, n // config_parallel)
+    return Mesh(_object_array(flat, shape), ("config", "model"),
+                ranks=None if ranks is None else np.reshape(ranks, shape),
+                process_group=group)
 
 
 def shard_count(mesh: Optional[Mesh], axis: str = "config") -> int:

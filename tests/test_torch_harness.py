@@ -608,6 +608,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.analysis.rules",
     "hpbandster_tpu_torch.convert",
     "hpbandster_tpu_torch.device",
+    "hpbandster_tpu_torch.entry",
     "hpbandster_tpu_torch.obs",
     "hpbandster_tpu_torch.obs.__main__",
     "hpbandster_tpu_torch.obs.alerts",
@@ -672,6 +673,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.parallel.dispatcher",
     "hpbandster_tpu_torch.parallel.mesh",
     "hpbandster_tpu_torch.parallel.multihost",
+    "hpbandster_tpu_torch.parallel.tensor_parallel",
     "hpbandster_tpu_torch.parallel.rpc",
     "hpbandster_tpu_torch.serve",
     "hpbandster_tpu_torch.serve.continuous",
@@ -777,12 +779,14 @@ _EXAMPLE_ARGS = {"example_4_cluster": ["--master", "--shared_directory", "."]}
 
 
 @pytest.mark.parametrize("script", [["chip_smoke.py"],
-                                    ["compare_kernels.py", "--root", "."]] + [
+                                    ["compare_kernels.py", "--root", "."],
+                                    ["-m", "hpbandster_tpu_torch.entry"]] + [
     ["-m", f"hpbandster_tpu_torch.examples.{m}", *_EXAMPLE_ARGS.get(m, [])]
     for m in EXAMPLE_MODULES], ids=lambda s: s[0] if s[0] != "-m" else s[1].rsplit(".", 1)[1])
 def test_card_scripts_fail_without_a_card(script):
     """The scripts that need a CUDA card exit non-zero and print no result
-    where there is none; so does every example without ``--device cpu``."""
+    where there is none; so do the entry module and every example without
+    ``--device cpu``."""
     proc = subprocess.run(
         [sys.executable, *script], cwd=REPO, capture_output=True, text=True,
         timeout=120, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
