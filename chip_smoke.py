@@ -261,6 +261,22 @@ Phases, each fatal on failure:
    HyperBand plan, and have finite losses; examples 1, 7 and 8 must launch
    the scorer, example 8 chunked the moments kernel; one ``example`` line
    each, with its seconds;
+4c. the kernel cache (``utils/compile_cache.py``) across four fresh
+   interpreters (``--compile-cache-child``, a copy of this script outside
+   the checkout), each running ``batched_bohb_in_trace``'s setting, whose
+   kernels build at their first launch: ``cold`` on a new empty
+   ``HPB_XLA_CACHE_DIR`` builds both and leaves two libraries, ``warm`` on
+   the same directory builds none and leaves their mtimes, ``off``
+   (``HPB_XLA_CACHE=0``) builds both into a private directory that is gone
+   once it exits, ``installed`` (a copy of the package in a ``site/`` with
+   no ``setup.py``, a new ``HOME``, no knob) builds under
+   ``$HOME/.cache/hpbandster_tpu_torch_kernels`` and writes nothing under
+   ``site/`` (cold, then warm, each alone, then off and installed side by
+   side); every child launches both kernels, and their runs are bit for
+   bit cold's and this process's ``batched_bohb_in_trace`` run; one
+   ``compile_cache path`` line with each child's seconds to its CUDA
+   context and to its ``Result``, nvcc seconds and launches (this process
+   launches nothing in the phase);
 5. resume on the card: each chunked sweep (Hartmann-6 and conditional) cut
    after 4 brackets with a checkpoint, loaded into a fresh optimizer and run
    to 10, must equal its uninterrupted run exactly (configs, losses,
@@ -324,7 +340,7 @@ Phases, each fatal on failure:
    line.
 
 Each phase prints one ``phase seconds`` line with its wall seconds (1 the
-build, 2, 3-4 the main paths, 4b, 5, 6 and 7); the main paths' seconds
+build, 2, 3-4 the main paths, 4b, 4c, 5, 6 and 7); the main paths' seconds
 are also printed by path.
 
 There is no gate on the first bracket's stage 0: when the incumbent comes
@@ -5719,6 +5735,188 @@ def drive_examples(torch, dev, workdir):
     return rows, recorded
 
 
+# ---------------------------------------------------------- the kernel cache
+#: each compile_cache child's time limit, seconds
+COMPILE_CACHE_CHILD_S = 240
+#: the children's objective: batched_bohb_in_trace's setting, both kernels
+COMPILE_CACHE_BRACKETS = 10
+KERNEL_CACHE_HOME = Path(".cache") / "hpbandster_tpu_torch_kernels"
+
+
+def card_settings(torch):
+    """The numerics every run of this script takes: no TF32, deterministic
+    cuDNN algorithms (a conv workload's resident run equals its unrolled run
+    bit for bit only with these)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def runs_digest(res):
+    """A digest of a ``Result``'s runs (config, budget, loss, the config's
+    values) and its runs per budget."""
+    import hashlib
+
+    rows = sorted(_runs(res).items())
+    per_budget = {}
+    for (_, budget), _ in rows:
+        per_budget[str(budget)] = per_budget.get(str(budget), 0) + 1
+    blob = json.dumps(rows, sort_keys=True, default=repr).encode()
+    return hashlib.sha256(blob).hexdigest(), per_budget
+
+
+def compile_cache_child(torch, dev, spawned_at, n_iterations):
+    """``--compile-cache-child``: a fresh interpreter's
+    ``batched_bohb_in_trace`` run (both kernels build at their first launch
+    unless the kernel cache holds them), then one ``compile_cache child``
+    line: seconds from the spawn to the CUDA context and to the ``Result``,
+    nvcc seconds and the libraries built, launches, the cache directory in
+    use, the package's file and the runs' digest."""
+    import hpbandster_tpu_torch
+    from hpbandster_tpu_torch.ops import _build, cuda_kde
+    from hpbandster_tpu_torch.utils.compile_cache import enable_persistent_compile_cache
+
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    to_cuda = time.monotonic() - spawned_at
+    with env_flags(HPB_PALLAS_KDE_FIT="1", HPB_USE_PALLAS="1"):
+        opt = batched_optimizer(dev, "BOHB", in_trace_refit=True)
+        res = opt.run(n_iterations=n_iterations)
+        torch.cuda.synchronize(dev)
+    to_result = time.monotonic() - spawned_at
+    opt.shutdown()
+    digest, per_budget = runs_digest(res)
+    print("compile_cache child " + json.dumps(dict(
+        to_cuda_s=to_cuda, to_result_s=to_result, nvcc_s=dict(_build.BUILD_SECONDS),
+        built=sorted(_build.BUILD_LOG), launches=dict(cuda_kde.LAUNCHES),
+        enabled=enable_persistent_compile_cache(), cache_dir=str(_build.build_dir()),
+        package_file=hpbandster_tpu_torch.__file__, runs_digest=digest,
+        runs_per_budget=per_budget, n_iterations=n_iterations)), flush=True)
+
+
+def run_compile_cache_child(label, script, cwd, env):
+    """One child of the ``compile_cache`` path; its line's record with the
+    parent's wall seconds around it. The child's seconds count from the
+    parent's ``time.monotonic()`` at the spawn (Linux's monotonic clock is
+    one clock for every process of the machine)."""
+    spawned = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, str(script), "--compile-cache-child", "--spawned-at", repr(spawned)],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=COMPILE_CACHE_CHILD_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("compile_cache child ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"compile_cache {label}: child exited {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    rec = json.loads(lines[0][len("compile_cache child "):])
+    rec["wall_s"] = time.monotonic() - spawned
+    return rec
+
+
+def library_mtimes(directory):
+    """``{name: mtime_ns}`` of the files in ``directory``."""
+    return {p.name: p.stat().st_mtime_ns for p in Path(directory).iterdir()}
+
+
+def tree_files(root):
+    """The files under ``root``, bytecode caches left out."""
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*")
+                  if "__pycache__" not in p.parts)
+
+
+def drive_compile_cache(torch, dev):
+    """The kernel cache (``utils/compile_cache.py``) across fresh
+    interpreters, each running ``batched_bohb_in_trace``'s setting through
+    ``--compile-cache-child`` from a copy of this script outside the
+    checkout: ``cold`` on a new empty ``HPB_XLA_CACHE_DIR`` builds both
+    kernels and leaves two libraries; ``warm`` on it builds none and leaves
+    their mtimes; ``off`` (``HPB_XLA_CACHE=0``) builds both into a private
+    directory gone once it exits and leaves the shared one as it was;
+    ``installed`` runs a copy of the package in a ``site/`` with no
+    ``setup.py`` (``PYTHONPATH``, a new ``HOME``, no cache knob) and builds
+    under ``$HOME/.cache`` only; off and installed run side by side. Every
+    child launches both kernels, and their runs are bit-identical with each
+    other and with this process's ``batched_bohb_in_trace`` run when that
+    ran. This process launches nothing."""
+    import hpbandster_tpu_torch
+
+    repo = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_compile_cache_"))
+    atexit.register(shutil.rmtree, work, True)
+    script = work / "bin" / "chip_smoke.py"
+    script.parent.mkdir()
+    shutil.copy2(__file__, script)
+    site, home, shared, tmp = (work / n for n in ("site", "home", "shared", "tmp"))
+    shutil.copytree(Path(hpbandster_tpu_torch.__file__).parent, site / "hpbandster_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for d in (home, shared, tmp):
+        d.mkdir()
+    base = {k: v for k, v in os.environ.items() if not k.startswith("HPB_XLA_CACHE")}
+    base.update(TMPDIR=str(tmp))
+    checkout = dict(base, PYTHONPATH=str(repo))
+    both = ["kde_moments", "kde_score"]
+
+    def gate(label, rec, ok, what):
+        if not ok:
+            raise AssertionError(f"compile_cache {label}: {what}: {json.dumps(rec)}")
+
+    children = {}
+    rec = children["cold"] = run_compile_cache_child(
+        "cold", script, work, dict(checkout, HPB_XLA_CACHE_DIR=str(shared)))
+    libs = library_mtimes(shared)
+    gate("cold", rec, rec["built"] == both, "did not build both kernels")
+    gate("cold", rec, rec["enabled"] == rec["cache_dir"] == str(shared), "cache directory")
+    gate("cold", rec, sorted(n.split("-")[0] for n in libs) == ["libkde_moments", "libkde_score"]
+         and all(n.endswith(".so") for n in libs), f"libraries left {sorted(libs)}")
+    gate("cold", rec, all(rec["launches"].get(k, 0) > 0 for k in both), "a kernel never launched")
+    twin = BATCHED_RUNS.get("batched_bohb_in_trace")
+    if twin is not None:
+        gate("cold", rec, rec["runs_digest"] == runs_digest(twin[1])[0],
+             "runs differ from this process's batched_bohb_in_trace run")
+
+    rec = children["warm"] = run_compile_cache_child(
+        "warm", script, work, dict(checkout, HPB_XLA_CACHE_DIR=str(shared)))
+    gate("warm", rec, rec["built"] == [] and not rec["nvcc_s"], "built again")
+    gate("warm", rec, library_mtimes(shared) == libs, "the libraries changed")
+
+    # off and installed share nothing: they run side by side, to keep the
+    # phase short; cold and warm, whose difference is the cache's, run alone
+    before = tree_files(site)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        off = pool.submit(run_compile_cache_child, "off", script, work, dict(
+            checkout, HPB_XLA_CACHE="0", HPB_XLA_CACHE_DIR=str(shared)))
+        installed = pool.submit(run_compile_cache_child, "installed", script, work, dict(
+            base, PYTHONPATH=str(site), HOME=str(home)))
+        children["off"], children["installed"] = off.result(), installed.result()
+
+    rec = children["off"]
+    gate("off", rec, rec["enabled"] == "" and rec["built"] == both, "did not build both kernels")
+    gate("off", rec, Path(rec["cache_dir"]).parent == tmp and not Path(rec["cache_dir"]).exists(),
+         "the private directory outlived the child")
+    gate("off", rec, library_mtimes(shared) == libs, "the shared directory changed")
+
+    rec = children["installed"]
+    gate("installed", rec, Path(rec["package_file"]).parent.parent == site,
+         "the package did not import from site/")
+    gate("installed", rec, rec["enabled"] == rec["cache_dir"] == str(home / KERNEL_CACHE_HOME)
+         and rec["built"] == both, "did not build both kernels under $HOME/.cache")
+    gate("installed", rec, len(library_mtimes(home / KERNEL_CACHE_HOME)) == 2,
+         "libraries under $HOME/.cache")
+    gate("installed", rec, tree_files(site) == before, "wrote under site/")
+
+    for label, rec in children.items():
+        gate(label, rec, rec["runs_digest"] == children["cold"]["runs_digest"],
+             "runs differ from cold's")
+        gate(label, rec, rec["launches"] == children["cold"]["launches"],
+             "launches differ from cold's")
+    out = dict(children=children,
+               cold_minus_warm_s=children["cold"]["to_result_s"] - children["warm"]["to_result_s"],
+               card=card_line())
+    print("compile_cache path " + json.dumps(out), flush=True)
+    return out
+
+
+
 def phase_seconds(number, name, t0):
     """One ``phase seconds`` line: a phase's wall seconds since ``t0``."""
     print("phase seconds " + json.dumps(dict(
@@ -5757,6 +5955,12 @@ def main(argv=None) -> int:
     parser.add_argument("--cache-pressure", action="store_true",
                         help="build the kernels and run the cache_pressure phase alone "
                              "(to compare checkouts), then stop without a result line")
+    parser.add_argument("--compile-cache-child", action="store_true",
+                        help="one child of the compile_cache path (a fresh interpreter's "
+                             "batched_bohb_in_trace run), then stop without a result line")
+    parser.add_argument("--spawned-at", type=float, default=None,
+                        help="with --compile-cache-child: the parent's time.monotonic() at "
+                             "the spawn")
     args = parser.parse_args(argv)
 
     import torch
@@ -5764,17 +5968,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.compile_cache_child:
+        card_settings(torch)
+        compile_cache_child(torch, torch.device("cuda", 0), args.spawned_at,
+                            COMPILE_CACHE_BRACKETS)
+        return 0
     from hpbandster_tpu_torch.ops import cuda_kde
     from hpbandster_tpu_torch.optimizers import fused_bohb
     from hpbandster_tpu_torch.parallel import multihost
     from hpbandster_tpu_torch.workloads.toys import hartmann6
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # deterministic cuDNN algorithms: a conv workload's resident run equals
-    # its unrolled run bit for bit only with these
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    card_settings(torch)
     dev = torch.device("cuda", 0)
     global JOURNAL_DIR
     JOURNAL_DIR = tempfile.mkdtemp(prefix="chip_smoke_journal_")
@@ -5939,6 +6143,16 @@ def main(argv=None) -> int:
     print(f"examples phase seconds {time.perf_counter() - t0:.3f}", flush=True)
     phase_seconds("4b", "examples", t0)
     recorded += example_records
+
+    # phase 4c: the kernel cache across fresh interpreters; this process
+    # launches nothing, the children's launches are on their own lines
+    t0 = time.perf_counter()
+    for name in cuda_kde.LAUNCHES:
+        cuda_kde.LAUNCHES[name] = 0
+    drive_compile_cache(torch, dev)
+    if any(cuda_kde.LAUNCHES.values()):
+        raise AssertionError(f"compile_cache: this process launched {cuda_kde.LAUNCHES}")
+    phase_seconds("4c", "compile cache", t0)
 
     # phase 5: resume on the card equals the uninterrupted chunked runs
     phase_t0 = time.perf_counter()

@@ -1,8 +1,8 @@
 """Worker — the user-code evaluation plugin, host tier.
 
-Ported from ``hpbandster_tpu/core/worker.py``, a copy without the persistent
-compile-cache call: the port's kernels are built once by nvcc into
-``build/torch_kernels/`` and persist there.
+Ported from ``hpbandster_tpu/core/worker.py``, a copy; its persistent
+compile cache is the port's kernel cache (``utils/compile_cache.py``), which
+holds the nvcc libraries of the kernels.
 
 API-compatible with the reference's ``core/worker.py`` (SURVEY.md §2):
 subclass, implement ``compute(config_id, config, budget,
@@ -118,6 +118,14 @@ class Worker:
         until shutdown."""
         if self.nameserver is None:
             raise RuntimeError("no nameserver specified (or credentials loaded)")
+        # compute() may launch the port's kernels: point their builds at the
+        # shared kernel cache first, so a restarted worker runs no nvcc
+        # (HPB_XLA_CACHE=0 opts out)
+        from hpbandster_tpu_torch.utils.compile_cache import (
+            enable_persistent_compile_cache,
+        )
+
+        enable_persistent_compile_cache()
         if self.journal_path is not None and self._journal is None:
             # the worker's own half of the distributed story: every record
             # stamped with this process's identity (merge-ready)

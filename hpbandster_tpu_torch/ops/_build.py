@@ -3,10 +3,14 @@
 Each source in ``hpbandster_tpu_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes``; the wrappers pass device pointers and PyTorch's current stream.
-The library lands in ``<repo>/build/torch_kernels``, named by a hash of its
-source and flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is built when a module is imported:
-the first launch builds.
+The library lands in the kernel cache's directory
+(``utils/compile_cache.py``: ``<checkout>/build/torch_kernels`` in a source
+checkout, ``~/.cache/hpbandster_tpu_torch_kernels`` for an installed
+package, ``HPB_XLA_CACHE_DIR`` if set, a private directory of the process
+with ``HPB_XLA_CACHE=0``), named by a hash of its source and flags, so an
+edited source rebuilds and an unchanged one loads at once, in this process
+or the next. Nothing is built when a module is imported: the first launch
+builds.
 
 Built without ``--use_fast_math``: the scorer's parity with the reference
 rests on IEEE ``logf``/``log1pf``/``expf`` and correctly rounded division.
@@ -20,10 +24,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["BUILD_LOG", "CSRC", "build_dir", "find_nvcc", "build_library", "load_library"]
+__all__ = ["BUILD_LOG", "BUILD_SECONDS", "CSRC", "build_dir", "find_nvcc", "build_library",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS: List[str] = [
@@ -40,10 +46,16 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: compiler output of the builds this process ran (ptxas register and
 #: shared-memory report), by kernel name
 BUILD_LOG: Dict[str, str] = {}
+#: seconds of nvcc of the builds this process ran, by kernel name
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
-    return CSRC.parent.parent / "build" / "torch_kernels"
+    """The directory the next library builds into, as the kernel cache
+    resolves it for this package."""
+    from hpbandster_tpu_torch.utils import compile_cache
+
+    return compile_cache.kernel_dir(CSRC.parent)
 
 
 def find_nvcc() -> str:
@@ -81,7 +93,9 @@ def build_library(name: str) -> Path:
     os.close(fd)
     try:
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {src} (exit {proc.returncode}):\n"

@@ -33,8 +33,9 @@ replicates the batch.
 Where the reference falls back to the per-shape program on any bucketed
 failure, the port does so on the CPU only: on a card a failed bucketed
 dispatch, or a failed schedule preparation, raises, so a run meant for the
-graphs never quietly runs without them. XLA's persistent compile cache has
-no counterpart here.
+graphs never quietly runs without them. The reference's persistent compile
+cache is the port's kernel cache (``utils/compile_cache.py``): the nvcc
+libraries persist across processes, the CUDA graphs stay per process.
 
 Each fused dispatch, fused fetch and stage batch is a span on the event bus
 (``fused_dispatch``, ``fused_fetch``, ``stage_batch``): host regions around
@@ -81,6 +82,13 @@ class BatchedExecutor:
         bucket_brackets: bool = True,
         logger: Optional[logging.Logger] = None,
     ):
+        from hpbandster_tpu_torch.utils.compile_cache import (
+            enable_persistent_compile_cache,
+        )
+
+        # the executor launches the kernels: point their builds at the
+        # shared kernel cache first (idempotent; HPB_XLA_CACHE=0 opts out)
+        enable_persistent_compile_cache()
         self.backend = backend
         self.configspace = configspace
         self.fuse_brackets = bool(fuse_brackets) and hasattr(backend, "eval_fn")

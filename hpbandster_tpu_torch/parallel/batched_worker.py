@@ -2,8 +2,9 @@
 
 Ported from ``hpbandster_tpu/parallel/batched_worker.py``: the worker's
 backend is the port's ``VmapBackend`` on one device (``device=``):
-``capabilities`` reports ``devices: 1``; there is no ``static_budget=`` and
-no compile-cache call.
+``capabilities`` reports ``devices: 1``; there is no ``static_budget=``.
+The compile-cache call points the kernels' builds at the port's kernel
+cache (``utils/compile_cache.py``).
 
 This is the bridge named in the north star (SURVEY.md §0 / §2 "Task
 parallel" row): where the reference evaluates strictly one config per
@@ -87,7 +88,13 @@ class TPUBatchedWorker(Worker):
     ):
         super().__init__(run_id, **worker_kwargs)
         from hpbandster_tpu_torch.parallel.backends import VmapBackend
+        from hpbandster_tpu_torch.utils.compile_cache import (
+            enable_persistent_compile_cache,
+        )
 
+        # this worker launches the kernels on every batch: point their
+        # builds at the shared kernel cache first
+        enable_persistent_compile_cache()
         self.configspace = configspace
         if mesh == "auto":
             mesh = (config_mesh() if device is None and torch.cuda.is_available()

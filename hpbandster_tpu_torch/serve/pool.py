@@ -31,8 +31,8 @@ bracket failed raises from its flush, and a failed schedule preparation
 raises, so serving never quietly loses its device programs (a failed
 stage batch crashes its wave on both, as in ``BatchedExecutor``). A
 background build that fails keeps its error, and the next dispatch of that
-program raises it. The reference's persistent compile cache has no
-counterpart.
+program raises it. The reference's persistent compile cache is the port's
+kernel cache (``utils/compile_cache.py``), called when the pool is made.
 
 Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
 ``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
@@ -196,6 +196,11 @@ class ServePool:
         lane_mesh=None,
         logger: Optional[logging.Logger] = None,
     ):
+        from hpbandster_tpu_torch.utils.compile_cache import (
+            enable_persistent_compile_cache,
+        )
+
+        enable_persistent_compile_cache()
         self.backend = backend
         self.configspace = configspace
         self.device = getattr(backend, "device", None)

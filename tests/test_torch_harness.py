@@ -686,6 +686,7 @@ PORT_MODULES = [
     "hpbandster_tpu_torch.space.conditions",
     "hpbandster_tpu_torch.space.forbidden",
     "hpbandster_tpu_torch.utils",
+    "hpbandster_tpu_torch.utils.compile_cache",
     "hpbandster_tpu_torch.utils.lru",
     "hpbandster_tpu_torch.utils.network",
     "hpbandster_tpu_torch.utils.profiling",
