@@ -249,6 +249,18 @@ Phases, each fatal on failure:
    launch, of at least ``BATCHED_MIN_S`` candidates, per sampling wave with
    a model-based pick (under ASHA one of 64 per model-based pick), and with
    the in-trace moments fit one moments launch beside it);
+4a. after the main paths, the capture ledger's costs: one ``roofline``
+   line per program in the ledger (FLOPs and bytes counted at the capture,
+   intensity, bound, the card's floor, the median replay of its captures,
+   utilization, the kernels' share), fatal unless every captured program
+   has a costed row with bytes > 0 and no floor exceeds its median replay;
+   then chunked_long's first chunk, one ``fused_bucket`` program and a
+   teacher training chunk captured afresh, each fatal unless its captured
+   counts equal the same body's counted eagerly on the card, every
+   training step op by op (the capture reuses its first step's count),
+   integer for integer; the teacher chunk's counted FLOPs over ``workloads/flops.py``'s
+   and the chunk's capture seconds with and without counting, printed on a
+   ``roofline path`` line;
 4b. the examples (``hpbandster_tpu_torch/examples``) on the card, each
    with the launch counts reset just before and read just after: the
    twelve at ``tests/test_examples.py``'s arguments (example 4, which that
@@ -340,7 +352,7 @@ Phases, each fatal on failure:
    line.
 
 Each phase prints one ``phase seconds`` line with its wall seconds (1 the
-build, 2, 3-4 the main paths, 4b, 4c, 5, 6 and 7); the main paths' seconds
+build, 2, 3-4 the main paths, 4a, 4b, 4c, 5, 6 and 7); the main paths' seconds
 are also printed by path.
 
 There is no gate on the first bracket's stage 0: when the incumbent comes
@@ -538,20 +550,15 @@ def _score_inputs(torch, dev, seed, s, n_good, n_bad, vartypes, cards,
 
 
 def kde_score_work(cands, good, bad, vt):
-    """What the scorer's function needs on these inputs: bytes moved (each
-    input read once, the output written once), float32 operations and
-    exponentials. Per masked-in (candidate, observation) pair: 4 float32
-    operations per dim (continuous: difference, scale, square, accumulate;
-    discrete: difference, square, compare, accumulate), 3 for the
-    logsumexp update (max, subtract, add) and one exponential. The per-side
-    constants (``log bw``, ``log sqrt(2 pi)``, ``log n_eff``) factor out of
-    the logsumexp and are not counted per pair."""
+    """What the scorer's function needs on these inputs:
+    ``cuda_kde.kde_score_cost`` with this run's live rows, as ``(bytes
+    moved, float32 operations, exponentials)``."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
     s, d = cands.shape
-    n_rows = good.data.shape[0] + bad.data.shape[0]
-    live = int((good.mask > 0).sum()) + int((bad.mask > 0).sum())
-    bytes_moved = 4 * (s * d + n_rows * d + n_rows + 2 * d + 2 * d + s)
-    pairs = s * live
-    return bytes_moved, pairs * (4 * d + 3), pairs
+    cost = cuda_kde.kde_score_cost(s, d, good.data.shape[0], bad.data.shape[0],
+                                   int((good.mask > 0).sum()), int((bad.mask > 0).sum()))
+    return cost.bytes_accessed, cost.flops, cost.transcendentals
 
 
 def bound_ms(bytes_moved, flops, exps):
@@ -646,16 +653,13 @@ def check_kde_score(torch, dev):
 
 
 def kde_moments_work(data, masks):
-    """What the fit's moments and bandwidths need on these inputs: bytes
-    moved (the data, the masks and the cards read once, the [S, 3, d]
-    moments and the [S, d] bandwidths written once) and float32 operations
-    (per side, per row and dim: the masked value, its square and two
-    additions; per side and row: the count's addition; the bandwidths' few
-    per (side, dim) are not counted). No exponentials."""
-    c, d = data.shape
-    sides = masks.shape[0]
-    bytes_moved = 4 * (c * d + sides * c + d + sides * 3 * d + sides * d)
-    return bytes_moved, sides * c * (4 * d + 1), 0
+    """What the fit's moments and bandwidths need on these inputs:
+    ``cuda_kde.kde_moments_cost``, as ``(bytes moved, float32 operations,
+    exponentials)``."""
+    from hpbandster_tpu_torch.ops import cuda_kde
+
+    cost = cuda_kde.kde_moments_cost(data.shape[0], data.shape[1], masks.shape[0])
+    return cost.bytes_accessed, cost.flops, cost.transcendentals
 
 
 def _fit_cards(torch, data, cards):
@@ -3132,11 +3136,11 @@ def drive_chunked_long(torch, dev):
     from hpbandster_tpu_torch.workloads.toys import hartmann6
 
     with moments_fit_flag():
-        before = graphs.CAPTURES["sweep_chunk"]
+        before = graphs.CAPTURES["fused_sweep"]
         opt = chunked_optimizer(dev)
         res, wall = run_long(torch, dev, opt)
         gauges = obs.get_metrics().snapshot()["gauges"]
-        captured = graphs.CAPTURES["sweep_chunk"] - before
+        captured = graphs.CAPTURES["fused_sweep"] - before
     keys = chunk_keys(opt, LONG_BRACKETS, LONG_CHUNK)
     hits = [k in keys[:i] for i, k in enumerate(keys)]
     stats = opt.run_stats
@@ -3807,11 +3811,11 @@ def drive_runtime_ledger(torch, dev, n_iterations=10):
                                  build_compile_s=[s["build_compile_s"] for s in opt.run_stats],
                                  kde_events=sorted(n for n in names if "kde_" in n)[:4])
     replay_s = [ms / 1e3 for s in stats for ms in s["graph_replay_ms"]]
-    report = roofline_report(seconds_by_program={"sweep_chunk": float(np.median(replay_s))})
+    report = roofline_report(seconds_by_program={"fused_sweep": float(np.median(replay_s))})
     ledger = {(p["fn"], p["signature"]) for p in obs.get_compile_tracker().programs()}
     rows = {(p["fn"], p["signature"]) for p in report["programs"]}
     peaks = report["peak"]
-    if rows != ledger or not any(fn == "sweep_chunk" for fn, _ in rows) \
+    if rows != ledger or not any(fn == "fused_sweep" for fn, _ in rows) \
             or peaks["kind"] != torch.cuda.get_device_name(0) \
             or peaks["bytes_per_s"] is None or peaks["flops_per_s"] is None:
         raise AssertionError(f"runtime_ledger: roofline rows {len(rows)} vs ledger "
@@ -4777,11 +4781,11 @@ def drive_resident_sharded(torch, dev, sizes=(2**13, 2**17, 2**20), n_brackets=3
     bills, out = set(), {}
     for n in sizes:
         label = f"resident_sharded_{n}"
-        captures = graphs.CAPTURES["resident_round"]
+        captures = graphs.CAPTURES["fused_sweep_resident"]
         first, rec = timed_path(torch, dev, label, lambda: sharded(
             torch, dev, n_configs=n, n_brackets=n_brackets, resident=True,
             device_metrics=True, mesh=mesh, seed=0))
-        if graphs.CAPTURES["resident_round"] - captures != 1:
+        if graphs.CAPTURES["fused_sweep_resident"] - captures != 1:
             raise AssertionError(f"{label}: the resident round was not captured once")
         plan = mesh_aligned_plan(n, 1, 9, 3, 1)
         check_sharded_plan(label, first, n, 1, n_brackets)
@@ -4838,14 +4842,14 @@ def drive_sharded_model(torch, dev, n_configs=2**14, n_brackets=4):
         for shards in (1, 2):
             label = f"sharded_model_{shards}"
             mesh = config_mesh([dev] * shards)
-            captures = graphs.CAPTURES["sweep_chunk"]
+            captures = graphs.CAPTURES["fused_sweep"]
             first, first_rec = measured(torch, dev, lambda: sharded(torch, dev, mesh=mesh, **kw))
             recorded, cuda_kde.RECORD = cuda_kde.RECORD, None
             try:
                 reps = [measured(torch, dev, lambda: sharded(torch, dev, mesh=mesh, **kw))[1]
                         for _ in range(MESH_REPEATS)]
-                if graphs.CAPTURES["sweep_chunk"] - captures != 1:
-                    raise AssertionError(f"{label}: {graphs.CAPTURES['sweep_chunk'] - captures}"
+                if graphs.CAPTURES["fused_sweep"] - captures != 1:
+                    raise AssertionError(f"{label}: {graphs.CAPTURES['fused_sweep'] - captures}"
                                          " chunk programs captured, not 1")
                 build = sweep_mod.make_fused_sweep_fn
                 sweep_mod.make_fused_sweep_fn = lambda *a, **k: build(*a, _eager=True, **k)
@@ -5917,6 +5921,233 @@ def drive_compile_cache(torch, dev):
 
 
 
+# ------------------------------------------------ the cost ledger, roofline
+#: every captured program's counted cost and replay events by (label,
+#: signature), one entry per capture (``record_captures``): the graphs go
+#: with the caches each path clears, their events stay here
+CAPTURED_PROGRAMS = {}
+
+
+def record_captures():
+    """Keep each ``RoundGraph``'s counted cost and the CUDA events of its
+    replays (the deque its ``replay_ms`` reads) in ``CAPTURED_PROGRAMS``
+    for the roofline phase. Holds no graph."""
+    from hpbandster_tpu_torch.ops import graphs
+
+    init = graphs.RoundGraph.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        CAPTURED_PROGRAMS.setdefault((self.name, self.signature), []).append(
+            (self.cost, self._events))
+
+    graphs.RoundGraph.__init__ = recording_init
+
+
+def _counts(cost):
+    return cost.get("flops"), cost.get("bytes_accessed")
+
+
+def _kernel_share(cost):
+    """The hand-written kernels' share of a counted cost's FLOPs and bytes."""
+    kernels = [v for k, v in cost["by_kind"].items() if k in KERNELS]
+    return (sum(v["flops"] for v in kernels) / max(cost["flops"], 1),
+            sum(v["bytes_accessed"] for v in kernels) / max(cost["bytes_accessed"], 1))
+
+
+def roofline_lines(torch):
+    """One ``roofline`` line per program in the capture ledger: its counted
+    FLOPs and bytes, intensity, bound, the card's floor, the median replay
+    of the captures with the row's cost (``RoundGraph.replay_ms``'s
+    events), the utilization and the kernels' share. Gates: every captured
+    program has a costed row with bytes > 0, and no floor exceeds its
+    measured median replay. Returns the rows."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.obs.profile import roofline_report
+
+    torch.cuda.synchronize()
+    ledger = {(p["fn"], p["signature"]): p for p in obs.get_compile_tracker().programs()}
+    uncosted = sorted(k for k, caps in CAPTURED_PROGRAMS.items()
+                      if not (ledger.get(k, {}).get("bytes_accessed", 0) > 0
+                              and all(_counts(c)[1] for c, _ in caps)))
+    if not CAPTURED_PROGRAMS or uncosted:
+        raise AssertionError(f"roofline: captured programs without a costed ledger row: "
+                             f"{uncosted[:8]} ({len(uncosted)} of {len(CAPTURED_PROGRAMS)})")
+    replays, shares = {}, {}
+    for key, caps in CAPTURED_PROGRAMS.items():
+        row = ledger[key]
+        own = [(c, ev) for c, ev in caps
+               if _counts(c) == (row["flops"], row["bytes_accessed"])]
+        if not own:
+            raise AssertionError(f"roofline: {key}'s ledger cost is no capture's of it")
+        replays[key] = [s.elapsed_time(e) for _, ev in own for s, e in ev]
+        shares[key] = _kernel_share(own[-1][0])
+    seconds = {f"{fn}@{sig}": float(np.median(ms)) / 1e3
+               for (fn, sig), ms in replays.items() if ms}
+    report = roofline_report(seconds_by_program=seconds)
+    over, rows = [], []
+    for r in report["programs"]:
+        key = (r["fn"], r["signature"])
+        ms = replays.get(key, [])
+        median_ms = float(np.median(ms)) if ms else None
+        rec = dict(fn=r["fn"], signature=r["signature"], flops=r["flops"],
+                   bytes_accessed=r["bytes_accessed"],
+                   intensity=r["intensity_flops_per_byte"], bound=r["bound"],
+                   floor_ms=r["roofline_floor_s"] * 1e3, replay_ms_median=median_ms,
+                   replays=len(ms), captures=len(CAPTURED_PROGRAMS.get(key, ())),
+                   utilization=r.get("utilization_vs_peak"),
+                   kernel_flops_share=shares[key][0] if key in shares else None,
+                   kernel_bytes_share=shares[key][1] if key in shares else None)
+        if median_ms is not None and rec["floor_ms"] > median_ms:
+            over.append(key)
+        print("roofline " + json.dumps(rec), flush=True)
+        rows.append(rec)
+    if over:
+        raise AssertionError(f"roofline: a floor above its measured median replay: {over}")
+    return rows, report["peak"]
+
+
+def recount_chunk(torch, dev, label, make_opt, plans, d, seed=0):
+    """A chunk's program captured (its counted cost) against the same body
+    counted eagerly on the card (the ``_eager`` twin inside
+    ``count_cost(reuse_steps=False)``, after one uncounted run: every
+    training step op by op, where the capture reuses the first step's
+    count), on the warm inputs a run hands the chunk: fatal unless equal
+    integer for integer. Returns the captured graph and its ledger key."""
+    from hpbandster_tpu_torch.obs.runtime import count_cost
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    caps = pow2_capacities_of(plans)
+    fused_bohb._SWEEP_CACHE.clear()
+    opt = make_opt()
+    sweep = opt._sweep_built(plans, dynamic=True, caps=caps)[0]
+    graph = sweep.graph
+    opt._eager_sweeps = True
+    twin = opt._sweep_built(plans, dynamic=True, caps=caps)[0]
+    warm = opt._dynamic_warm(caps, d)[0]
+    twin(seed, *warm)
+    with count_cost(reuse_steps=False) as eager:
+        twin(seed, *warm)
+    torch.cuda.synchronize(dev)
+    fused_bohb._SWEEP_CACHE.clear()
+    if _counts(graph.cost) != _counts(eager) or not eager.get("bytes_accessed"):
+        raise AssertionError(f"roofline {label}: captured {_counts(graph.cost)} != eager "
+                             f"{_counts(eager)}; by kind {graph.cost.get('by_kind')} vs "
+                             f"{eager.get('by_kind')}")
+    return graph, (sweep.label, graph.signature)
+
+
+def recount_bucket(torch, dev, objective, plans, d):
+    """The first bucket program of ``plans``' bucket set captured against
+    its body run eagerly (a fresh runner's program built uncaptured) inside
+    ``count_cost(reuse_steps=False)``: fatal unless equal."""
+    from hpbandster_tpu_torch.obs.runtime import count_cost
+    from hpbandster_tpu_torch.ops.buckets import _BucketRunner, build_bucket_set
+
+    bucket = build_bucket_set(plans).buckets[0]
+    captured = _BucketRunner(objective, bucket, device=dev, device_metrics=True)
+    captured.ensure_compiled(d)
+    twin = _BucketRunner(objective, bucket, device=dev, device_metrics=True).program
+    twin.graphed = False
+    twin.ensure(d)
+    twin._body(*twin._buffers)
+    with count_cost(reuse_steps=False) as eager:
+        twin._body(*twin._buffers)
+    torch.cuda.synchronize(dev)
+    cost = captured.program.graph.cost
+    if _counts(cost) != _counts(eager) or not eager.get("bytes_accessed"):
+        raise AssertionError(f"roofline fused_bucket: captured {_counts(cost)} != eager "
+                             f"{_counts(eager)}")
+    return cost, list(bucket.widths)
+
+
+def drive_roofline(torch, dev):
+    """Phase 4a, after the main paths: the roofline lines and their gates
+    (``roofline_lines``); for chunked_long's first chunk, one ``fused_bucket``
+    program of the toy schedule and a teacher training chunk (the
+    reference's widths, budgets 1..3), the captured counts against the
+    eager twins' (fatal unless equal); the teacher chunk's counted FLOPs
+    over ``workloads/flops.py``'s analytic count and chunked_long's capture
+    seconds with and without counting (printed, not gated)."""
+    from hpbandster_tpu_torch import FusedBOHB, obs
+    from hpbandster_tpu_torch.ops.bracket import hyperband_bracket
+    from hpbandster_tpu_torch.workloads import flops, toys
+    from hpbandster_tpu_torch.workloads.teacher import (
+        TeacherConfig,
+        make_teacher_eval_fn,
+        teacher_space,
+    )
+
+    rows, peak = roofline_lines(torch)
+    before = {k: {_counts(c) for c, _ in caps} for k, caps in CAPTURED_PROGRAMS.items()}
+    with moments_fit_flag():
+        plans = [chunked_optimizer(dev)._plan(i) for i in range(LONG_CHUNK)]
+        chunk, key = recount_chunk(torch, dev, "chunked_long", lambda: chunked_optimizer(dev),
+                                   plans, 6)
+        if _counts(chunk.cost) not in before.get(key, ()):
+            raise AssertionError(f"roofline: chunked_long's first chunk {key} was not captured "
+                                 f"with this cost in the main paths ({before.get(key)})")
+        # the capture's host seconds with the counting, without, and with
+        capture_s = {"counted": [chunk.capture_s], "uncounted": []}
+        for counted in (False, True):
+            obs.set_enabled(counted)
+            try:
+                again = capture_chunk(lambda: chunked_optimizer(dev), plans)
+            finally:
+                obs.set_enabled(True)
+            capture_s["counted" if counted else "uncounted"].append(again.capture_s)
+    bucket_cost, widths = recount_bucket(
+        torch, dev, fresh_objective(toys.hartmann6),
+        [hyperband_bracket(i, 1.0, 81.0, 3.0) for i in range(5)], 6)
+    cfg = TeacherConfig()
+    teacher_fn = make_teacher_eval_fn(cfg, device=dev)
+
+    def teacher_opt():
+        return FusedBOHB(configspace=teacher_space(seed=0), eval_fn=teacher_fn, min_budget=1,
+                         max_budget=3, eta=3, seed=0, device=dev)
+
+    t_plans = [teacher_opt()._plan(0)]
+    teacher, _ = recount_chunk(torch, dev, "teacher", teacher_opt, t_plans, 4)
+    analytic = flops.teacher_epoch_flops(cfg) * sum(
+        n * b for p in t_plans for n, b in zip(p.num_configs, p.budgets))
+    rec = dict(programs=len(rows), captures=sum(map(len, CAPTURED_PROGRAMS.values())),
+               peak=peak, card=card_line(),
+               chunked_long_chunk=dict(signature=key[1], flops=chunk.cost["flops"],
+                                       bytes_accessed=chunk.cost["bytes_accessed"],
+                                       kernel_share=_kernel_share(chunk.cost),
+                                       capture_s=capture_s),
+               fused_bucket=dict(widths=widths, flops=bucket_cost["flops"],
+                                 bytes_accessed=bucket_cost["bytes_accessed"]),
+               teacher_chunk=dict(plans=[list(p.num_configs) for p in t_plans],
+                                  flops=teacher.cost["flops"],
+                                  bytes_accessed=teacher.cost["bytes_accessed"],
+                                  matmul_flops=teacher.cost["by_kind"]["matmul"]["flops"],
+                                  analytic_training_flops=analytic,
+                                  counted_over_analytic=teacher.cost["flops"] / analytic,
+                                  matmul_over_analytic=(
+                                      teacher.cost["by_kind"]["matmul"]["flops"] / analytic),
+                                  kernel_share=_kernel_share(teacher.cost)))
+    print("roofline path " + json.dumps(rec), flush=True)
+    return rec
+
+
+def pow2_capacities_of(plans):
+    """The chunk capacities a run gives ``plans`` from empty buffers."""
+    from hpbandster_tpu_torch.ops.sweep import plan_additions, pow2_capacities
+
+    return pow2_capacities(plan_additions(plans))
+
+
+def capture_chunk(make_opt, plans):
+    """A fresh capture of the chunk program over ``plans``: its graph."""
+    from hpbandster_tpu_torch.optimizers import fused_bohb
+
+    fused_bohb._SWEEP_CACHE.clear()
+    graph = make_opt()._sweep_built(plans, dynamic=True, caps=pow2_capacities_of(plans))[0].graph
+    fused_bohb._SWEEP_CACHE.clear()
+    return graph
+
+
 def phase_seconds(number, name, t0):
     """One ``phase seconds`` line: a phase's wall seconds since ``t0``."""
     print("phase seconds " + json.dumps(dict(
@@ -6098,6 +6329,7 @@ def main(argv=None) -> int:
         "dryrun": drive_dryrun,
     }
     launches, recorded, results, seconds = {}, [], {}, {}
+    record_captures()
     phase_t0 = time.perf_counter()
     for path, drive in paths.items():
         # each path builds and captures its own sweeps (and records their
@@ -6134,6 +6366,11 @@ def main(argv=None) -> int:
             raise AssertionError(f"{path}: no kde_moments launch saw discrete cards")
 
     phase_seconds("3-4", "main paths", phase_t0)
+
+    # phase 4a: the capture ledger's costs, the roofline, the recounts
+    phase_t0 = time.perf_counter()
+    drive_roofline(torch, dev)
+    phase_seconds("4a", "roofline", phase_t0)
 
     # phase 4b: the examples, each with its counts reset and read the same way
     example_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")

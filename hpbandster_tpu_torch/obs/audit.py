@@ -29,9 +29,9 @@ win rate and promotion-regret tables from.
 
 Emission goes through the event bus, so the no-sink cost is the usual
 ~zero, and audit call sites never stamp ``trace_id``/``host`` by hand.
-The straggler ledger (:func:`note_straggler`) is fed by the reference's
-anomaly detector, which the port has not yet; the ledger and its drain
-into ``promotion_decision`` records are here already.
+The straggler ledger (:func:`note_straggler`) is fed by the anomaly
+detector (``obs/anomaly.py``) and drains into ``promotion_decision``
+records.
 """
 
 from __future__ import annotations

@@ -116,9 +116,10 @@ _LABEL_RULES: Tuple[Tuple[re.Pattern, str, object], ...] = (
      "master_job_run_s_budget", "budget"),
     (re.compile(r"^runtime\.compiles\.(?P<label>.+)$", re.DOTALL),
      "runtime_fn_compiles", "fn"),
-    # roofline/cost families (obs/runtime.py _TrackedLowered cost
-    # analysis): per-program FLOPs and bytes re-expressed as one labeled
-    # family each, so a scraper can sum/aggregate across functions
+    # roofline/cost families (obs/runtime.py CompileTracker.record, fed by
+    # each capture's count_cost): per-program FLOPs and bytes re-expressed
+    # as one labeled family each, so a scraper can sum/aggregate across
+    # functions
     (re.compile(r"^runtime\.flops\.(?P<label>.+)$", re.DOTALL),
      "runtime_fn_flops", "fn"),
     (re.compile(r"^runtime\.bytes_accessed\.(?P<label>.+)$", re.DOTALL),

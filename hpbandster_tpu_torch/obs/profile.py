@@ -7,15 +7,17 @@ Ported from ``hpbandster_tpu/obs/profile.py``:
   return JSON-serializable dicts and report errors as ``{"ok": False,
   "error": ...}``, never as exceptions: a profiling request must not take
   a serving process down.
-* :func:`roofline_report` — one row per program in the capture ledger
-  (:class:`~hpbandster_tpu_torch.obs.runtime.CompileTracker`), with its
-  captures and capture seconds, and the measured seconds a caller passes
-  in, beside the card's edges from :func:`device_peaks`: the dense bf16
-  peak (``workloads/flops.py``) and the HBM bandwidth from the table
-  below; the CPU has neither. The reference also reads each program's
-  FLOPs and bytes from XLA's cost analysis and derives its intensity,
-  bound and utilization; a CUDA graph reports no cost, so the port's rows
-  stop at the seconds.
+* :func:`roofline_report` — walks the capture ledger
+  (:class:`~hpbandster_tpu_torch.obs.runtime.CompileTracker`), whose rows
+  carry each captured program's FLOPs and bytes as
+  :func:`~hpbandster_tpu_torch.obs.runtime.count_cost` counted them at the
+  capture, and attributes arithmetic intensity per program: which
+  programs are compute-bound and which memory-bound on this card, the
+  floor time the card's edges allow, and, given measured seconds (a
+  graph's replay time), the achieved FLOP/s and utilization of the peak.
+  Peak FLOP/s is the dense bf16 peak (``workloads/flops.py``), the HBM
+  bandwidth from the table below. The CPU has neither, so ``bound`` and
+  utilization are None there; the intensities stay exact.
 """
 
 from __future__ import annotations
@@ -194,51 +196,87 @@ def roofline_report(
     seconds_by_program: Optional[Dict[str, float]] = None,
     transfers: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
-    """One row per program in the capture ledger, beside the card's edges.
+    """Attribute FLOPs and bytes per costed program in the capture ledger.
 
     ``peaks`` defaults to :func:`device_peaks` of the default device (read
-    only when the ledger has programs). ``seconds_by_program`` maps
+    only when the ledger has costed programs). ``seconds_by_program`` maps
     ``"fn"`` or ``"fn@signature"`` to measured execution seconds (a
-    graph's replay time), reported as ``measured_s``. A CUDA graph reports
-    no FLOPs or bytes, so the rows carry no intensity, bound or
-    utilization. Deterministic: rows sort by (fn, signature)."""
+    graph's replay time): where given, the program's achieved FLOP/s and
+    utilization of the peak are estimated (the measured half of the
+    roofline; without it only the counted half renders).
+
+    A program captured uncosted (the obs layer off) has no row; a caveat
+    counts them. Deterministic: rows sort by (fn, signature)."""
     from hpbandster_tpu_torch.obs.runtime import get_compile_tracker
 
     trk = tracker if tracker is not None else get_compile_tracker()
-    entries = trk.programs()
-    if peaks is None and entries:
+    costed = trk.program_costs()
+    # captures taken with the obs layer off carry no count: no row, but
+    # the report says how many it left out
+    uncosted = len(trk.programs()) - len(costed)
+    if peaks is None and costed:
         peaks = device_peaks()
     peaks = peaks or {"kind": None, "flops_per_s": None, "bytes_per_s": None,
                       "ridge_flops_per_byte": None}
+    peak_f = peaks.get("flops_per_s")
+    peak_b = peaks.get("bytes_per_s")
+    ridge = peaks.get("ridge_flops_per_byte")
     programs: List[Dict[str, Any]] = []
-    for entry in entries:
+    for entry in costed:
+        flops = entry.get("flops")
+        nbytes = entry.get("bytes_accessed")
+        intensity = round(flops / nbytes, 4) if flops and nbytes else None
+        bound = None
+        if intensity is not None and ridge:
+            bound = "compute" if intensity >= ridge else "memory"
+        # the least execution time the card's edges allow: what measured
+        # seconds are judged against
+        floor_s = None
+        if flops is not None and peak_f:
+            floor_s = flops / peak_f
+        if nbytes is not None and peak_b:
+            mem_s = nbytes / peak_b
+            floor_s = mem_s if floor_s is None else max(floor_s, mem_s)
         row = {
             "fn": entry["fn"],
             "signature": entry.get("signature"),
             "compiles": entry.get("compiles"),
             "compile_s": entry.get("compile_s"),
+            "flops": flops,
+            "bytes_accessed": nbytes,
+            "intensity_flops_per_byte": intensity,
+            "bound": bound,
+            "roofline_floor_s": round(floor_s, 9) if floor_s is not None else None,
         }
         seconds = None
         if seconds_by_program:
             seconds = seconds_by_program.get(f"{entry['fn']}@{entry.get('signature')}")
             if seconds is None:
                 seconds = seconds_by_program.get(entry["fn"])
-        if seconds:
+        if seconds and flops:
+            achieved = flops / seconds
             row["measured_s"] = round(float(seconds), 6)
+            row["achieved_flops_per_s"] = round(achieved, 2)
+            if peak_f:
+                row["utilization_vs_peak"] = round(achieved / peak_f, 4)
         programs.append(row)
     programs.sort(key=lambda r: (r["fn"], str(r["signature"])))
     if transfers is None:
         transfers = transfer_summary()
-    caveats = []
-    if not peaks.get("flops_per_s"):
-        caveats.append("no peak FLOP/s table entry for this device kind")
-    if programs:
-        caveats.append("a CUDA graph reports no FLOPs or bytes (XLA's cost "
-                       "analysis has no counterpart): no per-program bound")
+    caveats = [] if peak_f else [
+        "no peak FLOP/s table entry for this device kind "
+        "(CPU backends especially): intensities are exact, but "
+        "bound/utilization columns cannot be computed"
+    ]
+    if uncosted:
+        caveats.append(f"{uncosted} program(s) in the capture ledger are uncosted "
+                       "(captured with the obs layer off): no row")
     return {
         "peak": peaks,
         "programs": programs,
         "program_count": len(programs),
+        # the host-link half: FLOPs and bytes above are what the card did,
+        # this is what crossed the host link doing it
         "transfers": transfers,
         "caveats": caveats,
     }
@@ -254,19 +292,27 @@ def format_roofline(report: Dict[str, Any]) -> str:
             _fmtnum(peak.get("ridge_flops_per_byte")),
         )
     ]
-    header = f"{'program':<60} {'captures':>8} {'capture_s':>10} {'measured_s':>11}"
+    header = (
+        f"{'program':<38} {'flops':>10} {'bytes':>10} {'FLOP/B':>8} "
+        f"{'bound':<8} {'floor_s':>11} {'util':>6}"
+    )
     lines.append(header)
     lines.append("-" * len(header))
     for row in report.get("programs") or []:
         name = row["fn"]
         if row.get("signature"):
             name = f"{name}[{row['signature']}]"
+        util = row.get("utilization_vs_peak")
         lines.append(
-            f"{name[:60]:<60} {_si(row.get('compiles')):>8} "
-            f"{_fmtnum(row.get('compile_s')):>10} {_fmtnum(row.get('measured_s')):>11}"
+            f"{name[:38]:<38} {_si(row.get('flops')):>10} "
+            f"{_si(row.get('bytes_accessed')):>10} "
+            f"{_fmtnum(row.get('intensity_flops_per_byte')):>8} "
+            f"{str(row.get('bound') or '-'):<8} "
+            f"{_fmtnum(row.get('roofline_floor_s')):>11} "
+            f"{(f'{100 * util:.1f}%' if util is not None else '-'):>6}"
         )
     if not report.get("programs"):
-        lines.append("(no programs in the capture ledger — run a captured "
+        lines.append("(no costed programs in the capture ledger — run a captured "
                      "path first, e.g. a chunked or resident sweep on a card)")
     transfers = report.get("transfers")
     if transfers:

@@ -2,8 +2,8 @@
 
 Ported from ``hpbandster_tpu/obs/trace.py`` (a copy: the port imports
 nothing of the JAX package). The RPC envelope helpers (``current_wire``,
-``extract_wire``, ``extract_tenant``) come along for the host tier, which
-the port has not yet.
+``extract_wire``, ``extract_tenant``) serve the host tier
+(``parallel/rpc.py``).
 
 A distributed BOHB run is a relay: the master mints a job, the dispatcher
 RPCs it to a worker on another host, the worker computes and RPCs the

@@ -33,7 +33,12 @@ values of the graph's latest replay.
 Each kernel's launch geometry comes from shapes alone
 (:func:`kde_score_geometry`, :func:`kde_moments_geometry`): the wrappers
 pass it to the C entry points, the tests read it, and no mask or count ever
-changes it, so the same inputs give the same bits on every run. The
+changes it, so the same inputs give the same bits on every run. Each
+kernel's work is a shape-only formula too (:func:`kde_score_cost`,
+:func:`kde_moments_cost`): the entry points count it in the open cost
+windows (``obs.runtime.count_cost``) with every buffer row live, in place
+of the ops their plain version dispatches, so a program counts the same on
+the CPU and on the card. The
 wrappers keep their host work small: inputs that are already contiguous
 float32 on the launch device pass as they are, the device context is
 entered only when it is not the current one, and nothing is queried from
@@ -51,6 +56,7 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from hpbandster_tpu_torch.obs.runtime import kernel_cost
 from hpbandster_tpu_torch.ops._build import load_library
 from hpbandster_tpu_torch.ops.kde import (
     KDE,
@@ -69,6 +75,9 @@ __all__ = [
     "kde_score_geometry",
     "MomentsGeometry",
     "kde_moments_geometry",
+    "KernelCost",
+    "kde_score_cost",
+    "kde_moments_cost",
     "score_candidates",
     "score_candidates_reference",
     "propose_from_candidates",
@@ -238,6 +247,44 @@ def kde_score_geometry(s: int, d: int, n_good: int, n_bad: int) -> ScoreGeometry
     )
 
 
+class KernelCost(NamedTuple):
+    """What one launch's function needs: float32 operations, bytes moved
+    (each input read once, each output written once) and exponentials."""
+
+    flops: int
+    bytes_accessed: int
+    transcendentals: int
+
+
+def kde_score_cost(s: int, d: int, n_good: int, n_bad: int,
+                   live_good: Optional[int] = None,
+                   live_bad: Optional[int] = None) -> KernelCost:
+    """The scorer's work for ``s`` candidates of ``d`` dims against
+    ``n_good`` and ``n_bad`` buffer rows, of which ``live_*`` are masked in
+    (default: all). Bytes: the candidates, both sides' rows, masks and
+    bandwidths, the vartypes and cards, the scores. Per live (candidate,
+    row) pair: 4 float32 operations a dim (continuous: difference, scale,
+    square, accumulate; discrete: difference, square, compare,
+    accumulate), 3 for the logsumexp update (max, subtract, add) and one
+    exponential. The per-side constants (``log bw``, ``log sqrt(2 pi)``,
+    ``log n_eff``) factor out of the logsumexp and are not counted."""
+    n = n_good + n_bad
+    pairs = s * ((n_good if live_good is None else live_good)
+                 + (n_bad if live_bad is None else live_bad))
+    return KernelCost(pairs * (4 * d + 3), 4 * (s * d + n * d + n + 4 * d + s), pairs)
+
+
+def kde_moments_cost(c: int, d: int, sides: int) -> KernelCost:
+    """The moments kernel's work for ``c`` rows of ``d`` dims under
+    ``sides`` masks: bytes for the data, the masks and the cards read once,
+    the ``[sides, 3, d]`` moments and ``[sides, d]`` bandwidths written
+    once; per side, row and dim the masked value, its square and two
+    additions, per side and row the count's addition (the bandwidths' few
+    per (side, dim) are not counted). No exponentials."""
+    return KernelCost(sides * c * (4 * d + 1),
+                      4 * (c * d + sides * c + d + sides * 3 * d + sides * d), 0)
+
+
 def _f32_on(t, device: torch.device) -> torch.Tensor:
     """``t`` as a contiguous float32 tensor on ``device``; a tensor that
     already is one passes as it is (no copy, no launch)."""
@@ -324,13 +371,19 @@ def score_candidates(
     CUDA tensors launch ``csrc/kde_score.cu``; CPU tensors take
     :func:`score_candidates_reference`. Any other device raises.
     """
+    if cands.dim() != 2:
+        raise ValueError(f"cands must be [S, d], got shape {tuple(cands.shape)}")
+    with kernel_cost("kde_score", kde_score_cost, cands.shape[0], cands.shape[1],
+                     good.data.shape[0], bad.data.shape[0]):
+        return _score_candidates(cands, good, bad, vartypes, cards)
+
+
+def _score_candidates(cands, good, bad, vartypes, cards):
     dev = cands.device
     if dev.type == "cpu":
         return score_candidates_reference(cands, good, bad, vartypes, cards)
     if dev.type != "cuda":
         raise ValueError(f"score_candidates runs on cuda or cpu, not {dev}")
-    if cands.dim() != 2:
-        raise ValueError(f"cands must be [S, d], got shape {tuple(cands.shape)}")
     cands = _f32_on(cands, dev)
     good, bad, vt, cd = _prep(good, bad, vartypes, cards, dev)
     s, d = cands.shape
@@ -679,11 +732,12 @@ def masked_moments(data: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     plain version. Any other device raises.
     """
     dev = data.device
-    if dev.type == "cpu":
-        return masked_moments_reference(data, masks)
-    if dev.type != "cuda":
-        raise ValueError(f"masked_moments runs on cuda or cpu, not {dev}")
-    return _launch_moments(data, masks)[0]
+    with kernel_cost("kde_moments", kde_moments_cost, *data.shape, masks.shape[0]):
+        if dev.type == "cpu":
+            return masked_moments_reference(data, masks)
+        if dev.type != "cuda":
+            raise ValueError(f"masked_moments runs on cuda or cpu, not {dev}")
+        return _launch_moments(data, masks)[0]
 
 
 def bandwidths_from_moments(
@@ -727,8 +781,9 @@ def moment_bandwidths(
     one_side = masks.dim() == 1
     masks2 = masks[None] if one_side else masks
     dev = data.device
-    if dev.type == "cuda":
-        bw = _launch_moments(data, masks2, cards, min_bandwidth)[1]
-    else:
-        bw = bandwidths_from_moments(masked_moments(data, masks2), cards, min_bandwidth)
-    return bw[0] if one_side else bw
+    with kernel_cost("kde_moments", kde_moments_cost, *data.shape, masks2.shape[0]):
+        if dev.type == "cuda":
+            bw = _launch_moments(data, masks2, cards, min_bandwidth)[1]
+        else:
+            bw = bandwidths_from_moments(masked_moments(data, masks2), cards, min_bandwidth)
+        return bw[0] if one_side else bw

@@ -35,19 +35,22 @@ what the program carries, and reseeding the registered generators
 (``manual_seed``, which also resets their offsets), so a replay draws what
 a fresh capture under that seed would. Every capture is recorded in the capture ledger
 (``obs/runtime.py``): the graph's name as the label, its shape signature,
-and the capture and instantiate seconds.
+the capture and instantiate seconds, and the FLOPs and bytes of one replay,
+counted op by op while the body is captured (``obs.runtime.count_cost``;
+the hand-written kernels by their shape-only formulas).
 """
 
 from __future__ import annotations
 
 import collections
+import gc
 import threading
 import time
 from typing import Callable, Dict, List, Sequence
 
 import torch
 
-from hpbandster_tpu_torch.obs.runtime import get_compile_tracker
+from hpbandster_tpu_torch.obs.runtime import count_cost, get_compile_tracker
 from hpbandster_tpu_torch.ops import cuda_kde
 
 __all__ = ["RoundGraph", "CAPTURE_LOCK", "CAPTURES", "shape_signature"]
@@ -106,15 +109,19 @@ class RoundGraph:
     nothing that matters). :meth:`replay` runs the captured program and
     counts its kernel launches in ``cuda_kde.LAUNCHES``; the capture
     itself launches nothing. ``name`` keys the process's ``CAPTURES``
-    count and, with ``signature``, the capture's ledger record. Times:
-    ``capture_s`` and ``instantiate_s`` on the host clock, :meth:`replay_ms`
-    from CUDA events around each replay."""
+    count and, with ``signature``, the capture's ledger record. ``cost``
+    is what one replay costs, counted during the capture (``flops``,
+    ``bytes_accessed`` and ``by_kind``; empty with the obs layer off).
+    Times: ``capture_s`` and ``instantiate_s`` on the host clock (the
+    capture's with the counting), :meth:`replay_ms` from CUDA events around
+    each replay."""
 
     def __init__(self, body: Callable[[], None], device,
                  generators: Sequence[torch.Generator] = (),
-                 warmup: bool = False, name: str = "resident_round",
+                 warmup: bool = False, name: str = "fused_sweep_resident",
                  signature: str = ""):
         device = torch.device(device)
+        self.name, self.signature = name, signature
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.generators = tuple(generators)
         for gen in self.generators:
@@ -129,11 +136,26 @@ class RoundGraph:
                 with torch.cuda.stream(stream):
                     body()
             t0 = time.perf_counter()
-            with cuda_kde.counting_capture() as captured:
-                with torch.cuda.graph(self.graph, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    body()
+            # no garbage collection inside the capture: a collection may
+            # destroy another graph that only a dead reference cycle still
+            # holds, and destroying a graph while this thread captures is
+            # not permitted (it invalidates the capture)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with cuda_kde.counting_capture() as captured:
+                    with torch.cuda.graph(self.graph, stream=stream,
+                                          capture_error_mode="thread_local"):
+                        # the body's ops only: the capture's own prologue
+                        # resets the registered generators' seed and offset
+                        # tensors
+                        with count_cost() as cost:  # graftlint: disable=obs-emit-in-capture,capture-escape — counts the ops once, at capture: one replay's cost; emits nothing
+                            body()
+            finally:
+                if collecting:
+                    gc.enable()
             self.capture_s = time.perf_counter() - t0
+            self.cost = cost
             #: kernel launches one replay makes, per kernel name
             self.launches = dict(captured)
             t0 = time.perf_counter()
@@ -142,7 +164,8 @@ class RoundGraph:
             CAPTURES[name] += 1
         torch.cuda.current_stream(device).wait_stream(stream)
         self._events: collections.deque = collections.deque(maxlen=_KEPT_REPLAYS)
-        get_compile_tracker().record(name, signature, self.capture_s + self.instantiate_s)
+        get_compile_tracker().record(name, signature, self.capture_s + self.instantiate_s,
+                                     cost=cost)
 
     def replay(self) -> None:
         start = torch.cuda.Event(enable_timing=True)

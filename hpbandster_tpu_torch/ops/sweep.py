@@ -71,6 +71,7 @@ from hpbandster_tpu_torch.ops.kde import (
 from hpbandster_tpu_torch.parallel.mesh import (
     _normalize,
     batch_sharding,
+    is_multiprocess_mesh,
     mesh_device,
     shard_count,
     single_device,
@@ -958,12 +959,14 @@ class _Sweep:
     previous call's copies, so two threads sharing a cached sweep never
     replay over each other's inputs or outputs, and a result stays valid
     after later calls. The graph is held here and nowhere else, so a sweep
-    dropped from a cache frees its graph at once."""
+    dropped from a cache frees its graph at once. ``label`` is the name the
+    program is recorded under in the capture ledger."""
 
-    def __init__(self, eager, capture, device):
+    def __init__(self, eager, capture, device, label):
         self._eager = eager
         self._capture = capture
         self._device = device
+        self.label = label
         self._lock = threading.Lock()
         self._run = None
         self._done = None  # the previous call's copies, as a CUDA event
@@ -1031,6 +1034,7 @@ def make_fused_sweep_fn(
     incumbent_only: bool = False,
     device_metrics: bool = False,
     stateful_eval: Optional[StatefulEval] = None,
+    program_name: Optional[str] = None,
     _eager: bool = False,
 ) -> Callable[..., List[SweepBracketOutput]]:
     """Build the sweep; returns
@@ -1077,7 +1081,7 @@ def make_fused_sweep_fn(
     redrawn row is not model-based. Every tier takes all three.
 
     On CUDA the dynamic-count tier runs as one captured CUDA graph
-    (``ops/graphs.py``, name ``sweep_chunk``) replayed once per call: the
+    (``ops/graphs.py``, recorded as ``fn.label``) replayed once per call: the
     default draws only, since a replay cannot hand a bracket index to the
     host. ``fn.prepare()`` captures it (the first call does if nobody did);
     every call copies its warm inputs into the captured buffers, reseeds
@@ -1124,6 +1128,15 @@ def make_fused_sweep_fn(
     mesh over several cards or processes the dynamic tiers run eagerly; a
     mesh that repeats one card captures as before. On a multi-process mesh
     every rank runs the same sweep and every output is replicated.
+
+    ``program_name`` overrides the base name the captured program is
+    recorded under in the capture ledger (``obs.runtime``; default
+    ``"fused_sweep"``); the resident and multi-process suffixes still apply
+    (``_resident``; ``_spmd`` on a multi-process mesh), so distinct workloads get distinct
+    ledger rows, and a benchmark finds its own program's cost in
+    ``obs.profile.roofline_report``. ``fn.label`` is that name. The static
+    tier and a sweep over several cards or processes are not captured and
+    record nothing.
     """
     if shard_sampling and mesh is None:
         raise ValueError("shard_sampling=True requires a mesh")
@@ -1575,7 +1588,7 @@ def make_fused_sweep_fn(
             metrics = fresh_metrics()
             r_idx, stacked, round_body = make_round(draws, state, inc, metrics)
             graph = RoundGraph(round_body, device, generators=draws.generators,
-                               signature=_sig(caps_sig, round_plans, flags))
+                               name=label, signature=_sig(caps_sig, round_plans, flags))
 
             def run(seed, warm_v, warm_l, warm_n):
                 _copy_into(state, init_obs_state(warm_v, warm_l, warm_n))
@@ -1607,7 +1620,7 @@ def make_fused_sweep_fn(
                                     inc, metrics, state)
 
         graph = RoundGraph(chunk_body, device, generators=draws.generators,
-                           name="sweep_chunk", signature=_sig(caps_sig, plans, flags))
+                           name=label, signature=_sig(caps_sig, plans, flags))
 
         def run(seed, warm_v, warm_l, warm_n):
             for b in caps:
@@ -1627,4 +1640,18 @@ def make_fused_sweep_fn(
 
     graphed = (device.type == "cuda" and dynamic_counts and not _eager
                and single_device(mesh))
-    return _Sweep(eager_sweep, capture if graphed else None, device)
+    label = _sweep_label(program_name, resident, is_multiprocess_mesh(mesh))
+    return _Sweep(eager_sweep, capture if graphed else None, device, label)
+
+
+def _sweep_label(program_name: Optional[str], resident: bool, multiprocess: bool) -> str:
+    """The capture ledger's label of a fused sweep, as the reference names
+    its compiled program: ``program_name`` (default ``"fused_sweep"``),
+    ``_resident`` for the resident tier, ``_spmd`` on a multi-process mesh.
+    A multi-process sweep runs uncaptured on the port, so nothing records
+    an ``_spmd`` label in the ledger: it is only the sweep's ``fn.label``,
+    the reference's name for the same program."""
+    base = program_name or "fused_sweep"
+    if multiprocess:
+        return base + ("_resident_spmd" if resident else "_spmd")
+    return base + ("_resident" if resident else "")

@@ -179,6 +179,7 @@ def run_sharded_fused_sweep(
     resident: bool = False,
     device_metrics: Optional[bool] = None,
     stateful_eval=None,
+    program_name: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Mesh-sharded fused successive halving at 100k-1M configurations.
 
@@ -211,7 +212,9 @@ def run_sharded_fused_sweep(
 
     ``stateful_eval`` (exclusive with ``eval_fn``; pass ``eval_fn=None``)
     runs the sweep over a warm-continuation ensemble
-    (``ops.fused.StatefulEval``).
+    (``ops.fused.StatefulEval``). ``program_name`` labels the captured
+    program in the capture ledger (``make_fused_sweep_fn(program_name=)``),
+    so a caller finds its own row in ``obs.profile.roofline_report``.
 
     Returns a stats dict (incumbent, per-shard balance, chunk timings).
     Multi-process: call on every rank with identical arguments over a mesh
@@ -299,6 +302,7 @@ def run_sharded_fused_sweep(
                 _moments_fit_requested(),
                 # telemetry adds outputs to the sweep
                 use_dm,
+                program_name,
             )
             cached = _SHARDED_FN_CACHE.get(cache_key)
             if cached is None:
@@ -313,6 +317,7 @@ def run_sharded_fused_sweep(
                     resident=resident,
                     device_metrics=use_dm,
                     stateful_eval=stateful_eval,
+                    program_name=program_name,
                     **sweep_kwargs,
                 )
                 prepare = getattr(cached, "prepare", None)

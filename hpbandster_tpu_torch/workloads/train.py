@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from hpbandster_tpu_torch.device import resolve_device
+from hpbandster_tpu_torch.obs.runtime import UniformSteps
 from hpbandster_tpu_torch.ops.fused import tree_leaves, tree_map
 from hpbandster_tpu_torch.space import ConfigurationSpace, UniformFloatHyperparameter
 
@@ -148,16 +149,20 @@ def momentum_sgd_steps(params, velocity, lr, momentum, wd, train, n_steps: int,
     p = [t.detach() for t in tree_leaves(params)]
     v = [t.detach() for t in tree_leaves(velocity)]
     lr_, mom_, wd_ = ([_lane_view(h, t.dim()) for t in p] for h in (lr, momentum, wd))
+    # every step dispatches the same ops on the same shapes: a cost count
+    # takes the first step's for the rest
+    steps = UniformSteps()
     for step in range(step0, step0 + int(n_steps)):
         start = (step % n_batches) * batch_size
-        xb, yb = x_tr[start:start + batch_size], y_tr[start:start + batch_size]
-        p = [t.requires_grad_(True) for t in p]
-        with torch.enable_grad():
-            losses = loss_fn(_rebuild(params, p), xb, yb)
-            grads = torch.autograd.grad(losses, p, torch.ones_like(losses))
-        with torch.no_grad():
-            v = [m * vi + g + w * pi for m, vi, g, w, pi in zip(mom_, v, grads, wd_, p)]
-            p = [pi - l * vi for pi, l, vi in zip(p, lr_, v)]
+        with steps.step():
+            xb, yb = x_tr[start:start + batch_size], y_tr[start:start + batch_size]
+            p = [t.requires_grad_(True) for t in p]
+            with torch.enable_grad():
+                losses = loss_fn(_rebuild(params, p), xb, yb)
+                grads = torch.autograd.grad(losses, p, torch.ones_like(losses))
+            with torch.no_grad():
+                v = [m * vi + g + w * pi for m, vi, g, w, pi in zip(mom_, v, grads, wd_, p)]
+                p = [pi - l * vi for pi, l, vi in zip(p, lr_, v)]
     return _rebuild(params, p), _rebuild(velocity, v)
 
 

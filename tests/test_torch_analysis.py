@@ -403,8 +403,9 @@ def test_capture_roots_cover_the_port():
     from hpbandster_tpu_torch.analysis.core import collect_files
 
     project = graph.get_project(list(collect_files(default_paths(str(REPO)))))
+    # the port's roots (a test may capture a stand-in body of its own)
     roots = {info.qname.split("hpbandster_tpu_torch.", 1)[1] for info, _ in
-             project.captured_roots()}
+             project.captured_roots() if info.qname.startswith("hpbandster_tpu_torch.")}
     assert roots >= {
         "ops.sweep.make_fused_sweep_fn.<locals>.make_round.<locals>.round_body",
         "ops.sweep.make_fused_sweep_fn.<locals>.capture.<locals>.chunk_body",

@@ -53,31 +53,43 @@ def fresh_cache():
 def test_capture_ledger_records_per_label(fresh):
     """One record per capture: per-label counts and recompiles, the shared
     counters, one ``xla_compile`` event with the reference's fields (the
-    cost analysis null), and a program row per (label, signature)."""
+    cost null where the record carries none, the counted cost and its
+    counters where it does), and a program row per (label, signature)."""
     bus, reg, trk = fresh
     events = []
     detach = bus.subscribe(events.append)
-    trk.record("sweep_chunk", "caps=1:256", 0.25, registry=reg, bus=bus)
-    trk.record("sweep_chunk", "caps=1:512", 0.5, registry=reg, bus=bus)
-    trk.record("resident_round", "caps=1:256", 0.125, registry=reg, bus=bus)
+    trk.record("fused_sweep", "caps=1:256", 0.25, registry=reg, bus=bus)
+    trk.record("fused_sweep", "caps=1:512", 0.5, registry=reg, bus=bus,
+               cost={"flops": 300, "bytes_accessed": 1200})
+    trk.record("fused_sweep_resident", "caps=1:256", 0.125, registry=reg, bus=bus)
     detach()
     snap = trk.snapshot()
     assert snap["total_compiles"] == 3 and snap["total_compile_s"] == 0.875
-    assert snap["functions"]["sweep_chunk"] == {
+    assert snap["functions"]["fused_sweep"] == {
         "compiles": 2, "compile_s": 0.75, "recompiles": 1, "last_signature": "caps=1:512"}
     counters = reg.snapshot()["counters"]
     assert counters["runtime.compiles"] == 3
-    assert counters["runtime.compiles.sweep_chunk"] == 2
+    assert counters["runtime.compiles.fused_sweep"] == 2
+    assert counters["runtime.flops.fused_sweep"] == 300
+    assert counters["runtime.bytes_accessed.fused_sweep"] == 1200
+    assert "runtime.flops.fused_sweep_resident" not in counters
     assert reg.snapshot()["gauges"]["runtime.compile_seconds"] == 0.875
     assert [e.name for e in events] == [obs.XLA_COMPILE] * 3
-    assert events[1].fields == {"fn": "sweep_chunk", "signature": "caps=1:512",
-                                "compile_s": 0.5, "compiles": 2, "recompiles": 1,
+    assert events[0].fields == {"fn": "fused_sweep", "signature": "caps=1:256",
+                                "compile_s": 0.25, "compiles": 1, "recompiles": 0,
                                 "flops": None, "bytes_accessed": None}
+    assert events[1].fields == {"fn": "fused_sweep", "signature": "caps=1:512",
+                                "compile_s": 0.5, "compiles": 2, "recompiles": 1,
+                                "flops": 300.0, "bytes_accessed": 1200.0}
     assert [(p["fn"], p["signature"]) for p in trk.programs()] == [
-        ("sweep_chunk", "caps=1:256"), ("sweep_chunk", "caps=1:512"),
-        ("resident_round", "caps=1:256")]
+        ("fused_sweep", "caps=1:256"), ("fused_sweep", "caps=1:512"),
+        ("fused_sweep_resident", "caps=1:256")]
+    assert trk.program_costs() == [{"fn": "fused_sweep", "signature": "caps=1:512",
+                                    "compiles": 1, "compile_s": 0.5, "flops": 300.0,
+                                    "bytes_accessed": 1200.0}]
     trk.reset()
     assert trk.snapshot()["total_compiles"] == 0 and trk.programs() == []
+    assert trk.program_costs() == []
 
 
 def test_program_table_is_bounded(fresh):
@@ -187,33 +199,43 @@ def test_sampler_thread_and_configure_lifecycle():
 
 # ------------------------------------------------------------------ roofline
 def test_roofline_rows_for_every_program(fresh):
-    """A row per ledger program with its captures and seconds; measured
-    seconds by label or label@signature; no cost columns, since a graph
-    reports none."""
+    """Every ledger program is accounted for: a row per costed program with
+    its captures, seconds, counted FLOPs and bytes, intensity, bound and
+    floor (measured seconds by label or label@signature give the achieved
+    rate and the utilization), and the uncosted ones (captured with the obs
+    layer off) counted in a caveat, as the reference leaves them out."""
     bus, reg, trk = fresh
-    trk.record("sweep_chunk", "a", 0.2, registry=reg, bus=bus)
-    trk.record("sweep_chunk", "a", 0.1, registry=reg, bus=bus)
-    trk.record("resident_round", "b", 0.1, registry=reg, bus=bus)
-    trk.record("resident_round", "c", 0.0, registry=reg, bus=bus)
+    trk.record("fused_sweep", "a", 0.2, registry=reg, bus=bus,
+               cost={"flops": 3e9, "bytes_accessed": 1e9})
+    trk.record("fused_sweep", "a", 0.1, registry=reg, bus=bus,
+               cost={"flops": 3e9, "bytes_accessed": 1e9})
+    trk.record("fused_sweep_resident", "b", 0.1, registry=reg, bus=bus,
+               cost={"flops": 4e11, "bytes_accessed": 1e9})
+    trk.record("fused_sweep_resident", "c", 0.0, registry=reg, bus=bus)
     peaks = {"kind": "test-card", "flops_per_s": 100e12, "bytes_per_s": 1e12,
              "ridge_flops_per_byte": 100.0}
     rep = roofline_report(tracker=trk, peaks=peaks, transfers={},
-                          seconds_by_program={"sweep_chunk": 0.003, "resident_round@c": 0.01})
-    assert rep["program_count"] == 3 and rep["peak"] == peaks
+                          seconds_by_program={"fused_sweep": 0.003,
+                                              "fused_sweep_resident@b": 0.01})
+    assert rep["program_count"] == 2 and rep["peak"] == peaks
     assert rep["programs"] == [
-        {"fn": "resident_round", "signature": "b", "compiles": 1, "compile_s": 0.1},
-        {"fn": "resident_round", "signature": "c", "compiles": 1, "compile_s": 0.0,
-         "measured_s": 0.01},
-        {"fn": "sweep_chunk", "signature": "a", "compiles": 2,
-         "compile_s": pytest.approx(0.3), "measured_s": 0.003},
+        {"fn": "fused_sweep", "signature": "a", "compiles": 2,
+         "compile_s": pytest.approx(0.3), "flops": 3e9, "bytes_accessed": 1e9,
+         "intensity_flops_per_byte": 3.0, "bound": "memory", "roofline_floor_s": 0.001,
+         "measured_s": 0.003, "achieved_flops_per_s": 1e12, "utilization_vs_peak": 0.01},
+        {"fn": "fused_sweep_resident", "signature": "b", "compiles": 1, "compile_s": 0.1,
+         "flops": 4e11, "bytes_accessed": 1e9, "intensity_flops_per_byte": 400.0,
+         "bound": "compute", "roofline_floor_s": 0.004, "measured_s": 0.01,
+         "achieved_flops_per_s": 4e13, "utilization_vs_peak": 0.4},
     ]
-    assert any("no per-program bound" in c for c in rep["caveats"])
+    assert rep["caveats"] == ["1 program(s) in the capture ledger are uncosted "
+                              "(captured with the obs layer off): no row"]
     text = format_roofline(rep)
-    assert "sweep_chunk[a]" in text and "test-card" in text
+    assert "fused_sweep[a]" in text and "test-card" in text and "40.0%" in text
+    assert "note: 1 program(s) in the capture ledger are uncosted" in text
     empty = roofline_report(tracker=CompileTracker())
-    assert empty["program_count"] == 0 and empty["caveats"] == [
-        "no peak FLOP/s table entry for this device kind"]
-    assert "no programs in the capture ledger" in format_roofline(empty)
+    assert empty["program_count"] == 0 and len(empty["caveats"]) == 1
+    assert "no costed programs in the capture ledger" in format_roofline(empty)
 
 
 def test_device_peaks_by_card_name():
