@@ -23,7 +23,11 @@ bracket bookkeeping it triggers go to the event bus
 (``hpbandster_tpu_torch.obs``) under the master's tenant and run, and each
 result's run time feeds the ``master.job_run_s`` histogram and its
 budget-keyed twin ``master.job_run_s.b<budget>``, the cost feed of Pareto
-promotion (``obs.budget_cost_from_obs``).
+promotion (``obs.budget_cost_from_obs``). With
+``obs.use_profiler_annotations()`` the drive loop is the ``hpb.master_run``
+profiler range, each new bracket (its stage-0 sampling included)
+``hpb.master_new_bracket`` and each result's ingestion
+``hpb.master_ingest`` (``obs.annotate``: no bus record).
 
 With ``executor=None`` the Master builds the RPC ``Dispatcher``
 (``parallel/dispatcher.py``) over the workers a ``NameServer`` lists, the
@@ -228,59 +232,61 @@ class Master:
 
         ``update_model=False`` records the observation but defers the model
         refit to the next proposal (burst deliveries from batched
-        executors)."""
-        # every tier funnels its results through here, so job_finished /
-        # job_failed are emitted here, before the lock (sinks do I/O), and
-        # under the job's own trace: a batched executor delivers many jobs
-        # from one thread
-        loss = job.loss
-        run_s = job.mono_duration("started", "finished")
-        with obs.use_tenant(self.tenant_id), obs.use_trace(job.trace):
-            obs.emit(
-                obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
-                config_id=list(job.id),
-                budget=job.kwargs.get("budget"),
-                worker=job.worker_name,
-                queue_s=job.mono_duration("submitted", "started"),
-                run_s=run_s,
-                # non-finite losses journal as null (strict JSON)
-                loss=loss if math.isfinite(loss) else None,
-            )
-        if isinstance(run_s, (int, float)):
-            obs.get_metrics().histogram("master.job_run_s").observe(run_s)
-            # the budget-keyed twin: the per-budget cost aggregate Pareto
-            # promotion ranks by (obs.budget_cost_from_obs)
-            budget = job.kwargs.get("budget")
-            if isinstance(budget, (int, float)):
-                obs.get_metrics().histogram(
-                    f"master.job_run_s.b{float(budget):g}"
-                ).observe(run_s)
-        # the promotion records process_results() emits carry the tenant;
-        # the run scopes the straggler-ledger drain to this sweep
-        with obs.use_tenant(self.tenant_id), obs.use_run(self.run_id), self.thread_cond:
-            self.num_running_jobs -= 1
-            if self._wal is not None:
-                # write-ahead: on disk before any in-memory consumption, so
-                # a crash after this line re-joins the result from the WAL
-                # instead of re-running the evaluation
-                budget = job.kwargs.get("budget", 0.0)
-                self._wal.append(
-                    job.idem_key or idempotency_key(job.id, budget),
-                    job.id, budget, job.result, job.exception, job.timestamps,
+        executors). The whole ingestion is the ``hpb.master_ingest``
+        profiler range (``obs.annotate``)."""
+        with obs.annotate("master_ingest"):
+            # every tier funnels its results through here, so job_finished /
+            # job_failed are emitted here, before the lock (sinks do I/O), and
+            # under the job's own trace: a batched executor delivers many jobs
+            # from one thread
+            loss = job.loss
+            run_s = job.mono_duration("started", "finished")
+            with obs.use_tenant(self.tenant_id), obs.use_trace(job.trace):
+                obs.emit(
+                    obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
+                    config_id=list(job.id),
+                    budget=job.kwargs.get("budget"),
+                    worker=job.worker_name,
+                    queue_s=job.mono_duration("submitted", "started"),
+                    run_s=run_s,
+                    # non-finite losses journal as null (strict JSON)
+                    loss=loss if math.isfinite(loss) else None,
                 )
-            if self.result_logger is not None:
-                self.result_logger(job)
-            self.iterations[job.id[0]].register_result(job)
-            self.config_generator.new_result(job, update_model=update_model)
-            self.iterations[job.id[0]].process_results()
-            if self.num_running_jobs <= self.job_queue_sizes[0]:
-                self.thread_cond.notify_all()
-            if (
-                self.checkpoint_path is not None
-                and time.monotonic() - self._last_checkpoint_mono
-                > self.checkpoint_interval
-            ):
-                self.save_checkpoint(self.checkpoint_path)
+            if isinstance(run_s, (int, float)):
+                obs.get_metrics().histogram("master.job_run_s").observe(run_s)
+                # the budget-keyed twin: the per-budget cost aggregate Pareto
+                # promotion ranks by (obs.budget_cost_from_obs)
+                budget = job.kwargs.get("budget")
+                if isinstance(budget, (int, float)):
+                    obs.get_metrics().histogram(
+                        f"master.job_run_s.b{float(budget):g}"
+                    ).observe(run_s)
+            # the promotion records process_results() emits carry the tenant;
+            # the run scopes the straggler-ledger drain to this sweep
+            with obs.use_tenant(self.tenant_id), obs.use_run(self.run_id), self.thread_cond:
+                self.num_running_jobs -= 1
+                if self._wal is not None:
+                    # write-ahead: on disk before any in-memory consumption, so
+                    # a crash after this line re-joins the result from the WAL
+                    # instead of re-running the evaluation
+                    budget = job.kwargs.get("budget", 0.0)
+                    self._wal.append(
+                        job.idem_key or idempotency_key(job.id, budget),
+                        job.id, budget, job.result, job.exception, job.timestamps,
+                    )
+                if self.result_logger is not None:
+                    self.result_logger(job)
+                self.iterations[job.id[0]].register_result(job)
+                self.config_generator.new_result(job, update_model=update_model)
+                self.iterations[job.id[0]].process_results()
+                if self.num_running_jobs <= self.job_queue_sizes[0]:
+                    self.thread_cond.notify_all()
+                if (
+                    self.checkpoint_path is not None
+                    and time.monotonic() - self._last_checkpoint_mono
+                    > self.checkpoint_interval
+                ):
+                    self.save_checkpoint(self.checkpoint_path)
 
     def _submit_job(self, config_id: ConfigId, config: Dict[str, Any], budget: float) -> None:
         job = Job(
@@ -363,7 +369,7 @@ class Master:
         self._announce_schedule(n_remaining)
         # the drive loop runs under the tenant: config_sampled and
         # bracket_created records carry it
-        with obs.use_tenant(self.tenant_id):
+        with obs.use_tenant(self.tenant_id), obs.annotate("master_run"):
             return self._run_loop(n_remaining, iteration_kwargs)
 
     def _announce_schedule(self, n_remaining: int) -> None:
@@ -408,9 +414,7 @@ class Master:
                     n_remaining > 0
                     and len(self.active_iterations()) < self.parallel_brackets
                 ):
-                    self.iterations.append(
-                        self.get_next_iteration(len(self.iterations), iteration_kwargs)
-                    )
+                    self._new_bracket(iteration_kwargs)
                     n_remaining -= 1
                     continue
 
@@ -421,9 +425,7 @@ class Master:
                     continue
 
                 if n_remaining > 0:
-                    self.iterations.append(
-                        self.get_next_iteration(len(self.iterations), iteration_kwargs)
-                    )
+                    self._new_bracket(iteration_kwargs)
                     n_remaining -= 1
                     continue
 
@@ -435,6 +437,14 @@ class Master:
         return Result(
             [i for i in self.iterations] + self.warmstart_iteration, self.config
         )
+
+    def _new_bracket(self, iteration_kwargs: Dict[str, Any]) -> None:
+        """Append the next bracket, its stage-0 sampling included, as the
+        ``hpb.master_new_bracket`` profiler range."""
+        with obs.annotate("master_new_bracket"):
+            self.iterations.append(
+                self.get_next_iteration(len(self.iterations), iteration_kwargs)
+            )
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
         if self.fleet_collector is not None:

@@ -28,7 +28,11 @@ seeded from ``seed``, as the reference's draws from a jax key chain that
 never touches ``self.rng``.
 
 Each refit, on the host or in-trace, emits a ``kde_refit`` event and
-advances the ``kde.refits`` counter (``hpbandster_tpu_torch.obs``).
+advances the ``kde.refits`` counter (``hpbandster_tpu_torch.obs``). With
+``obs.use_profiler_annotations()`` a host fit is the ``hpb.kde_fit``
+profiler range and a proposal with its fetch (an in-trace refit's
+included) ``hpb.kde_propose``, so the fit's device work and the
+proposal's can be told apart in a trace.
 
 On a CUDA device a failed model-based proposal raises; the reference's
 fallback to a random configuration is kept for CPU tensors only.
@@ -206,32 +210,33 @@ class BOHBKDE(base_config_generator):
         return array
 
     def _fit_kde_pair(self, budget: float) -> None:
-        train_configs = np.asarray(self.configs[budget])
-        train_losses = np.asarray(self.losses[budget])
-        n = len(train_losses)
-        if n < self.min_points_in_model + 2:
-            return
+        with obs.annotate("kde_fit"):
+            train_configs = np.asarray(self.configs[budget])
+            train_losses = np.asarray(self.losses[budget])
+            n = len(train_losses)
+            if n < self.min_points_in_model + 2:
+                return
 
-        # n_good = max(min_points, top_n% of n); n_bad = max(min_points,
-        # (100 - top_n)% of n)
-        n_good = max(self.min_points_in_model, (self.top_n_percent * n) // 100)
-        n_bad = max(self.min_points_in_model, ((100 - self.top_n_percent) * n) // 100)
-        idx = np.argsort(train_losses, kind="stable")
+            # n_good = max(min_points, top_n% of n); n_bad = max(min_points,
+            # (100 - top_n)% of n)
+            n_good = max(self.min_points_in_model, (self.top_n_percent * n) // 100)
+            n_bad = max(self.min_points_in_model, ((100 - self.top_n_percent) * n) // 100)
+            idx = np.argsort(train_losses, kind="stable")
 
-        t0 = time.monotonic()
-        good = self.impute_conditional_data(train_configs[idx[:n_good]])
-        bad = self.impute_conditional_data(train_configs[idx[-n_bad:]])
-        if good.shape[0] <= good.shape[1] or bad.shape[0] <= bad.shape[1]:
-            return
+            t0 = time.monotonic()
+            good = self.impute_conditional_data(train_configs[idx[:n_good]])
+            bad = self.impute_conditional_data(train_configs[idx[-n_bad:]])
+            if good.shape[0] <= good.shape[1] or bad.shape[0] <= bad.shape[1]:
+                return
 
-        self.kde_models[budget] = (self._make_kde(good), self._make_kde(bad))
-        self._device_kdes.pop(budget, None)
-        obs.emit(
-            obs.KDE_REFIT,
-            budget=budget, n_obs=n, n_good=n_good, n_bad=n_bad,
-            duration_s=round(time.monotonic() - t0, 6),
-        )
-        obs.get_metrics().counter("kde.refits").inc()
+            self.kde_models[budget] = (self._make_kde(good), self._make_kde(bad))
+            self._device_kdes.pop(budget, None)
+            obs.emit(
+                obs.KDE_REFIT,
+                budget=budget, n_obs=n, n_good=n_good, n_bad=n_bad,
+                duration_s=round(time.monotonic() - t0, 6),
+            )
+            obs.get_metrics().counter("kde.refits").inc()
 
     def _make_kde(self, data: np.ndarray) -> KDE:
         """The host fit in float64 numpy, padded to a power of two of at
@@ -381,20 +386,22 @@ class BOHBKDE(base_config_generator):
         ``self.rng`` (two with the in-trace imputation), one scorer launch,
         one fetch."""
         n_pad = _pow2_capacity(n, minimum=self.proposal_batch_size)
-        if self.in_trace_refit:
-            vecs, scores = self._refit_propose_device(best_budget, n_pad)
-        else:
-            good, bad = self._device_kde_pair(best_budget)
-            seed = int(self.rng.integers(2**32, dtype=np.uint32))
-            args = (seed, good, bad, self._vartypes_dev, self._cards_dev, n_pad,
-                    self.num_samples, self.bandwidth_factor, self.min_bandwidth)
-            if self.use_pallas:
-                # the flat layout returns vectors only: no lg_score
-                vecs = cuda_kde.propose_batch_seeded(*args, draws=self.draws).cpu().numpy()
-                scores = None
+        with obs.annotate("kde_propose"):
+            if self.in_trace_refit:
+                vecs, scores = self._refit_propose_device(best_budget, n_pad)
             else:
-                vecs, scores = self._fetch_scored(
-                    *kde_ops.propose_batch_seeded_scored(*args, draws=self.draws))
+                good, bad = self._device_kde_pair(best_budget)
+                seed = int(self.rng.integers(2**32, dtype=np.uint32))
+                args = (seed, good, bad, self._vartypes_dev, self._cards_dev, n_pad,
+                        self.num_samples, self.bandwidth_factor, self.min_bandwidth)
+                if self.use_pallas:
+                    # the flat layout returns vectors only: no lg_score
+                    vecs = cuda_kde.propose_batch_seeded(
+                        *args, draws=self.draws).cpu().numpy()
+                    scores = None
+                else:
+                    vecs, scores = self._fetch_scored(
+                        *kde_ops.propose_batch_seeded_scored(*args, draws=self.draws))
         return [
             (dict(self.configspace.from_vector(vecs[k])),
              self._model_pick_info(best_budget, None if scores is None else scores[k]))
@@ -414,18 +421,18 @@ class BOHBKDE(base_config_generator):
                 ),
             }
         try:
-            if self.in_trace_refit:
-                # one proposal of the in-trace refit (its own shape)
-                vecs, scores = self._refit_propose_device(best_budget, 1)
-                return dict(self.configspace.from_vector(vecs[0])), self._model_pick_info(
-                    best_budget, None if scores is None else scores[0])
-            good, bad = self._device_kde_pair(best_budget)
-            vecs, scores = self._fetch_scored(*kde_ops.propose_batch_seeded_scored(
-                None, good, bad, self._vartypes_dev, self._cards_dev, 1,
-                self.num_samples, self.bandwidth_factor, self.min_bandwidth,
-                draws=self.draws))
+            with obs.annotate("kde_propose"):
+                if self.in_trace_refit:
+                    # one proposal of the in-trace refit (its own shape)
+                    vecs, scores = self._refit_propose_device(best_budget, 1)
+                else:
+                    good, bad = self._device_kde_pair(best_budget)
+                    vecs, scores = self._fetch_scored(*kde_ops.propose_batch_seeded_scored(
+                        None, good, bad, self._vartypes_dev, self._cards_dev, 1,
+                        self.num_samples, self.bandwidth_factor, self.min_bandwidth,
+                        draws=self.draws))
             return dict(self.configspace.from_vector(vecs[0])), self._model_pick_info(
-                best_budget, scores[0])
+                best_budget, None if scores is None else scores[0])
         except Exception as e:
             if self.device.type == "cuda":
                 raise  # no silent fallback on the card

@@ -7,8 +7,11 @@ JAX package):
 * :mod:`~hpbandster_tpu_torch.obs.metrics` — thread-safe counters / gauges
   / fixed-bucket histograms with an atomic :meth:`MetricsRegistry.snapshot`;
 * :mod:`~hpbandster_tpu_torch.obs.events` — the typed event bus and
-  monotonic-clock :func:`span` regions, with ``torch.profiler`` ranges as
-  the optional span backend (:func:`use_profiler_annotations`);
+  monotonic-clock :func:`span` regions, with ``torch.profiler`` ranges
+  named ``hpb.<name>`` as the optional span backend
+  (:func:`use_profiler_annotations`, which also times garbage collections
+  as ``hpb.gc`` ranges and ``runtime.gc_pause_s``) and :func:`annotate`
+  for a profiler-only range;
 * :mod:`~hpbandster_tpu_torch.obs.journal` — the rotating JSONL run journal
   and the in-memory ring buffer, identity-stamped via
   ``configure(identity=...)``; the record format is the reference's, so
@@ -126,6 +129,7 @@ from hpbandster_tpu_torch.obs.events import (  # noqa: F401
     XLA_COMPILE,
     Event,
     EventBus,
+    annotate,
     emit,
     get_bus,
     make_event,
@@ -217,7 +221,7 @@ from hpbandster_tpu_torch.obs.trace import (  # noqa: F401
 
 __all__ = [
     "Event", "EventBus", "emit", "make_event", "get_bus", "span",
-    "use_profiler_annotations",
+    "annotate", "use_profiler_annotations",
     "JsonlJournal", "RingBuffer", "read_journal", "read_journal_ex",
     "journal_paths", "process_identity",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "get_metrics",

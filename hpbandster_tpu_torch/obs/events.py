@@ -19,8 +19,11 @@ Design constraints (the acceptance bar in docs/observability.md):
   ``core.job.Job`` records).
 
 After :func:`use_profiler_annotations` every span additionally opens a
-``torch.profiler.record_function`` range, so the named host region shows
-up in the profiler's traces beside the device kernels. Never emit events
+``torch.profiler.record_function`` range named ``hpb.<name>``, so the
+named host region shows up in the profiler's traces beside the device
+kernels, on their clock; :func:`annotate` opens such a range alone, with
+no bus record, and each garbage collection becomes an ``hpb.gc`` range
+whose pause feeds the ``runtime.gc_pause_s`` histogram. Never emit events
 from inside a captured CUDA graph or a resident round: a host emit there
 would run once at capture and never again on replay.
 """
@@ -29,11 +32,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import logging
 import threading
 import time
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
+from hpbandster_tpu_torch.obs.metrics import get_metrics
 from hpbandster_tpu_torch.obs.trace import current_tenant, current_trace
 
 __all__ = [
@@ -43,7 +48,9 @@ __all__ = [
     "emit",
     "make_event",
     "span",
+    "annotate",
     "use_profiler_annotations",
+    "RANGE_PREFIX",
     "EVENT_TYPES",
     "JOB_SUBMITTED",
     "JOB_STARTED",
@@ -287,23 +294,79 @@ def emit(name: str, **fields: Any) -> Optional[Event]:
 
 
 # ---------------------------------------------------------------- spans
+#: the prefix of every profiler range the program opens, which tells them
+#: apart from torch's own ops and a caller's ranges in one trace
+RANGE_PREFIX = "hpb."
+#: ``runtime.gc_pause_s``'s bucket bounds: a young collection's tens of
+#: microseconds to a full one's seconds over a large heap
+GC_PAUSE_BUCKETS: Tuple[float, ...] = (
+    1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3, 0.01, 0.03, 0.1, 0.3, 1.0, 3.0
+)
+
 #: optional profiler range factory, installed by use_profiler_annotations();
 #: None = spans are host-only
 _ANNOTATE: Optional[Callable[[str], Any]] = None
+#: what annotate() returns while annotations are off: one shared, reusable
+#: null context
+_NO_RANGE = contextlib.nullcontext()
+#: the gc.callbacks hook installed with the annotations
+_GC_HOOK: Optional["_GCRanges"] = None
+
+
+class _GCRanges:
+    """The ``gc.callbacks`` hook: each collection is an ``hpb.gc`` range,
+    entered at ``start`` and exited at ``stop`` by hand, and its pause is
+    observed into the ``runtime.gc_pause_s`` histogram. Collections never
+    overlap, so one open slot serves every thread."""
+
+    def __init__(self, record_function: Callable[[str], Any]):
+        self._record_function = record_function
+        self._open: Optional[Tuple[Any, float]] = None
+
+    def __call__(self, phase: str, info: Dict[str, Any]) -> None:
+        try:
+            if phase == "start":
+                rng = self._record_function(RANGE_PREFIX + "gc")
+                rng.__enter__()
+                self._open = (rng, time.perf_counter())
+            elif self._open is not None:
+                (rng, t0), self._open = self._open, None
+                rng.__exit__(None, None, None)
+                get_metrics().histogram("runtime.gc_pause_s", GC_PAUSE_BUCKETS).observe(
+                    time.perf_counter() - t0)
+        except Exception:  # a hook must never raise into the collector
+            logger.exception("obs gc hook failed at %s", phase)
 
 
 def use_profiler_annotations(enable: bool = True) -> None:
     """The counterpart of the reference's ``use_jax_annotations``: every
-    span additionally opens a ``torch.profiler.record_function`` range, so
-    named host regions line up with the device kernels in a profiler trace.
-    Off by default (the obs layer imports torch only when asked)."""
-    global _ANNOTATE
+    span additionally opens a ``torch.profiler.record_function`` range
+    named ``hpb.<name>``, :func:`annotate` opens its range, and one
+    ``gc.callbacks`` hook makes each garbage collection an ``hpb.gc`` range
+    and a ``runtime.gc_pause_s`` observation, so named host regions line up
+    with the device kernels in a profiler trace. Off by default (the obs
+    layer imports torch only when asked); ``False`` removes the hook."""
+    global _ANNOTATE, _GC_HOOK
     if enable:
         from torch.profiler import record_function
 
         _ANNOTATE = record_function
+        if _GC_HOOK is None:
+            _GC_HOOK = _GCRanges(record_function)
+            gc.callbacks.append(_GC_HOOK)
     else:
         _ANNOTATE = None
+        if _GC_HOOK is not None:
+            gc.callbacks.remove(_GC_HOOK)
+            _GC_HOOK = None
+
+
+def annotate(name: str) -> Any:
+    """A profiler range ``hpb.<name>`` around a region, and nothing else: no
+    bus record, no clock read, so a journal stays the same with or without
+    it. While annotations are off, one shared null context."""
+    factory = _ANNOTATE
+    return _NO_RANGE if factory is None else factory(RANGE_PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -314,11 +377,11 @@ def span(name: str, bus: Optional[EventBus] = None, **fields: Any) -> Iterator[N
     Near-zero when inactive: with no sinks and no profiler annotations
     the body runs with no clock reads at all."""
     target = bus if bus is not None else _DEFAULT_BUS
-    annotate = _ANNOTATE
-    if not target.active and annotate is None:
+    factory = _ANNOTATE
+    if not target.active and factory is None:
         yield
         return
-    ctx = annotate(name) if annotate is not None else contextlib.nullcontext()
+    ctx = factory(RANGE_PREFIX + name) if factory is not None else contextlib.nullcontext()
     t0 = time.monotonic()
     error: Optional[str] = None
     try:

@@ -169,7 +169,10 @@ class MetricsRegistry:
     """Name -> instrument, all sharing ONE lock for atomic snapshots."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        # re-entrant: the garbage-collection hook (obs/events.py) observes
+        # from inside whatever allocation started a collection, which may
+        # be this thread's, under this lock
+        self._lock = threading.RLock()
         self._instruments: Dict[str, Any] = {}
 
     def _get(self, name: str, kind: type, *args: Any) -> Any:
@@ -202,7 +205,9 @@ class MetricsRegistry:
             "counters": {}, "gauges": {}, "histograms": {}
         }
         with self._lock:
-            for name, inst in sorted(self._instruments.items()):
+            # a copy: a collection's hook may register its histogram while
+            # this loop allocates
+            for name, inst in sorted(dict(self._instruments).items()):
                 if isinstance(inst, Counter):
                     out["counters"][name] = inst._value
                 elif isinstance(inst, Gauge):

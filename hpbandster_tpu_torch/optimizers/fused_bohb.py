@@ -39,7 +39,14 @@ entry count (16, the reference's) and by the device memory its graphs pin
 ``telemetry_fetch`` (transfer), ``compile_lookup`` (compile),
 ``chunk_accounting`` and ``obs_fold`` (promotion), and ``bracket_replay``
 (promotion) where a replay runs in turn. The replay that overlaps the next
-chunk is not a span: its time is ``replay_overlap_s``.
+chunk is no span on the bus, so the journal stays the reference's: its
+time is ``replay_overlap_s``. With ``obs.use_profiler_annotations()`` it is
+an ``hpb.bracket_replay`` profiler range like the others, and
+profiler-only ranges (``obs.annotate``) mark each chunk's launch
+(``hpb.chunk_launch``) and the host's wait for its outputs
+(``hpb.chunk_fetch``), and each replayed bracket's stage-0 decode
+(``hpb.replay_decode``) and its jobs and promotions
+(``hpb.replay_stages``).
 
 With ``mesh=`` (``parallel/mesh.py``) every chunk's sweep evaluates its
 stages over the mesh's config axis (a mesh alone places rows: the results
@@ -547,7 +554,9 @@ class FusedBOHB:
                 return
             job, pending_replay = pending_replay, None
             t_r = time.perf_counter()
-            job()
+            # a profiler range only: the journal records no pipelined replay
+            with obs.annotate("bracket_replay"):
+                job()
             overlap_s = time.perf_counter() - t_r
 
         while plans:
@@ -598,7 +607,8 @@ class FusedBOHB:
                         )
                     t0 = time.perf_counter()
                     # (outputs[, metrics][, state]): a bare result when neither
-                    parts = sweep(seed, *warm)
+                    with obs.annotate("chunk_launch"):
+                        parts = sweep(seed, *warm)
                     if not (dynamic or use_dm):
                         parts = (parts,)
                     if dynamic:
@@ -606,7 +616,8 @@ class FusedBOHB:
                     # pipelining: the previous chunk's bookkeeping replays
                     # here, while this chunk runs on the device
                     flush_replay()
-                    outputs = _fetch(parts[0])
+                    with obs.annotate("chunk_fetch"):
+                        outputs = _fetch(parts[0])
                     if use_dm:
                         # the outputs are on the host, so this is the
                         # telemetry's own fetch
@@ -1086,55 +1097,57 @@ class FusedBOHB:
         )
         self.iterations.append(it)
 
-        for i in range(plan.num_configs[0]):
-            cfg = dict(self.configspace.from_vector(vectors[i]))
-            it.add_configuration(
-                cfg,
-                {
-                    "model_based_pick": bool(mb_mask[i]),
-                    "sample_reason": "fused_sweep",
-                    "fused_sweep": True,
-                },
-            )
+        with obs.annotate("replay_decode"):
+            for i in range(plan.num_configs[0]):
+                cfg = dict(self.configspace.from_vector(vectors[i]))
+                it.add_configuration(
+                    cfg,
+                    {
+                        "model_based_pick": bool(mb_mask[i]),
+                        "sample_reason": "fused_sweep",
+                        "fused_sweep": True,
+                    },
+                )
 
-        loss_of = [dict(zip(map(int, idx), map(float, losses))) for idx, losses in stages]
-        stage_no = 0
-        while True:
-            nr = it.get_next_run()
-            if nr is None:
-                if not it.process_results():
-                    break
-                stage_no += 1
-                continue
-            config_id, cfg, budget = nr
-            job = Job(
-                config_id,
-                config=cfg,
-                budget=budget,
-                working_directory=self.working_directory,
-            )
-            job.time_it("submitted")
-            job.time_it("started")
-            loss = loss_of[stage_no][config_id[2]]
-            # only NaN means crashed; a genuine +/-inf loss (a diverged run)
-            # is a valid maximally-bad result
-            if not np.isnan(loss):
-                job.result = {"loss": loss, "info": dict(job_info or {})}
-            else:
-                job.result = None
-                job.exception = f"non-finite loss {loss!r} at budget {budget}"
-            job.time_it("finished")
-            # the loss-carrying result record; no run_s, since the
-            # evaluation ran inside a device chunk (sweep_chunk times it)
-            obs.emit(
-                obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
-                config_id=list(config_id), budget=budget,
-                loss=float(loss) if np.isfinite(loss) else None,
-            )
-            if self.result_logger is not None:
-                self.result_logger(job)
-            it.register_result(job)
-            self.total_evaluated += 1
+        with obs.annotate("replay_stages"):
+            loss_of = [dict(zip(map(int, idx), map(float, losses))) for idx, losses in stages]
+            stage_no = 0
+            while True:
+                nr = it.get_next_run()
+                if nr is None:
+                    if not it.process_results():
+                        break
+                    stage_no += 1
+                    continue
+                config_id, cfg, budget = nr
+                job = Job(
+                    config_id,
+                    config=cfg,
+                    budget=budget,
+                    working_directory=self.working_directory,
+                )
+                job.time_it("submitted")
+                job.time_it("started")
+                loss = loss_of[stage_no][config_id[2]]
+                # only NaN means crashed; a genuine +/-inf loss (a diverged run)
+                # is a valid maximally-bad result
+                if not np.isnan(loss):
+                    job.result = {"loss": loss, "info": dict(job_info or {})}
+                else:
+                    job.result = None
+                    job.exception = f"non-finite loss {loss!r} at budget {budget}"
+                job.time_it("finished")
+                # the loss-carrying result record; no run_s, since the
+                # evaluation ran inside a device chunk (sweep_chunk times it)
+                obs.emit(
+                    obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
+                    config_id=list(config_id), budget=budget,
+                    loss=float(loss) if np.isfinite(loss) else None,
+                )
+                if self.result_logger is not None:
+                    self.result_logger(job)
+                it.register_result(job)
+                self.total_evaluated += 1
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
         """API symmetry with Master; nothing to tear down."""

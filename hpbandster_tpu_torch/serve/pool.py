@@ -36,7 +36,11 @@ kernel cache (``utils/compile_cache.py``), called when the pool is made.
 
 Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
 ``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
-``continuous_fetch``, ``stage_batch``), each admitted item a
+``continuous_fetch``, ``stage_batch``); a flush, its pack-window sleep, a
+follower's wait, a round, its dispatch and the delivery are profiler-only
+ranges (``hpb.pool_flush``, ``hpb.pool_pack_wait``, ``hpb.pool_follow_wait``,
+``hpb.pool_round``, ``hpb.pool_dispatch``, ``hpb.pool_deliver``; see
+``obs.use_profiler_annotations``); each admitted item a
 ``serve_admission`` event, and the pool keeps the reference's metrics of
 rounds, queue depth, per-tenant queue waits and finished configs, and in
 continuous mode the lane census after each round
@@ -372,26 +376,29 @@ class ServePool:
     # --------------------------------------------------------------- flush
     def flush_tenant(self, facade: _TenantExecutor) -> bool:
         """One tenant's flush: serve cached results, queue fresh work, wait
-        (leading rounds when no one else does) until it is done, deliver."""
+        (leading rounds when no one else does) until it is done, deliver.
+        The ``hpb.pool_flush`` profiler range (``obs.annotate``)."""
         if not facade.buffer and not facade._fused_cache:
             return False
-        jobs, facade.buffer = facade.buffer, []
-        served = False
-        remaining: List[Job] = []
-        for job in jobs:
-            key = (job.id, float(job.kwargs["budget"]))
-            if key in facade._fused_cache:
-                job.time_it("started")
-                facade._finish(job, facade._fused_cache.pop(key))
-                served = True
-            else:
-                remaining.append(job)
-        if not remaining:
-            return served
-        items = self._build_items(facade.tenant_id, remaining)
-        self._enqueue_and_wait(facade.tenant_id, items)
-        self._deliver(facade, items)
-        return True
+        with obs.annotate("pool_flush"):
+            jobs, facade.buffer = facade.buffer, []
+            served = False
+            remaining: List[Job] = []
+            for job in jobs:
+                key = (job.id, float(job.kwargs["budget"]))
+                if key in facade._fused_cache:
+                    job.time_it("started")
+                    facade._finish(job, facade._fused_cache.pop(key))
+                    served = True
+                else:
+                    remaining.append(job)
+            if not remaining:
+                return served
+            items = self._build_items(facade.tenant_id, remaining)
+            self._enqueue_and_wait(facade.tenant_id, items)
+            with obs.annotate("pool_deliver"):
+                self._deliver(facade, items)
+            return True
 
     def _build_items(self, tenant: str, jobs: List[Job]) -> List[_WorkItem]:
         """Buffered jobs -> cost-stamped work items: complete stage-0
@@ -463,16 +470,19 @@ class ServePool:
                 if all(it.done for it in items):
                     return
                 if self._leader is not None:
-                    self._cond.wait(0.05)
+                    with obs.annotate("pool_follow_wait"):
+                        self._cond.wait(0.05)
                     continue
                 self._leader = tenant
             try:
                 if first_wait and self.pack_window_s:
                     # let co-arriving tenants' waves land before the first
                     # round of this leadership, so they pack
-                    time.sleep(self.pack_window_s)
+                    with obs.annotate("pool_pack_wait"):
+                        time.sleep(self.pack_window_s)
                     first_wait = False
-                self._round()
+                with obs.annotate("pool_round"):
+                    self._round()
             finally:
                 with self._cond:
                     self._leader = None
@@ -503,7 +513,8 @@ class ServePool:
             if bus_active:
                 obs.emit("serve_admission", wait_s=round(wait_s, 6), tenant=tenant)
         try:
-            self._run_items([item for _, item in selected])
+            with obs.annotate("pool_dispatch"):
+                self._run_items([item for _, item in selected])
         finally:
             with self._cond:
                 for _, item in selected:

@@ -224,9 +224,11 @@ def test_device_telemetry_and_cost_feed_match_reference(ref, ref_obs):  # noqa: 
 
 def test_spans_open_profiler_ranges_when_asked(tmp_path):
     """``use_profiler_annotations()`` makes every span a
-    ``torch.profiler.record_function`` range, even with no sink; off again,
-    spans with no sink do nothing."""
+    ``torch.profiler.record_function`` range named ``hpb.<name>``, even
+    with no sink; off again, spans with no sink do nothing."""
     from torch.profiler import ProfilerActivity, profile
+
+    from hpbandster_tpu_torch.obs.events import RANGE_PREFIX
 
     obs.use_profiler_annotations()
     try:
@@ -235,11 +237,13 @@ def test_spans_open_profiler_ranges_when_asked(tmp_path):
                 sum(range(100))
     finally:
         obs.use_profiler_annotations(False)
-    assert "smoke_region" in {e.key for e in prof.key_averages()}
+    assert "hpb.smoke_region" in {e.key for e in prof.key_averages()}
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with obs.span("quiet_region"):
             pass
-    assert "quiet_region" not in {e.key for e in prof.key_averages()}
+    keys = {e.key for e in prof.key_averages()}
+    assert "hpb.quiet_region" not in keys
+    assert not any(k.startswith(RANGE_PREFIX) for k in keys)
 
 
 def test_lineage_and_unported_configure(ref_obs, tmp_path):
