@@ -45,8 +45,12 @@ an ``hpb.bracket_replay`` profiler range like the others, and
 profiler-only ranges (``obs.annotate``) mark each chunk's launch
 (``hpb.chunk_launch``) and the host's wait for its outputs
 (``hpb.chunk_fetch``), and each replayed bracket's stage-0 decode
-(``hpb.replay_decode``) and its jobs and promotions
-(``hpb.replay_stages``).
+(``hpb.replay_decode``) and its stage writes and promotions
+(``hpb.replay_stages``). The replay writes a bracket a stage at a time:
+one column-wise decode of its configurations
+(``ConfigurationSpace.from_vectors``), then each stage's rows in one pass
+(``_ReplayIteration.record_stage``), counted by the ``fused.replay_rows``
+and ``fused.replay_stages`` counters.
 
 With ``mesh=`` (``parallel/mesh.py``) every chunk's sweep evaluates its
 stages over the mesh's config axis (a mesh alone places rows: the results
@@ -62,6 +66,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import sys
 import time
@@ -76,6 +81,7 @@ from hpbandster_tpu_torch.core.checkpoint import (
     load_fused_checkpoint,
     save_fused_checkpoint,
 )
+from hpbandster_tpu_torch.core.iteration import Status
 from hpbandster_tpu_torch.core.job import Job
 from hpbandster_tpu_torch.core.result import Result
 from hpbandster_tpu_torch.core.successive_halving import SuccessiveHalving
@@ -229,6 +235,73 @@ class _ReplayIteration(SuccessiveHalving):
     def _advance_to_next_stage(self, config_ids, losses) -> np.ndarray:
         promoted = self._promotion_sets[self.stage]
         return np.array([cid[2] in promoted for cid in config_ids], bool)
+
+    def promotion_cost(self, config_id, budget):
+        """Only a cost the evaluation reported: a row's stamps share the
+        stage's one clock read, so its wall span measures nothing."""
+        return self.reported_cost(config_id, budget)
+
+    def record_stage(self, ids, losses, job_info: Dict[str, Any],
+                     working_directory: str) -> int:
+        """Record the current stage's device results, ``ids[k]`` (a config's
+        index in the bracket) scoring ``losses[k]``, in one pass; returns the
+        rows written.
+
+        Each queued row, in ``self.data`` order, ends as ``get_next_run`` and
+        ``register_result`` would leave it job by job: ``results`` (None for
+        NaN), ``exceptions``, its own ``dict(job_info)`` in ``infos`` (a NaN
+        row has none), its own ``time_stamps`` and status ``REVIEW``, with
+        its ``job_finished`` / ``job_failed`` record and, with a
+        ``result_logger``, its ``Job``. The clock is read once: the stage
+        ran in one device program, which ``sweep_chunk`` times. Raises
+        ``RuntimeError`` unless ``ids`` are exactly the queued rows and
+        number ``num_configs[stage]``, the checks ``register_result`` makes
+        job by job."""
+        budget = self.budgets[self.stage]
+        queued = [(cid, d) for cid, d in self.data.items() if d.status == Status.QUEUED]
+        loss_of = dict(zip(np.asarray(ids).tolist(), np.asarray(losses).tolist()))
+        if (len(queued) != self.num_configs[self.stage] or len(ids) != len(queued)
+                or len(loss_of) != len(queued)
+                or any(d.budget != budget or cid[2] not in loss_of for cid, d in queued)):
+            raise RuntimeError(
+                f"iteration {self.HPB_iter} stage {self.stage}: the device's "
+                f"{len(ids)} results are not the {len(queued)} rows queued at "
+                f"budget {budget} (the stage holds {self.num_configs[self.stage]})"
+            )
+        wall, mono = time.time(), time.monotonic()
+        emit = obs.get_bus().active
+        logger = self.result_logger
+        for cid, d in queued:
+            loss = loss_of[cid[2]]
+            d.time_stamps[budget] = {"submitted": wall, "started": wall, "finished": wall}
+            # only NaN means crashed; a genuine +/-inf loss (a diverged run)
+            # is a valid maximally-bad result
+            if loss != loss:
+                info, exception = None, f"non-finite loss {loss!r} at budget {budget}"
+                d.results[budget] = None
+            else:
+                info, exception = dict(job_info), None
+                d.results[budget] = loss
+                d.infos[budget] = info
+            d.exceptions[budget] = exception
+            d.status = Status.REVIEW
+            if emit:
+                # the loss-carrying result record; no run_s, since the
+                # evaluation ran inside a device chunk
+                obs.emit(
+                    obs.JOB_FAILED if exception is not None else obs.JOB_FINISHED,
+                    config_id=list(cid), budget=budget,
+                    loss=loss if math.isfinite(loss) else None,
+                )
+            if logger is not None:
+                job = Job(cid, config=d.config, budget=budget,
+                          working_directory=working_directory)
+                job.timestamps = dict(d.time_stamps[budget])
+                job.mono = {"submitted": mono, "started": mono, "finished": mono}
+                job.result = None if info is None else {"loss": loss, "info": info}
+                job.exception = exception
+                logger(job)
+        return len(queued)
 
 
 class FusedBOHB:
@@ -1098,56 +1171,26 @@ class FusedBOHB:
         self.iterations.append(it)
 
         with obs.annotate("replay_decode"):
-            for i in range(plan.num_configs[0]):
-                cfg = dict(self.configspace.from_vector(vectors[i]))
+            n0 = plan.num_configs[0]
+            configs = self.configspace.from_vectors(vectors[:n0])
+            for cfg, mb in zip(configs, mb_mask[:n0].tolist()):
                 it.add_configuration(
-                    cfg,
+                    dict(cfg),
                     {
-                        "model_based_pick": bool(mb_mask[i]),
+                        "model_based_pick": bool(mb),
                         "sample_reason": "fused_sweep",
                         "fused_sweep": True,
                     },
                 )
 
         with obs.annotate("replay_stages"):
-            loss_of = [dict(zip(map(int, idx), map(float, losses))) for idx, losses in stages]
-            stage_no = 0
-            while True:
-                nr = it.get_next_run()
-                if nr is None:
-                    if not it.process_results():
-                        break
-                    stage_no += 1
-                    continue
-                config_id, cfg, budget = nr
-                job = Job(
-                    config_id,
-                    config=cfg,
-                    budget=budget,
-                    working_directory=self.working_directory,
-                )
-                job.time_it("submitted")
-                job.time_it("started")
-                loss = loss_of[stage_no][config_id[2]]
-                # only NaN means crashed; a genuine +/-inf loss (a diverged run)
-                # is a valid maximally-bad result
-                if not np.isnan(loss):
-                    job.result = {"loss": loss, "info": dict(job_info or {})}
-                else:
-                    job.result = None
-                    job.exception = f"non-finite loss {loss!r} at budget {budget}"
-                job.time_it("finished")
-                # the loss-carrying result record; no run_s, since the
-                # evaluation ran inside a device chunk (sweep_chunk times it)
-                obs.emit(
-                    obs.JOB_FAILED if job.exception is not None else obs.JOB_FINISHED,
-                    config_id=list(config_id), budget=budget,
-                    loss=float(loss) if np.isfinite(loss) else None,
-                )
-                if self.result_logger is not None:
-                    self.result_logger(job)
-                it.register_result(job)
-                self.total_evaluated += 1
+            metrics = obs.get_metrics()
+            for idx, losses in stages:
+                rows = it.record_stage(idx, losses, job_info or {}, self.working_directory)
+                self.total_evaluated += rows
+                metrics.counter("fused.replay_rows").inc(rows)
+                metrics.counter("fused.replay_stages").inc()
+                it.process_results()
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
         """API symmetry with Master; nothing to tear down."""

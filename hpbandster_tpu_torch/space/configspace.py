@@ -24,12 +24,40 @@ import numpy as np
 
 from hpbandster_tpu_torch.space.conditions import Condition
 from hpbandster_tpu_torch.space.forbidden import ForbiddenClause
-from hpbandster_tpu_torch.space.hyperparameters import Hyperparameter
+from hpbandster_tpu_torch.space.hyperparameters import (
+    Hyperparameter,
+    UniformFloatHyperparameter,
+)
 
 __all__ = ["Configuration", "ConfigurationSpace", "VARTYPE_CODES"]
 
 #: integer codes for the per-dim vartype arrays handed to the device kernels
 VARTYPE_CODES = {"c": 0, "u": 1, "o": 2}
+
+
+#: a non-finite cell of a column: ``from_vectors`` leaves its key out
+_MISSING = object()
+
+
+def _clamp_column(x: np.ndarray, lower, upper) -> np.ndarray:
+    """``hyperparameters._clamp`` element by element: ``min(max(x, lower),
+    upper)`` with Python's comparisons, so equal values (and signed zeros)
+    keep the side ``_clamp`` keeps."""
+    x = np.where(lower > x, lower, x)
+    return np.where(upper < x, upper, x)
+
+
+def _decode_column(hp: Hyperparameter, u: np.ndarray) -> List[Any]:
+    """``[hp.from_unit(x) for x in u]`` over a finite float64 column.
+
+    numpy decodes the linear float without a quantum, whose column
+    arithmetic is ``from_unit``'s IEEE operations in ``from_unit``'s order.
+    Every other kind maps the scalar code over the column: numpy's ``exp``
+    and ``log`` need not round as ``math``'s do."""
+    if type(hp) is UniformFloatHyperparameter and not hp.log and hp.q is None:
+        v = hp.lower + _clamp_column(u, 0.0, 1.0) * (hp.upper - hp.lower)
+        return _clamp_column(v, hp.lower, hp.upper).tolist()
+    return [hp.from_unit(x) for x in u.tolist()]
 
 
 class Configuration(dict):
@@ -199,6 +227,39 @@ class ConfigurationSpace:
             if np.isfinite(vector[i]):
                 raw[name] = self._hps[name].from_unit(float(vector[i]))
         return Configuration(self._active_set(raw))
+
+    def from_vectors(self, matrix: Sequence[Sequence[float]]) -> List[Configuration]:
+        """Rows of ``matrix`` -> configs: ``[self.from_vector(v) for v in
+        matrix]``, equal in values, Python types and key order, decoded a
+        column at a time (one ``_decode_column`` per hyperparameter).
+
+        A space without conditions zips the columns into rows as they are;
+        one with conditions prunes each row through ``_active_set``, as
+        ``from_vector`` does."""
+        matrix = np.asarray(matrix, dtype=np.float64)
+        if matrix.ndim != 2 or matrix.shape[1] != self.dim:
+            raise ValueError(f"expected shape (n, {self.dim}), got {matrix.shape}")
+        finite = np.isfinite(matrix)
+        columns = []
+        for i, name in enumerate(self._order):
+            col, ok = matrix[:, i], finite[:, i]
+            if ok.all():
+                columns.append(_decode_column(self._hps[name], col))
+            else:
+                # a non-finite cell decodes to nothing, as in from_vector
+                values = iter(_decode_column(self._hps[name], col[ok]))
+                columns.append([next(values) if o else _MISSING for o in ok.tolist()])
+        names = self._order
+        if not columns:
+            rows = ({} for _ in range(len(matrix)))
+        elif finite.all():
+            rows = (zip(names, vals) for vals in zip(*columns))
+        else:
+            rows = ({n: v for n, v in zip(names, vals) if v is not _MISSING}
+                    for vals in zip(*columns))
+        if self._conditions:
+            return [Configuration(self._active_set(dict(raw))) for raw in rows]
+        return [Configuration(raw) for raw in rows]
 
     def vartypes(self) -> np.ndarray:
         """``int32[dim]`` of VARTYPE_CODES ('c'=0, 'u'=1, 'o'=2)."""
