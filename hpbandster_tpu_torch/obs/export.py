@@ -163,6 +163,16 @@ _LABEL_RULES: Tuple[Tuple[re.Pattern, str, object], ...] = (
     # share one exposition family).
     (re.compile(r"^alert\.transitions\.(?P<label>.+)$", re.DOTALL),
      "slo_alert_transitions", "slo"),
+    # kde_score launches by the kernel instance's register width
+    # (ops/cuda_kde.py): kde.score_launches.32 ->
+    # kde_score_launches{width="32"}
+    (re.compile(r"^kde\.score_launches\.(?P<label>\d+)$"),
+     "kde_score_launches", "width"),
+    # values the bulk decode took through each branch
+    # (space/configspace.py _decode_column): space.decode_values.mapped
+    # -> space_decode_values{branch="mapped"}
+    (re.compile(r"^space\.decode_values\.(?P<label>numpy|mapped)$"),
+     "space_decode_values", "branch"),
 )
 
 

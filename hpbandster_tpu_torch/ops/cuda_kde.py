@@ -25,7 +25,11 @@ A launch made while the current stream captures a CUDA graph only records
 the kernel into the graph: it counts in ``CAPTURED`` and in the capture's
 own record (:func:`counting_capture`, per thread), and the graph runner
 (``ops/graphs.py``) adds a graph's captured launches to ``LAUNCHES`` at
-every replay (:func:`add_launches`). The counts take a lock, so launches
+every replay (:func:`add_launches`). The scorer's launches also count in
+the ``obs`` counter ``kde.score_launches.<width>`` by the register width
+of the kernel instance they run (8, 16, 32; 0 for the shared-memory one),
+at each replay too (the capture keeps them in a mapping of their own). The
+counts take a lock, so launches
 from several host threads at once are neither lost nor attributed to
 another thread's capture. A recorded input of a captured launch holds the
 values of the graph's latest replay.
@@ -56,6 +60,7 @@ from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
+from hpbandster_tpu_torch.obs.metrics import get_metrics
 from hpbandster_tpu_torch.obs.runtime import kernel_cost
 from hpbandster_tpu_torch.ops._build import load_library
 from hpbandster_tpu_torch.ops.kde import (
@@ -120,43 +125,56 @@ _COUNT_LOCK = threading.Lock()
 _CAPTURE = threading.local()
 
 
-def _count_launch(name: str, inputs) -> None:
+def _count_launch(name: str, inputs, counter: Optional[str] = None) -> None:
     """Count one launch of ``name``: in ``LAUNCHES`` when it runs now; in
     ``CAPTURED`` and this thread's capture record when the current stream
-    records it into a graph."""
+    records it into a graph. ``counter`` names an ``obs`` metrics counter
+    the launch also counts in: now, or, for a captured launch, in the
+    capture's counter mapping, which the graph adds at each replay."""
     capturing = torch.cuda.is_current_stream_capturing()
     record = getattr(_CAPTURE, "counts", None)
+    counters = getattr(_CAPTURE, "counters", None)
     with _COUNT_LOCK:
         if capturing:
             CAPTURED[name] += 1
             if record is not None:
                 record[name] += 1
+            if counter is not None and counters is not None:
+                counters[counter] = counters.get(counter, 0) + 1
         else:
             LAUNCHES[name] += 1
         if RECORD is not None:
             RECORD.append((name, inputs))
+    if counter is not None and not capturing:
+        get_metrics().counter(counter).inc()
 
 
 @contextlib.contextmanager
-def counting_capture() -> Iterator[Dict[str, int]]:
+def counting_capture(counters: Optional[Dict[str, int]] = None
+                     ) -> Iterator[Dict[str, int]]:
     """A fresh per-kernel record of the launches this thread captures
     inside the ``with`` block: what one replay of that graph launches,
-    whatever other threads launch or capture meanwhile."""
+    whatever other threads launch or capture meanwhile. ``counters``, when
+    given, collects the ``obs`` counters those launches bump."""
     counts = {name: 0 for name in CAPTURED}
-    outer = getattr(_CAPTURE, "counts", None)
-    _CAPTURE.counts = counts
+    outer = (getattr(_CAPTURE, "counts", None), getattr(_CAPTURE, "counters", None))
+    _CAPTURE.counts, _CAPTURE.counters = counts, counters
     try:
         yield counts
     finally:
-        _CAPTURE.counts = outer
+        _CAPTURE.counts, _CAPTURE.counters = outer
 
 
-def add_launches(counts: Dict[str, int]) -> None:
+def add_launches(counts: Dict[str, int],
+                 counters: Optional[Dict[str, int]] = None) -> None:
     """Count a replayed graph's launches (its :func:`counting_capture`
-    record) in ``LAUNCHES``."""
+    record) in ``LAUNCHES``, and its ``counters`` in the metrics
+    registry."""
     with _COUNT_LOCK:
         for name, n in counts.items():
             LAUNCHES[name] += n
+    for name, n in (counters or {}).items():
+        get_metrics().counter(name).inc(n)
 
 
 def _kde_score_lib() -> ctypes.CDLL:
@@ -416,7 +434,8 @@ def _score_candidates(cands, good, bad, vartypes, cards):
     if rc != 0:
         msg = lib.kde_score_error_string(rc).decode()
         raise RuntimeError(f"kde_score launch failed: CUDA error {rc} ({msg})")
-    _count_launch("kde_score", (cands, good, bad, vt, cd))
+    _count_launch("kde_score", (cands, good, bad, vt, cd),
+                  counter=f"kde.score_launches.{geo.dmax}")
     return out
 
 

@@ -143,7 +143,8 @@ class RoundGraph:
             collecting = gc.isenabled()
             gc.disable()
             try:
-                with cuda_kde.counting_capture() as captured:
+                counters: Dict[str, int] = {}
+                with cuda_kde.counting_capture(counters) as captured:
                     with torch.cuda.graph(self.graph, stream=stream,
                                           capture_error_mode="thread_local"):
                         # the body's ops only: the capture's own prologue
@@ -156,8 +157,9 @@ class RoundGraph:
                     gc.enable()
             self.capture_s = time.perf_counter() - t0
             self.cost = cost
-            #: kernel launches one replay makes, per kernel name
-            self.launches = dict(captured)
+            #: kernel launches one replay makes, per kernel name, and the
+            #: ``obs`` counters they bump
+            self.launches, self.counters = dict(captured), counters
             t0 = time.perf_counter()
             self.graph.instantiate()
             self.instantiate_s = time.perf_counter() - t0
@@ -174,7 +176,7 @@ class RoundGraph:
         self.graph.replay()
         end.record()
         self._events.append((start, end))
-        cuda_kde.add_launches(self.launches)
+        cuda_kde.add_launches(self.launches, self.counters)
 
     def replay_ms(self) -> List[float]:
         """Device milliseconds of each replay kept so far (waits for the

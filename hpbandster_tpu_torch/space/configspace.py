@@ -18,10 +18,12 @@ PyTorch package never imports the JAX package.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 
+from hpbandster_tpu_torch.obs.metrics import get_metrics
 from hpbandster_tpu_torch.space.conditions import Condition
 from hpbandster_tpu_torch.space.forbidden import ForbiddenClause
 from hpbandster_tpu_torch.space.hyperparameters import (
@@ -53,10 +55,13 @@ def _decode_column(hp: Hyperparameter, u: np.ndarray) -> List[Any]:
     numpy decodes the linear float without a quantum, whose column
     arithmetic is ``from_unit``'s IEEE operations in ``from_unit``'s order.
     Every other kind maps the scalar code over the column: numpy's ``exp``
-    and ``log`` need not round as ``math``'s do."""
+    and ``log`` need not round as ``math``'s do. The values each branch
+    decodes count in ``space.decode_values.numpy`` / ``.mapped``."""
     if type(hp) is UniformFloatHyperparameter and not hp.log and hp.q is None:
+        get_metrics().counter("space.decode_values.numpy").inc(len(u))
         v = hp.lower + _clamp_column(u, 0.0, 1.0) * (hp.upper - hp.lower)
         return _clamp_column(v, hp.lower, hp.upper).tolist()
+    get_metrics().counter("space.decode_values.mapped").inc(len(u))
     return [hp.from_unit(x) for x in u.tolist()]
 
 
@@ -235,7 +240,16 @@ class ConfigurationSpace:
 
         A space without conditions zips the columns into rows as they are;
         one with conditions prunes each row through ``_active_set``, as
-        ``from_vector`` does."""
+        ``from_vector`` does. Each call adds its rows to the
+        ``space.decode_rows`` counter and its seconds to ``space.decode_s``."""
+        t0 = time.perf_counter()
+        out = self._from_vectors(matrix)
+        metrics = get_metrics()
+        metrics.counter("space.decode_s").inc(time.perf_counter() - t0)
+        metrics.counter("space.decode_rows").inc(len(out))
+        return out
+
+    def _from_vectors(self, matrix) -> List[Configuration]:
         matrix = np.asarray(matrix, dtype=np.float64)
         if matrix.ndim != 2 or matrix.shape[1] != self.dim:
             raise ValueError(f"expected shape (n, {self.dim}), got {matrix.shape}")

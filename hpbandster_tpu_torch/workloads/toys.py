@@ -1,4 +1,5 @@
-"""Synthetic HPO objectives: Branin (2-D) and Hartmann-6 (6-D).
+"""Synthetic HPO objectives: Branin (2-D), Hartmann-6 (6-D) and Counting
+Ones (16 binary + 16 continuous dims).
 
 Ported from ``hpbandster_tpu/workloads/toys.py`` as batched torch functions
 ``f(vectors f32[n, d], budget) -> f32[n]`` on the unit hypercube
@@ -6,6 +7,12 @@ Ported from ``hpbandster_tpu/workloads/toys.py`` as batched torch functions
 (``branin_from_vector``, ``hartmann6_from_vector``: one ``f32[d]`` vector
 -> a 0-dim loss) and its host-side ``branin_dict``. Budget enters as a
 decaying deterministic noise term, so lower fidelities are noisier.
+
+:func:`counting_ones` is the mixed-space benchmark of the BOHB paper
+(Falkner, Klein and Hutter, ICML 2018, section 5.1), which the JAX package
+does not have: the budget is the number of Bernoulli draws behind each
+continuous dim's mean, drawn from a counter hash so that the loss is a
+pure function of the vector and the budget.
 """
 
 from __future__ import annotations
@@ -16,7 +23,11 @@ import math
 import numpy as np
 import torch
 
-from hpbandster_tpu_torch.space import ConfigurationSpace, UniformFloatHyperparameter
+from hpbandster_tpu_torch.space import (
+    CategoricalHyperparameter,
+    ConfigurationSpace,
+    UniformFloatHyperparameter,
+)
 
 __all__ = [
     "branin_space",
@@ -28,6 +39,10 @@ __all__ = [
     "hartmann6",
     "hartmann6_from_vector",
     "HARTMANN6_OPT",
+    "COUNTING_ONES_DIMS",
+    "counting_ones_space",
+    "counting_ones_uniforms",
+    "counting_ones",
 ]
 
 BRANIN_OPT = 0.397887
@@ -118,3 +133,55 @@ def hartmann6(vectors: torch.Tensor, budget: float) -> torch.Tensor:
 def hartmann6_from_vector(vec: torch.Tensor, budget: float) -> torch.Tensor:
     """Hartmann-6 of one vector ``f32[6]`` (a 0-dim tensor)."""
     return hartmann6(vec[None], budget)[0]
+
+
+#: Counting Ones' binary (categorical) and continuous dims, in that order
+COUNTING_ONES_DIMS = (16, 16)
+
+_MASK32 = 0xFFFFFFFF
+
+
+def counting_ones_space(seed=None) -> ConfigurationSpace:
+    """``c0..c15``, each a choice of (0, 1), then ``x0..x15`` in [0, 1]."""
+    n_cat, n_cont = COUNTING_ONES_DIMS
+    cs = ConfigurationSpace(seed=seed)
+    for i in range(n_cat):
+        cs.add_hyperparameter(CategoricalHyperparameter(f"c{i}", (0, 1)))
+    for i in range(n_cont):
+        cs.add_hyperparameter(UniformFloatHyperparameter(f"x{i}", 0.0, 1.0))
+    return cs
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """A fixed 32-bit integer mix of ``h`` (int64 holding values below
+    2**32). Each multiplier is below 2**31, so no product leaves int64."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _MASK32
+    h = h ^ (h >> 15)
+    h = (h * 0x68E31DA5) & _MASK32
+    return h ^ (h >> 16)
+
+
+def counting_ones_uniforms(x: torch.Tensor, draws: int) -> torch.Tensor:
+    """The uniforms behind ``draws`` Bernoulli draws of every continuous
+    value ``x f32[n, m]``: ``f32[n, m, draws]``, each the top 24 bits of
+    the mix of the value's float32 bits, its dim, the draw's index and the
+    budget, over 2**24 (exact in float32)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    dims = torch.arange(x.shape[1], dtype=torch.int64, device=x.device)
+    h = _mix32(_mix32(_mix32(bits) ^ dims) ^ int(draws))
+    k = torch.arange(int(draws), dtype=torch.int64, device=x.device)
+    h = _mix32(h[..., None] ^ k)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def counting_ones(vectors: torch.Tensor, budget: float) -> torch.Tensor:
+    """Counting Ones on ``f32[n, 32]``: minus the sum of the 16 binary
+    values and of each continuous dim's mean of ``budget`` Bernoulli(x)
+    draws (a draw is ``u < x`` in float32); the minimum is -32."""
+    n_cat, _ = COUNTING_ONES_DIMS
+    draws = max(int(round(float(budget))), 1)
+    x = vectors[:, n_cat:].to(torch.float32)
+    ones = (counting_ones_uniforms(x, draws) < x[..., None]).to(torch.float32)
+    means = ones.sum(-1) / float(draws)
+    return -(vectors[:, :n_cat].to(torch.float32).sum(-1) + means.sum(-1))
