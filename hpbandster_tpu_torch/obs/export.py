@@ -147,6 +147,11 @@ _LABEL_RULES: Tuple[Tuple[re.Pattern, str, object], ...] = (
         r"^serve\.tenant\.(?P<label>.+)\.(?P<field>[a-zA-Z0-9_]+)$",
         re.DOTALL),
      "serve_tenant_{field}", "tenant"),
+    # the pool-wide serving counters take no rule and flatten:
+    # serve.rounds -> serve_rounds_total, and the pack window's ends
+    # (serve/pool.py) serve.pack_window.closed_early ->
+    # serve_pack_window_closed_early_total, serve.pack_window.full ->
+    # serve_pack_window_full_total
     # SLO gauges (obs/alerts.py AlertManager): slo.<name>.burn_rate ->
     # slo_burn_rate{slo="<name>"} — one labeled family per field so a
     # scraper alerts on max(slo_burn_rate) across specs. Greedy label +

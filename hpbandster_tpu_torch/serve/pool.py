@@ -36,13 +36,15 @@ kernel cache (``utils/compile_cache.py``), called when the pool is made.
 
 Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
 ``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
-``continuous_fetch``, ``stage_batch``); a flush, its pack-window sleep, a
+``continuous_fetch``, ``stage_batch``); a flush, its pack-window wait, a
 follower's wait, a round, its dispatch and the delivery are profiler-only
 ranges (``hpb.pool_flush``, ``hpb.pool_pack_wait``, ``hpb.pool_follow_wait``,
 ``hpb.pool_round``, ``hpb.pool_dispatch``, ``hpb.pool_deliver``; see
 ``obs.use_profiler_annotations``); each admitted item a
 ``serve_admission`` event, and the pool keeps the reference's metrics of
-rounds, queue depth, per-tenant queue waits and finished configs, and in
+rounds, queue depth, per-tenant queue waits and finished configs, how
+each pack window ended (``serve.pack_window.closed_early``: every live
+facade was waiting; ``serve.pack_window.full``: the deadline), and in
 continuous mode the lane census after each round
 (``serve.lanes.{total,occupied,starved}``, ``serve.lane_occupancy``).
 Each tenant's master emits its own job and promotion records under its
@@ -54,6 +56,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -128,6 +131,8 @@ class _TenantExecutor:
         self.total_evaluated = 0
         #: (config_id, budget) -> loss a fused bracket computed ahead
         self._fused_cache: Dict[Tuple[Any, float], float] = {}
+        #: the items of this facade's flush while it is inside the pool
+        self.waiting: Sequence[_WorkItem] = ()
 
     def start(self, new_result_callback, new_worker_callback) -> None:
         self._new_result_callback = new_result_callback
@@ -150,6 +155,7 @@ class _TenantExecutor:
 
     def shutdown(self, shutdown_workers: bool = False) -> None:
         # the tenant leaves; the pool and its backend belong to everyone
+        self.pool._retire(self)
         self.pool.release_tenant(self.tenant_id)
 
     def _finish(self, job: Job, loss: float) -> None:
@@ -214,6 +220,10 @@ class ServePool:
         self.pack_width = max(int(pack_width), 1)
         #: packing engages at this group size; below it the solo program runs
         self.pack_min = max(int(pack_min), 2)
+        #: the longest a round leader waits for other tenants' items before
+        #: its first round; the window closes as soon as every live executor
+        #: facade is waiting on queued items, since no one else can join then
+        #: (so a lone tenant never waits). 0: no window
         self.pack_window_s = max(float(pack_window_s), 0.0)
         #: max cost one round may dispatch (None = everything selectable)
         self.round_capacity = round_capacity
@@ -239,6 +249,9 @@ class ServePool:
         #: active facade count per tenant (several sweeps of one tenant each
         #: drive their own facade; fairness stays per tenant)
         self._tenants: Dict[str, int] = {}
+        #: facades minted by ``executor_for`` and not yet shut down (weak:
+        #: a facade no one holds can never flush)
+        self._live: "weakref.WeakSet[_TenantExecutor]" = weakref.WeakSet()
         #: every bucket, megabatch and lane program this pool built or ran
         self._programs: Dict[int, Any] = {}
         #: dispatch counts, written by the round leader
@@ -260,7 +273,15 @@ class ServePool:
             self._queues.setdefault(tenant, [])
             self._weights[tenant] = float(
                 weight if weight is not None else self.admission.quota(tenant).weight)
-        return _TenantExecutor(self, tenant)
+            facade = _TenantExecutor(self, tenant)
+            self._live.add(facade)
+        return facade
+
+    def _retire(self, facade: _TenantExecutor) -> None:
+        """A facade shut down can join no round (idempotent)."""
+        with self._cond:
+            self._live.discard(facade)
+            self._cond.notify_all()
 
     def release_tenant(self, tenant_id: str) -> None:
         tenant = str(tenant_id)
@@ -395,7 +416,7 @@ class ServePool:
             if not remaining:
                 return served
             items = self._build_items(facade.tenant_id, remaining)
-            self._enqueue_and_wait(facade.tenant_id, items)
+            self._enqueue_and_wait(facade, items)
             with obs.annotate("pool_deliver"):
                 self._deliver(facade, items)
             return True
@@ -451,11 +472,13 @@ class ServePool:
         ]).astype(np.float32)
 
     # ------------------------------------------------------ rounds/waiting
-    def _enqueue_and_wait(self, tenant: str, items: List[_WorkItem]) -> None:
+    def _enqueue_and_wait(self, facade: _TenantExecutor, items: List[_WorkItem]) -> None:
         if not items:
             return
+        tenant = facade.tenant_id
         now = time.monotonic()
         with self._cond:
+            facade.waiting = items
             q = self._queues.setdefault(tenant, [])
             for it in items:
                 it.enqueue_mono = now
@@ -465,28 +488,46 @@ class ServePool:
             self._cond.notify_all()
 
         first_wait = True
-        while True:
-            with self._cond:
-                if all(it.done for it in items):
-                    return
-                if self._leader is not None:
-                    with obs.annotate("pool_follow_wait"):
-                        self._cond.wait(0.05)
-                    continue
-                self._leader = tenant
-            try:
-                if first_wait and self.pack_window_s:
-                    # let co-arriving tenants' waves land before the first
-                    # round of this leadership, so they pack
-                    with obs.annotate("pool_pack_wait"):
-                        time.sleep(self.pack_window_s)
-                    first_wait = False
-                with obs.annotate("pool_round"):
-                    self._round()
-            finally:
+        try:
+            while True:
                 with self._cond:
-                    self._leader = None
-                    self._cond.notify_all()
+                    if all(it.done for it in items):
+                        return
+                    if self._leader is not None:
+                        with obs.annotate("pool_follow_wait"):
+                            self._cond.wait(0.05)
+                        continue
+                    self._leader = tenant
+                try:
+                    if first_wait and self.pack_window_s:
+                        self._pack_window()
+                        first_wait = False
+                    with obs.annotate("pool_round"):
+                        self._round()
+                finally:
+                    with self._cond:
+                        self._leader = None
+                        self._cond.notify_all()
+        finally:
+            with self._cond:
+                facade.waiting = ()
+
+    def _all_live_waiting(self) -> bool:
+        """Every live facade has a flush waiting on queued items: no one
+        else can join the next round. Called under ``self._cond``."""
+        return all(any(not it.done for it in f.waiting) for f in self._live)
+
+    def _pack_window(self) -> None:
+        """Before the first round of a leadership, let co-arriving tenants'
+        waves land so they pack: wait until every live facade is waiting,
+        for at most ``pack_window_s``."""
+        with self._cond:
+            early = self._all_live_waiting()
+            if not early:
+                with obs.annotate("pool_pack_wait"):
+                    early = self._cond.wait_for(self._all_live_waiting, self.pack_window_s)
+        obs.get_metrics().counter(
+            "serve.pack_window.closed_early" if early else "serve.pack_window.full").inc()
 
     def _round(self) -> None:
         """One scheduling round: fair-select queued items, dispatch them

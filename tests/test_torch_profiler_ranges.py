@@ -116,15 +116,18 @@ def test_annotations_install_one_hook_and_remove_it():
 def test_serve_request_ranges_nest(annotations):
     """One BOHB request of two brackets through a CPU ``ServePool``: one
     ``hpb.master_new_bracket`` a bracket, one ``hpb.master_ingest`` a
-    result, and a pack-window wait inside a flush inside the Master loop."""
+    result, and a pack-window wait inside a flush inside the Master loop
+    (a second tenant's facade, live but idle, keeps each window open)."""
     pool = ServePool(VmapBackend(branin, device="cpu"), branin_space(seed=0),
                      pack_window_s=0.01)
+    idle = pool.executor_for("b")
     opt = BOHB(configspace=branin_space(seed=5), run_id="serve-a", tenant_id="a",
                executor=pool.executor_for("a"), min_budget=1, max_budget=9, eta=3,
                seed=5, device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         res = opt.run(n_iterations=2)
     opt.shutdown()
+    idle.shutdown()
     pool.release_tenant("a")
     assert len(ranges(prof, "hpb.master_new_bracket")) == 2
     assert len(ranges(prof, "hpb.master_ingest")) == len(res.get_all_runs()) == 13 + 6

@@ -341,3 +341,107 @@ def test_bracket_failures_raise_on_a_card_and_crash_on_the_cpu(monkeypatch):
     monkeypatch.setattr(pool, "_strict", lambda: True)
     with pytest.raises(RuntimeError, match="no bucket program"):
         _bohb_tenant(pool, "a", 1, 1, {})
+
+
+# -------------------------------------------------------------- pack window
+def _windows():
+    """(closed early, ran to the deadline): the pool's pack-window counters."""
+    from hpbandster_tpu_torch import obs
+
+    m = obs.get_metrics()
+    return (m.counter("serve.pack_window.closed_early").value,
+            m.counter("serve.pack_window.full").value)
+
+
+def test_lone_tenant_windows_close_at_once():
+    """A lone tenant's sweep through a pool with a long pack window: every
+    window closes early (no one else can join), and the sweep is, run for
+    run, the one a pool without a window gives."""
+    solo = {}
+    _bohb_tenant(_pool(pack_window_s=0.0), "A", 42, 3, solo)
+    early0, full0 = _windows()
+    windowed = {}
+    _bohb_tenant(_pool(pack_window_s=0.5), "A", 42, 3, windowed)
+    early1, full1 = _windows()
+    assert full1 - full0 == 0
+    assert early1 - early0 >= 3  # at least one window a bracket
+    assert _losses_by_config(windowed["A"]) == _losses_by_config(solo["A"])
+
+
+def test_barrier_tenants_still_pack_and_close_early():
+    """Three tenants behind a barrier, inside a long window: their brackets
+    still pack, and a window closes once all three are waiting."""
+    pool = _pool(pack_window_s=0.5)
+    early0, _ = _windows()
+    results, barrier = {}, threading.Barrier(3)
+    _run_threads(_bohb_tenant, [(pool, t, s, 2, results, barrier)
+                                for t, s in (("A", 42), ("B", 43), ("C", 44))])
+    assert pool.dispatches["packed_brackets"] >= 2, pool.dispatches
+    assert _windows()[0] - early0 >= 1
+
+
+def test_idle_live_facade_holds_the_window_open():
+    """A second tenant's facade that is live but never flushes could still
+    join: the leader waits its window out, once for the one bracket."""
+    pool = _pool(pack_window_s=0.5)
+    idle = pool.executor_for("idle")
+    early0, full0 = _windows()
+    _bohb_tenant(pool, "a", 1, 1, {})
+    early1, full1 = _windows()
+    assert (early1 - early0, full1 - full0) == (0, 1)
+    idle.shutdown()
+    assert pool.tenants() == []
+
+
+def test_shutting_a_facade_down_twice_keeps_the_live_set():
+    """A facade leaves the live set once, however often it is shut down;
+    the others stay live."""
+    pool = _pool(pack_window_s=0.0)
+    a, b = pool.executor_for("t"), pool.executor_for("u")
+    a.shutdown()
+    a.shutdown()
+    assert set(pool._live) == {b}
+    b.shutdown()
+    b.shutdown()
+    assert len(pool._live) == 0
+
+
+def test_pack_window_counters_export_flat():
+    """The two pack-window counters render as flat counter families, as
+    ``serve.rounds`` does."""
+    from hpbandster_tpu_torch import obs
+    from hpbandster_tpu_torch.obs.export import parse_prometheus_text, render_registry
+
+    reg = obs.MetricsRegistry()
+    reg.counter("serve.rounds").inc(3)
+    reg.counter("serve.pack_window.closed_early").inc(2)
+    reg.counter("serve.pack_window.full").inc()
+    families = parse_prometheus_text(render_registry(reg))
+    for name, value in (("serve_rounds", 3), ("serve_pack_window_closed_early", 2),
+                        ("serve_pack_window_full", 1)):
+        family = f"hpbandster_{name}_total"
+        assert families[family]["type"] == "counter"
+        assert [v for _, v in families[family]["samples"]] == [value]
+
+
+def test_many_tenants_under_contention():
+    """Ten tenant threads, more than this host's cores, with a short switch
+    interval: every sweep finishes and equals its run alone, and the pool
+    ends with no live facade and no tenant."""
+    import sys
+
+    tenants = [(f"t{i}", 60 + i) for i in range(10)]
+    solo = {}
+    for t, s in tenants:
+        _bohb_tenant(_pool(pack_window_s=0.0), t, s, 2, solo)
+    pool = _pool(pack_window_s=0.05)
+    results, barrier = {}, threading.Barrier(len(tenants))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        _run_threads(_bohb_tenant, [(pool, t, s, 2, results, barrier) for t, s in tenants])
+    finally:
+        sys.setswitchinterval(interval)
+    for t, _ in tenants:
+        assert _losses_by_config(results[t]) == _losses_by_config(solo[t]), t
+    assert len(pool._live) == 0 and pool.tenants() == []
