@@ -111,6 +111,16 @@ class BucketSet(NamedTuple):
         )
         return self.assignment.get(key)
 
+    def place(self, num_configs, budgets) -> Optional[Tuple[BucketPlan, BracketPlan, int]]:
+        """``(bucket, member plan, entry stage)`` serving a bracket shape,
+        or None where the set does not cover it."""
+        placed = self.lookup(num_configs, budgets)
+        if placed is None:
+            return None
+        bucket_idx, entry = placed
+        plan = BracketPlan(num_configs=tuple(num_configs), budgets=tuple(budgets))
+        return self.buckets[bucket_idx], plan, entry
+
 
 def _pow2(n: int, floor: int = 8) -> int:
     size = floor

@@ -4,7 +4,11 @@ Ported from ``hpbandster_tpu/serve/pool.py``. Each tenant's optimizer (an
 ordinary ``Master`` subclass with ``tenant_id=`` set) drives a
 :class:`_TenantExecutor` facade that implements the executor seam (buffer
 jobs, ``flush()`` when the master drains), while the device work funnels
-into one shared :class:`ServePool`:
+into one shared :class:`ServePool`. The facade's half of the seam (the
+buffer, the fused cache, result delivery, the stage-0 wave split and the
+vector encode) is ``BatchedExecutor``'s, from
+``parallel/batched_executor.py``; the pool adds the queueing, the fair
+rounds, the pack window, leadership and the cross-tenant dispatch:
 
 1. a flush turns the tenant's buffered jobs into work items: complete
    stage-0 bracket waves that a bucket covers, or budget-grouped stage
@@ -33,6 +37,13 @@ stage batch crashes its wave on both, as in ``BatchedExecutor``). A
 background build that fails keeps its error, and the next dispatch of that
 program raises it. The reference's persistent compile cache is the port's
 kernel cache (``utils/compile_cache.py``), called when the pool is made.
+
+A tenant is present while it holds a live facade: one minted by
+``executor_for`` and neither shut down nor dropped (the pool keeps its
+facades weakly, so a facade no one holds lists no tenant and holds no pack
+window open). ``release_tenant`` prunes a tenant's queue, weight, deficit
+and lanes once no live facade of it remains; calling it again changes
+nothing.
 
 Every dispatch and fetch is a span on the event bus (``megabatch_dispatch``,
 ``fused_dispatch``, ``serve_fetch``, ``continuous_chunk``,
@@ -71,6 +82,12 @@ from hpbandster_tpu_torch.ops.buckets import (
     precompile_buckets,
     slice_member_stages,
     start_precompile,
+)
+from hpbandster_tpu_torch.parallel.batched_executor import (
+    ExecutorSeam,
+    OnBackend,
+    job_vectors,
+    stage0_waves,
 )
 from hpbandster_tpu_torch.parallel.mesh import shard_count
 from hpbandster_tpu_torch.serve.continuous import ContinuousRunner
@@ -113,39 +130,19 @@ class _WorkItem:
         self.enqueue_mono = 0.0
 
 
-class _TenantExecutor:
+class _TenantExecutor(ExecutorSeam):
     """The executor seam one tenant's master drives; routes to the pool."""
 
-    unbounded_queue = True
-    prefers_batched_sampling = True
     #: one bracket at a time per tenant: each bracket's samples see all of
     #: the tenant's earlier results; the overlap comes from the pool
     preferred_parallel_brackets = 1
 
     def __init__(self, pool: "ServePool", tenant_id: str):
+        super().__init__(pool.backend, pool.configspace)
         self.pool = pool
         self.tenant_id = str(tenant_id)
-        self.device = pool.device
-        self.buffer: List[Job] = []
-        self._new_result_callback: Optional[Callable[..., None]] = None
-        self.total_evaluated = 0
-        #: (config_id, budget) -> loss a fused bracket computed ahead
-        self._fused_cache: Dict[Tuple[Any, float], float] = {}
         #: the items of this facade's flush while it is inside the pool
         self.waiting: Sequence[_WorkItem] = ()
-
-    def start(self, new_result_callback, new_worker_callback) -> None:
-        self._new_result_callback = new_result_callback
-        new_worker_callback(self.number_of_workers())
-
-    def number_of_workers(self) -> int:
-        return max(int(getattr(self.pool.backend, "parallelism", 1)), 1)
-
-    def submit_job(self, job: Job) -> None:
-        self.buffer.append(job)
-
-    def n_waiting(self) -> int:
-        return len(self.buffer)
 
     def prepare_schedule(self, plans) -> None:
         self.pool.prepare(plans)
@@ -159,25 +156,11 @@ class _TenantExecutor:
         self.pool.release_tenant(self.tenant_id)
 
     def _finish(self, job: Job, loss: float) -> None:
-        job.time_it("finished")
-        if np.isfinite(loss):
-            job.result = {"loss": float(loss), "info": {}}
-        else:
-            job.result = None
-            job.exception = job.exception or (
-                f"non-finite loss {loss!r} at budget {job.kwargs['budget']}")
-        self.total_evaluated += 1
         obs.get_metrics().counter(f"serve.tenant.{self.tenant_id}.configs_done").inc()
-        # burst delivery, deferred refit: BatchedExecutor._finish's contract
-        self._new_result_callback(job, update_model=False)
-
-    def _crash_wave(self, jobs: List[Job], why: str) -> None:
-        for j in jobs:
-            j.exception = why
-            self._finish(j, float("nan"))
+        super()._finish(job, loss)
 
 
-class ServePool:
+class ServePool(OnBackend):
     """The shared serving backend: fair scheduling and megabatched (or
     continuous-batched) dispatch.
 
@@ -246,11 +229,10 @@ class ServePool:
         self._bucket_set = None
         #: the latest background build's handle (ops.buckets._Precompile)
         self.precompile = None
-        #: active facade count per tenant (several sweeps of one tenant each
-        #: drive their own facade; fairness stays per tenant)
-        self._tenants: Dict[str, int] = {}
-        #: facades minted by ``executor_for`` and not yet shut down (weak:
-        #: a facade no one holds can never flush)
+        #: facades minted by ``executor_for`` and not yet shut down, the
+        #: pool's one registry of its tenants (several sweeps of one tenant
+        #: each drive their own facade; fairness stays per tenant). Weak: a
+        #: facade no one holds can never flush
         self._live: "weakref.WeakSet[_TenantExecutor]" = weakref.WeakSet()
         #: every bucket, megabatch and lane program this pool built or ran
         self._programs: Dict[int, Any] = {}
@@ -260,16 +242,11 @@ class ServePool:
                            "continuous_chunks": 0, "continuous_brackets": 0,
                            "stage_batches": 0}
 
-    def _strict(self) -> bool:
-        """On a card device-program failures raise."""
-        return self.device is not None and self.device.type == "cuda"
-
     # ------------------------------------------------------------- tenants
     def executor_for(self, tenant_id: str, weight: Optional[float] = None):
         """A fresh executor facade for one sweep of ``tenant_id``."""
         tenant = str(tenant_id)
         with self._cond:
-            self._tenants[tenant] = self._tenants.get(tenant, 0) + 1
             self._queues.setdefault(tenant, [])
             self._weights[tenant] = float(
                 weight if weight is not None else self.admission.quota(tenant).weight)
@@ -281,31 +258,32 @@ class ServePool:
         """A facade shut down can join no round (idempotent)."""
         with self._cond:
             self._live.discard(facade)
-            self._cond.notify_all()
 
     def release_tenant(self, tenant_id: str) -> None:
+        """Let a tenant go once none of its sweeps is left.
+
+        A facade from ``executor_for`` is live until its ``shutdown()``
+        (which calls this) or until no one holds it. Once no live facade of
+        the tenant remains and its queue is empty, its queue, weight,
+        scheduler deficit and, in continuous mode, its lanes are pruned for
+        the next chunk's newcomers. Idempotent: while another facade of the
+        tenant is live, a repeated call changes nothing."""
         tenant = str(tenant_id)
         runners = []
         with self._cond:
-            n = self._tenants.get(tenant, 0) - 1
-            if n > 0:
-                self._tenants[tenant] = n
-            else:
-                self._tenants.pop(tenant, None)
-                if not self._queues.get(tenant):
-                    # fully gone: prune its bookkeeping, and in continuous
-                    # mode free its lanes for the next chunk's newcomers
-                    self._queues.pop(tenant, None)
-                    self._weights.pop(tenant, None)
-                    self.scheduler.forget(tenant)
-                    runners = list(self._continuous_runners.values())
+            if not self._queues.get(tenant) and not any(f.tenant_id == tenant for f in self._live):
+                self._queues.pop(tenant, None)
+                self._weights.pop(tenant, None)
+                self.scheduler.forget(tenant)
+                runners = list(self._continuous_runners.values())
             self._cond.notify_all()
         for r in runners:
             r.release_tenant(tenant)
 
     def tenants(self) -> List[str]:
+        """The tenants holding a live facade, sorted."""
         with self._cond:
-            return sorted(self._tenants)
+            return sorted({f.tenant_id for f in self._live})
 
     # ------------------------------------------------------------ schedule
     def prepare(self, plans) -> None:
@@ -326,7 +304,7 @@ class ServePool:
             if not fresh:
                 return
             self._bucket_plans.extend(fresh)
-            mesh, axis = self._backend_mesh()
+            mesh, axis = self._mesh()
             mesh_size = shard_count(mesh, axis)
             if self.continuous and self.lane_mesh is not None:
                 # the lane programs split each lane's rows over the lane
@@ -350,10 +328,6 @@ class ServePool:
             if self._strict():
                 raise
             self.logger.exception("bucket precompile failed; continuing")
-
-    def _backend_mesh(self):
-        """The backend's mesh and axis (``(None, "config")`` unmeshed)."""
-        return getattr(self.backend, "mesh", None), getattr(self.backend, "axis", "config")
 
     def _note_program(self, runner) -> None:
         with self._cond:
@@ -380,20 +354,6 @@ class ServePool:
                 self._continuous_runners[bucket] = runner
             return runner
 
-    def _placement(self, info) -> Optional[Tuple[Any, BracketPlan, int]]:
-        """``(bucket, member plan, entry)`` for a bracket shape, or None."""
-        with self._cond:
-            bucket_set = self._bucket_set
-        if bucket_set is None:
-            return None
-        placed = bucket_set.lookup(info["num_configs"], info["budgets"])
-        if placed is None:
-            return None
-        bucket_idx, entry = placed
-        plan = BracketPlan(num_configs=tuple(info["num_configs"]),
-                           budgets=tuple(info["budgets"]))
-        return bucket_set.buckets[bucket_idx], plan, entry
-
     # --------------------------------------------------------------- flush
     def flush_tenant(self, facade: _TenantExecutor) -> bool:
         """One tenant's flush: serve cached results, queue fresh work, wait
@@ -403,18 +363,9 @@ class ServePool:
             return False
         with obs.annotate("pool_flush"):
             jobs, facade.buffer = facade.buffer, []
-            served = False
-            remaining: List[Job] = []
-            for job in jobs:
-                key = (job.id, float(job.kwargs["budget"]))
-                if key in facade._fused_cache:
-                    job.time_it("started")
-                    facade._finish(job, facade._fused_cache.pop(key))
-                    served = True
-                else:
-                    remaining.append(job)
+            remaining = facade._serve_cached(jobs)
             if not remaining:
-                return served
+                return bool(jobs)
             items = self._build_items(facade.tenant_id, remaining)
             self._enqueue_and_wait(facade, items)
             with obs.annotate("pool_deliver"):
@@ -424,32 +375,21 @@ class ServePool:
     def _build_items(self, tenant: str, jobs: List[Job]) -> List[_WorkItem]:
         """Buffered jobs -> cost-stamped work items: complete stage-0
         bracket waves a bucket covers fuse; the rest stage-batch by budget."""
-        groups: Dict[int, List[Job]] = {}
-        leftovers: List[Job] = []
-        for j in jobs:
-            info = getattr(j, "bracket_info", None)
-            if info is None or info["stage"] != 0 or len(info["num_configs"]) < 2:
-                leftovers.append(j)
-            else:
-                groups.setdefault(j.id[0], []).append(j)
-
+        waves, leftovers = stage0_waves(jobs)
+        with self._cond:
+            bucket_set = self._bucket_set
         items: List[_WorkItem] = []
-        for _iteration, gjobs in sorted(groups.items()):
-            info = gjobs[0].bracket_info
-            complete = (
-                all(getattr(j, "bracket_info", None) == info for j in gjobs)
-                and len(gjobs) == info["num_configs"][0]
-            )
-            placed = self._placement(info) if complete else None
+        for _iteration, info, wave in waves:
+            placed = (bucket_set.place(info["num_configs"], info["budgets"])
+                      if bucket_set is not None else None)
             if placed is None:
-                leftovers.extend(gjobs)
+                leftovers.extend(wave)
                 continue
             bucket, plan, entry = placed
-            jobs_sorted = sorted(gjobs, key=lambda j: j.id)
-            item = _WorkItem("bracket", tenant, jobs_sorted,
+            item = _WorkItem("bracket", tenant, wave,
                              cost=work_cost(plan.num_configs, plan.budgets))
             item.info = info
-            item.vectors = self._vectors(jobs_sorted)
+            item.vectors = job_vectors(self.configspace, wave)
             item.bucket = bucket
             item.plan = plan
             item.entry = entry
@@ -461,15 +401,9 @@ class ServePool:
         for budget, group in sorted(by_budget.items()):
             item = _WorkItem("stage", tenant, group, cost=len(group) * float(budget))
             item.budget = budget
-            item.vectors = self._vectors(group)
+            item.vectors = job_vectors(self.configspace, group)
             items.append(item)
         return items
-
-    def _vectors(self, jobs: Sequence[Job]) -> np.ndarray:
-        return np.stack([
-            np.nan_to_num(self.configspace.to_vector(j.kwargs["config"]), nan=0.0)
-            for j in jobs
-        ]).astype(np.float32)
 
     # ------------------------------------------------------ rounds/waiting
     def _enqueue_and_wait(self, facade: _TenantExecutor, items: List[_WorkItem]) -> None:
@@ -671,7 +605,7 @@ class ServePool:
         """Launch one packed cross-tenant dispatch; returns its fetcher."""
         entries = [PackEntry(it.tenant, it.vectors, it.plan, it.entry) for it in chunk]
         try:
-            mesh, axis = self._backend_mesh()
+            mesh, axis = self._mesh()
             runner = make_mega_runner(self.backend.eval_fn, bucket, pack_width=self.pack_width,
                                       mesh=mesh, axis=axis, device=self.device)
             self._note_program(runner)
@@ -698,7 +632,7 @@ class ServePool:
         runner every solo path in the process shares)."""
         counts = member_counts_for(bucket, item.plan, item.entry)
         try:
-            mesh, axis = self._backend_mesh()
+            mesh, axis = self._mesh()
             runner = make_bucketed_bracket_fn(self.backend.eval_fn, bucket, mesh=mesh,
                                               axis=axis, device=self.device)
             self._note_program(runner)
@@ -759,14 +693,8 @@ class ServePool:
             if item.kind == "stage":
                 for j, loss in zip(item.jobs, np.asarray(item.result)):
                     facade._finish(j, float(loss))
-                continue
-            stages = item.result
-            for s, (idx, losses) in enumerate(stages[1:], start=1):
-                budget = float(item.info["budgets"][s])
-                for i, loss in zip(np.asarray(idx), np.asarray(losses)):
-                    facade._fused_cache[(item.jobs[int(i)].id, budget)] = float(loss)
-            for j, loss in zip(item.jobs, np.asarray(stages[0][1])):
-                facade._finish(j, float(loss))
+            else:
+                facade._fill_cache(item.jobs, item.info["budgets"], item.result)
 
     # ---------------------------------------------------------- inspection
     def snapshot(self) -> Dict[str, Any]:
@@ -774,7 +702,7 @@ class ServePool:
         served cost, dispatch counts, and in continuous mode the lanes."""
         with self._cond:
             out = {
-                "tenants": sorted(self._tenants),
+                "tenants": self.tenants(),
                 "queued_items": {t: len(q) for t, q in self._queues.items() if q},
                 "rounds": self._rounds,
                 "buckets": (len(self._bucket_set.buckets)

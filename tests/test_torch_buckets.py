@@ -87,20 +87,33 @@ def assert_same_set(port_set, ref_set):
 
 # --------------------------------------------------------------- geometry
 @pytest.mark.parametrize("case", ["rotation_729", "foreign_ladder", "single_stage",
-                                  "rotation_81"])
+                                  "rotation_81", "rotation_and_foreign"])
 def test_bucket_set_equals_reference(ref, rb, case):  # noqa: F811
     """The 36-bracket 1..729 rotation (at most 6 programs, 3 in fact), a
     foreign ladder (its own singleton bucket), single-stage plans (left
-    out) and the toy 1..81 rotation: the same buckets and placements."""
+    out), the toy 1..81 rotation, and that rotation with a foreign ladder:
+    the same buckets and placements. ``BucketSet.place`` puts every shape
+    where the reference's lookup does, with its member plan, and places
+    neither a left-out shape nor one no plan has."""
     plans = {
         "rotation_729": hyperband_schedule(36, 1, 729, 3),
         "foreign_ladder": [BracketPlan((9, 3, 1), (1.0, 3.0, 9.0)),
                            BracketPlan((8, 2), (5.0, 25.0))],
         "single_stage": [BracketPlan((5,), (9.0,)), BracketPlan((9, 3), (3.0, 9.0))],
         "rotation_81": hyperband_schedule(10, 1, 81, 3),
+        "rotation_and_foreign": [*hyperband_schedule(4, 1, 27, 3),
+                                 BracketPlan((8, 2), (5.0, 25.0))],
     }[case]
     port_set = tb.build_bucket_set(plans)
-    assert_same_set(port_set, rb.build_bucket_set(ref_plans(ref, plans)))
+    ref_set = rb.build_bucket_set(ref_plans(ref, plans))
+    assert_same_set(port_set, ref_set)
+    for plan in [*plans, BracketPlan((7, 2), (2.0, 6.0))]:
+        want = ref_set.lookup(plan.num_configs, plan.budgets)
+        got = port_set.place(plan.num_configs, plan.budgets)
+        if want is None:
+            assert got is None, plan
+        else:
+            assert got == (port_set.buckets[want[0]], plan, want[1]), plan
     if case == "rotation_729":
         assert len(port_set.buckets) == 3
     if case == "single_stage":

@@ -393,17 +393,25 @@ def test_idle_live_facade_holds_the_window_open():
     assert pool.tenants() == []
 
 
-def test_shutting_a_facade_down_twice_keeps_the_live_set():
-    """A facade leaves the live set once, however often it is shut down;
-    the others stay live."""
+@pytest.mark.parametrize("second", ["u", "t"])
+def test_shutting_a_facade_down_twice_keeps_the_live_set(second):
+    """A facade leaves the live set once, however often it is shut down,
+    and releasing its tenant once more, as a caller that shuts its
+    optimizer down and then releases may, changes nothing for the others:
+    a second facade, of another tenant or of the same one, stays live and
+    keeps its tenant listed and weighted until its own shutdown."""
     pool = _pool(pack_window_s=0.0)
-    a, b = pool.executor_for("t"), pool.executor_for("u")
+    a, b = pool.executor_for("t"), pool.executor_for(second)
     a.shutdown()
     a.shutdown()
+    pool.release_tenant("t")
     assert set(pool._live) == {b}
+    assert pool.tenants() == pool.snapshot()["tenants"] == [second]
+    assert second in pool._weights
     b.shutdown()
     b.shutdown()
     assert len(pool._live) == 0
+    assert pool.tenants() == [] and pool._weights == {}
 
 
 def test_pack_window_counters_export_flat():
